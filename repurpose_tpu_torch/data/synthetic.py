@@ -1,0 +1,73 @@
+"""Synthetic samples shaped like Repurpose-10K (numpy only).
+
+Copied from ``repurpose_tpu/data/synthetic.py``: the same random draws from
+the same ``numpy`` generator give the same samples in both packages, so a
+seed names one corpus for both.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repurpose_tpu_torch.config import ModelConfig
+from repurpose_tpu_torch.data.labels import (
+    generate_regression_offsets,
+    generate_time_status_list,
+)
+
+
+def synthetic_entry(rng: np.random.Generator, duration: int) -> dict:
+    """One split-JSON entry with plausible segment annotations."""
+    n_segs = int(rng.integers(1, max(2, duration // 90)))
+    starts = np.sort(rng.uniform(0, max(1.0, duration - 90), n_segs))
+    segs = []
+    for s in starts:
+        e = min(duration, s + float(rng.uniform(10, 90)))
+        if not segs or s > segs[-1][1]:
+            segs.append([float(s), float(e)])
+    return {
+        "youtube_id": f"synth{rng.integers(0, 1 << 30):08x}",
+        "timeRange": [0, float(duration)],
+        "timeRangeOffset": [0, float(duration)],
+        "segments": segs,
+        "segmentsOffset": segs,
+        "coverage": sum(e - s for s, e in segs) / duration,
+    }
+
+
+def synthetic_sample(
+    rng: np.random.Generator,
+    duration: int,
+    model_cfg: ModelConfig,
+    signal: float = 0.0,
+) -> dict:
+    """In-memory sample dict matching RepurposeDataset.__getitem__ output.
+    ``signal`` > 0 adds a fixed per-modality direction to the features of
+    seconds inside annotated clips, so the corpus is learnable."""
+    entry = synthetic_entry(rng, duration)
+    t = int(duration) + 1
+    labels = generate_time_status_list(
+        entry["timeRangeOffset"], entry["segmentsOffset"]
+    )
+    offsets = generate_regression_offsets(
+        entry["timeRangeOffset"], entry["segmentsOffset"]
+    )
+    n = min(t, len(labels))
+    dims = {"visual": model_cfg.vis_dim, "audio": model_cfg.aud_dim,
+            "text": model_cfg.text_dim}
+    feats = {m: rng.normal(0, 1, (n, d)).astype(np.float32) for m, d in dims.items()}
+    if signal > 0.0:
+        sig_rng = np.random.default_rng(777)  # fixed directions across samples
+        lab = np.asarray(labels[:n], np.float32)[:, None]
+        for m, d in dims.items():
+            direction = sig_rng.normal(0, 1, d).astype(np.float32)
+            direction /= np.linalg.norm(direction)
+            feats[m] = feats[m] + signal * lab * direction
+    return {
+        "video_id": entry["youtube_id"],
+        **feats,
+        "labels": np.asarray(labels[:n], np.float32),
+        "segments": np.asarray(offsets[:n], np.float32),
+        "duration": n,
+        "gt_segments": entry["segmentsOffset"],
+    }
