@@ -9,17 +9,30 @@ Phases (each raises on failure; the script then exits non-zero and prints no
 verdict line):
 
 1. card and build: print the card's name and power limit, build every
-   kernel of ``repurpose_tpu_torch/csrc`` with nvcc for sm_90a;
-2. kernel vs plain: the flash forward against its plain PyTorch version at
-   the main path's shapes ([8, 2048, 8, 64] bf16, unpacked and packed, bf16
-   and float32 softmax interior; T = 1000 in float32), with times of the
-   kernel, the plain version, ``scaled_dot_product_attention`` (yardstick
-   only) and the card's bound for the same work;
-3. main path: the flagship MMCT (d_model 512, 16 layers, 8 heads, bf16,
+   kernel of ``repurpose_tpu_torch/csrc`` (one nvcc per source, in parallel)
+   for sm_90a;
+2. forward kernel vs plain: the flash forward against its plain PyTorch
+   version at [8, 2048, 8, 64] bf16 (unpacked and packed, bf16 and float32
+   softmax interior) and T = 1000 in float32, with times of the kernel, the
+   plain version, ``scaled_dot_product_attention`` (yardstick only) and the
+   card's bound for the same work;
+3. backward kernels vs plain: dq and dk/dv against their plain versions at
+   the training shapes ([6, 2048, 8, 64] bf16, unpacked and packed, both
+   interiors; [6, 1000, 8, 64] float32), timed likewise, with SDPA's
+   backward as the yardstick;
+4. serving: the flagship MMCT (d_model 512, 16 layers, 8 heads, bf16,
    random weights from a numpy seed) serves requests of synthetic videos
-   through ``InferencePipeline.score_videos``, unpacked and packed; the
-   kernel's launch count must be 16 per forward batch;
-4. a JSON line listing every ported kernel, then the verdict line
+   through ``InferencePipeline.score_videos``, unpacked and packed; 16 flash
+   forward launches per forward batch;
+5. training: the production config (packed [6, 2048] batches, bf16, dropout
+   0.1) trains one epoch of synthetic videos through the CLI's ``run``:
+   finite losses, the val probe, a checkpoint that ``resume()`` restores,
+   the tIoU evaluation, and exactly 16 launches of each kernel per forward
+   or step; then the step time, videos/s and a profiler breakdown of one
+   step;
+6. gradients: one packed [6, 2048] step of the kernel model against the
+   plain-attention model, parameter by parameter;
+7. a JSON line listing every ported kernel, then the verdict line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -30,9 +43,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -52,6 +67,31 @@ TOL = {
     "float32": dict(out_atol=1e-4, out_rtol=1e-4, lse_atol=1e-4),
     "bfloat16": dict(out_atol_rel_max=1e-2, out_rtol=1e-2, lse_atol=1e-2),
 }
+# Backward kernels vs plain, on max |kernel - plain| as a fraction of max
+# |plain gradient|. float32 with the float32 interior: 1e-4 (sums in another
+# order, ~1e-6 relative each). bf16 inputs or the bf16 interior: 1e-2; the
+# gradients are bf16 (one ulp is 2**-8 relative), and a last-bit difference
+# in s or dp can flip the bf16 rounding of single p / ds entries. Relative to
+# the maximum because gradients of ~2000-key softmaxes are small: a fixed
+# bound would accept gradients of zeros.
+BWD_REL = {("float32", "float32"): 1e-4}
+BWD_REL_BF16 = 1e-2
+# One training step's parameter gradients, kernel model against the
+# plain-attention model (mha_torch), same weights and batch, dropout 0:
+# relative L2 error per parameter.
+# - Production setting (bf16 activations, the kernels' bf16 softmax interior
+#   against the plain model's float32 softmax): 0.25. Every attention
+#   probability differs by bf16 rounding (2**-8 relative) in each of 16
+#   layers, and the residual stream carries it to the input side: the input
+#   projection's gradient was 0.142 off on the first run, the in_proj
+#   weights ~0.01. A missing gradient or a wrong mask is off by ~1.
+# - float32 activations and interior (the kernels' float32 path): 1e-2. The
+#   two differ only by float32 summation order, ~1e-4 per parameter (median
+#   1.1e-4, in_proj weights <= 1.5e-4 on the first run), but the input side
+#   sums random-sign terms over every position after 16 layers and showed
+#   1.7e-3 (input projection).
+GRAD_REL_BOUND = {"bfloat16": 0.25, "float32": 1e-2}
+
 # Whole-model bound on the cls logits (O(1) values) where bf16 rounding
 # differs: the kernel's bf16 softmax interior against the plain float32
 # softmax, or packed rows against unpacked ones. Sixteen bf16 layers give
@@ -59,6 +99,33 @@ TOL = {
 # mask or a dropped key tile, which move logits by O(1).
 BF16_LOGIT_MAX = 0.1
 BF16_LOGIT_MEAN = 0.02
+
+
+def production_config():
+    """``load_config("configs/repurpose.yaml")`` built in Python: the card's
+    machine has no PyYAML (a CPU test holds the two equal)."""
+    from repurpose_tpu_torch.config import (
+        Config, DatasetConfig, MeshConfig, ModelConfig, TestConfig, TrainConfig,
+    )
+
+    def split(name: str) -> DatasetConfig:
+        return DatasetConfig(label_path=f"data/{name}.json",
+                             video_path="data/video_clip_features",
+                             audio_path="data/audio_pann_features",
+                             text_path="data/caption_features")
+
+    return Config(
+        train_dataset=split("train"), val_dataset=split("val"), test_dataset=split("test"),
+        model=ModelConfig(attention_impl="auto", compute_dtype="bfloat16"),
+        train=TrainConfig(seed=1234, lr=1e-3, epochs=50, weight_decay=1e-4,
+                          warmup_epochs=0, save_epochs=5, batch_size=6, eval_freq=1,
+                          intra_epoch_eval_freq=50, buckets=(256, 512, 1024, 2048),
+                          pack_sequences=True, loss_norm="batch_size"),
+        mesh=MeshConfig(data=-1, model=1, seq=1, pipe=1),
+        test_cfg=TestConfig(pre_nms_topk=1000, pre_nms_thresh=0.5, duration_thresh=10,
+                            duration_thresh_max=90, max_seg_per_min=0.3, nms_sigma=0.5,
+                            min_score=0.01),
+    )
 
 
 def check(cond: bool, msg: str) -> None:
@@ -251,6 +318,118 @@ def phase_kernel_vs_plain() -> list[dict]:
     return rows
 
 
+def _bwd_bound(q, kv, seg, products: int, outputs: int):
+    """Least time for one backward kernel's work on these inputs: ``products``
+    products of 2*Dh operations per allowed (valid query, key) pair and head
+    (dq: s, dp, dq; dk/dv: s, dp, dv, dk), against q/k/v/g/o rows up to each
+    batch row's last valid key read once, lse read once and ``outputs``
+    gradients written once."""
+    import torch
+
+    b, t, h, dh = q.shape
+    if seg is None:
+        n = kv.sum(dim=1).double()
+        pairs = float((n * n).sum())
+    else:
+        counts = torch.stack([(seg == s).sum(dim=1) for s in range(int(seg.max()) + 1)])
+        pairs = float((counts.double() ** 2).sum())
+    flops = products * 2.0 * pairs * h * dh
+    idx = torch.arange(t, device=kv.device)
+    kvl = torch.where(kv, idx + 1, 0).amax(dim=1)
+    elem = q.element_size()
+    bytes_ = (5 * float(kvl.sum()) * h * dh * elem + b * h * t * 4 + kv.numel()
+              + (0 if seg is None else seg.numel() * 4) + outputs * q.numel() * elem)
+    dtype = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    t_ops = flops / PEAK_OPS[dtype] * 1e3
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops, bytes_)
+
+
+def phase_backward_vs_plain() -> list[dict]:
+    """The dq and dk/dv kernels against their plain versions at the training
+    shapes, on o / lse from the kernel forward and an upstream gradient that
+    is random before each row's last valid key and 0 past it (the model's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repurpose_tpu_torch.ops.flash_attention import (
+        _kv_len,
+        flash_bwd_dkv,
+        flash_bwd_dkv_reference,
+        flash_bwd_dq,
+        flash_bwd_dq_reference,
+        flash_forward,
+    )
+
+    variants = [
+        dict(name="packed_bf16_softmax_bf16", shape=(6, 2048, 8, 64),
+             dtype="bfloat16", sm="bfloat16", packed=True),
+        dict(name="unpacked_bf16_softmax_bf16", shape=(6, 2048, 8, 64),
+             dtype="bfloat16", sm="bfloat16", packed=False),
+        dict(name="packed_bf16_softmax_f32", shape=(6, 2048, 8, 64),
+             dtype="bfloat16", sm="float32", packed=True),
+        dict(name="unpacked_bf16_softmax_f32", shape=(6, 2048, 8, 64),
+             dtype="bfloat16", sm="float32", packed=False),
+        dict(name="unpacked_f32_T1000", shape=(6, 1000, 8, 64),
+             dtype="float32", sm="float32", packed=False),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = []
+    for var in variants:
+        q, k, v, kv, seg = _attention_inputs(var, gen)
+        sm = var["sm"]
+        o, lse = flash_forward(q, k, v, kv, seg_ids=seg, softmax_dtype=sm)
+        past = torch.arange(q.shape[1], device="cuda")[None, :] >= _kv_len(kv)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        g = g.masked_fill(past[:, :, None, None], 0.0)
+        args = (q, k, v, kv, o, lse, g, seg, sm)
+        got = dict(dq=flash_bwd_dq(*args))
+        got["dk"], got["dv"] = flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        want = dict(dq=flash_bwd_dq_reference(*args))
+        want["dk"], want["dv"] = flash_bwd_dkv_reference(*args)
+        rel = BWD_REL.get((var["dtype"], sm), BWD_REL_BF16)
+        errs = {}
+        for name in ("dq", "dk", "dv"):
+            a, w = got[name].float(), want[name].float()
+            scale = float(w.abs().max())
+            errs[name] = float((a - w).abs().max())
+            check(errs[name] <= rel * scale,
+                  f"{var['name']} {name}: max err {errs[name]:.3g} > {rel} x max {scale:.3g}")
+            check(bool(torch.isfinite(a).all()), f"{var['name']} {name}: non-finite")
+            check(bool((got[name][past] == 0).all()),
+                  f"{var['name']} {name}: rows past kvl are not 0")
+
+        # yardstick, never called by the port: the backward alone of SDPA on
+        # the same boolean mask
+        allowed = kv[:, None, None, :]
+        if seg is not None:
+            allowed = allowed & (seg[:, None, :, None] == seg[:, None, None, :])
+        leaves = [z.transpose(1, 2).detach().requires_grad_() for z in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+        g_t = g.transpose(1, 2)
+        library_ms = median_ms(
+            lambda: torch.autograd.grad(out, leaves, g_t, retain_graph=True), reps=10)
+        row = dict(name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
+                   softmax_dtype=sm, packed=var["packed"], library_ms=library_ms)
+        for kname, fn, ref_fn, products, outputs, keys in (
+            ("dq", flash_bwd_dq, flash_bwd_dq_reference, 3, 1, ("dq",)),
+            ("dkv", flash_bwd_dkv, flash_bwd_dkv_reference, 4, 2, ("dk", "dv")),
+        ):
+            bound_ms, bound_by, flops, bytes_ = _bwd_bound(q, kv, seg, products, outputs)
+            row[kname] = dict(
+                max_abs_err=max(errs[x] for x in keys),
+                ms=median_ms(lambda: fn(*args), reps=20, warmup=3),
+                plain_ms=median_ms(lambda: ref_fn(*args), reps=3, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
+        print(f"[backward] {json.dumps(row)}")
+        rows.append(row)
+        del q, k, v, kv, seg, o, lse, g, got, want, args, allowed, leaves, out, g_t
+        torch.cuda.empty_cache()
+    return rows
+
+
 # -- phase 3 ------------------------------------------------------------------
 
 
@@ -415,6 +594,198 @@ def _profile_request(pipe, videos, card: str) -> None:
               f"{e.key[:90]}")
 
 
+# -- phase 4 ------------------------------------------------------------------
+
+
+TRAIN_VIDEOS = 64  # synthetic training videos: about six packed [6, 2048] steps
+
+
+def _training_config(steps_per_epoch: int | None = None):
+    """The production config, one epoch that saves, evaluates and runs the
+    val probe once (at its last step)."""
+    cfg = production_config()
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=1, save_epochs=1, eval_freq=1,
+        intra_epoch_eval_freq=steps_per_epoch or cfg.train.intra_epoch_eval_freq))
+
+
+def phase_training(card: str, workdir: str) -> dict:
+    """The flagship model trains through ``python -m repurpose_tpu_torch.train``'s
+    entry (``run(cfg, args)``) on synthetic videos: packed [6, 2048] batches,
+    bf16, dropout 0.1, one epoch with the val probe, a checkpoint and the
+    tIoU evaluation. Every MMCT forward launches the flash forward 16 times,
+    every training step the two backward kernels 16 times each."""
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch.data.loader import BatchLoader
+    from repurpose_tpu_torch.models.mmct import MMCT
+    from repurpose_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_forward,
+    )
+    from repurpose_tpu_torch.train import __main__ as cli
+    from repurpose_tpu_torch.train.loop import Trainer
+
+    cfg = _training_config()
+    train_ds, _, _ = cli.build_datasets(cfg, TRAIN_VIDEOS)
+    steps = BatchLoader(train_ds, cfg.train.batch_size, cfg.train.buckets,
+                        seed=cfg.train.seed, pack=True).batches_per_epoch(0)
+    cfg = _training_config(steps)
+    args = cli.parse_args(["--synthetic", str(TRAIN_VIDEOS), "--epochs", "1",
+                           "--workdir", workdir])
+    forwards = {"all": 0, "grad": 0}
+
+    def count(module, inputs, output):
+        if isinstance(module, MMCT):
+            forwards["all"] += 1
+            forwards["grad"] += int(torch.is_grad_enabled() and module.training)
+
+    hook = torch.nn.modules.module.register_module_forward_hook(count)
+    flash_forward.launches = flash_bwd_dq.launches = flash_bwd_dkv.launches = 0
+    t0 = time.perf_counter()
+    try:
+        summary = cli.run(cfg, args)
+    finally:
+        hook.remove()
+    wall_s = time.perf_counter() - t0
+    launches = dict(flash_fwd=flash_forward.launches, flash_bwd_dq=flash_bwd_dq.launches,
+                    flash_bwd_dkv=flash_bwd_dkv.launches)
+    layers = cfg.model.self_num_layers
+    check(summary["step"] == steps == forwards["grad"] and steps > 0,
+          f"{summary['step']} steps, {forwards['grad']} training forwards, plan {steps}")
+    check(launches["flash_fwd"] == layers * forwards["all"],
+          f"flash_fwd launched {launches['flash_fwd']} times for {forwards['all']} forwards")
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[name] == layers * steps,
+              f"{name} launched {launches[name]} times for {steps} steps")
+    print(f"[train] {card}: {steps} steps of packed [6, 2048] batches, {forwards['all']} "
+          f"forwards (val probe and eval included), launches {json.dumps(launches)} = "
+          f"{layers} per forward / per step; run {wall_s:.1f} s on the host clock")
+
+    lines = [json.loads(line) for line in open(os.path.join(workdir, "metrics.jsonl"))]
+    losses = [m["batch/loss"] for m in lines if "batch/loss" in m]
+    check(len(losses) > 0 and all(np.isfinite(x) for x in losses)
+          and np.isfinite(summary["final_loss"]), f"non-finite losses {losses}")
+    check(any("val/loss" in m and np.isfinite(m["val/loss"]) for m in lines),
+          "the val probe did not run")
+    tiou_keys = {f"tiou/{t}" for t in (0.5, 0.6, 0.7, 0.8, 0.9)} | {"tiou/mean"}
+    check(tiou_keys <= set(summary), f"evaluate returned {sorted(summary)}")
+    blob = torch.load(os.path.join(workdir, "ckpt", f"{steps}.pt"), map_location="cpu",
+                      weights_only=True)
+    check(blob["nonfinite_count"] == 0 and blob["step"] == steps, "bad checkpoint")
+
+    trainer = Trainer(cfg, workdir, train_ds, device="cuda")
+    check(trainer.resume() and trainer.state.step == steps and trainer.start_epoch == 1,
+          "resume() did not restore the checkpoint's step")
+    print(f"[train] {card}: final loss {summary['final_loss']:.4f}, val probe ran, "
+          f"checkpoint at step {steps} restored by resume(); eval "
+          f"{json.dumps({k: summary[k] for k in sorted(tiou_keys)})}")
+
+    # step time after warm-up: staging (H2D) + forward + backward + Adam,
+    # synchronised, on the epoch's own packed batches
+    times, videos = [], []
+    for i, batch in enumerate(trainer.train_loader.epoch(1)):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = trainer.train_step(trainer.state, trainer._device_batch(batch))
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t1)
+            videos.append(int(m["n_real"]))
+    step_ms = statistics.median(times) * 1e3
+    videos_per_s = sum(videos) / sum(times)
+    print(f"[train] {card}: step {step_ms:.2f} ms median over {len(times)} steps after "
+          f"2 warm-up, {videos_per_s:.2f} videos/s ({sum(videos)} videos)")
+    profile = _profile_step(trainer, card)
+    trainer.close()
+    return dict(launches=launches, steps=steps, step_ms=step_ms,
+                videos_per_s=videos_per_s, **profile)
+
+
+def _profile_step(trainer, card: str) -> dict:
+    """Where one training step's time goes: device time by kernel against
+    the host clock (torch.profiler with CUDA activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer._device_batch(next(iter(trainer.train_loader.epoch(2))))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    check(busy_ms > 0, "the profiler saw no device time")
+    print(f"[profile] {card}: one training step: {wall_ms:.1f} ms on the host clock, "
+          f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f} %)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms  {e.count:5d} x  "
+              f"{e.key[:90]}")
+    return dict(profile_wall_ms=wall_ms, profile_busy_ms=busy_ms)
+
+
+def _step_grads(cfg, train_cfg, batch, impl: str) -> dict:
+    """Parameter gradients of one step (dropout 0) with ``impl`` attention."""
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.train.step import loss_fn
+
+    model = build_model(dataclasses.replace(cfg, dropout=0.0, attention_impl=impl),
+                        "cuda", seed=SEED).train()
+    loss_fn(model, train_cfg, batch)[0].backward()
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def phase_gradients(card: str) -> None:
+    """Every parameter gradient of one step of the kernel model (flash forward
+    and backward kernels) against the same model with the plain attention
+    (autograd through mha_torch), same weights, on a packed [6, 2048] batch:
+    in the production setting (bf16, bf16 interior), and in float32 on two of
+    its rows (the kernels' float32 path, where only summation order
+    differs)."""
+    from repurpose_tpu_torch.data.batching import Batch
+    from repurpose_tpu_torch.data.loader import BatchLoader
+    from repurpose_tpu_torch.train import __main__ as cli
+    from repurpose_tpu_torch.train.step import batch_to_device
+
+    cfg = _training_config()
+    train_ds, _, _ = cli.build_datasets(cfg, 16)
+    batch = next(iter(BatchLoader(train_ds, cfg.train.batch_size, cfg.train.buckets,
+                                  seed=cfg.train.seed, pack=True).epoch(0)))
+    batch = batch_to_device(batch, "cuda")
+    layers = cfg.model.self_num_layers
+    qkv = [f"multimodal_encoder.layers.{i}.self_attn.in_proj_weight" for i in range(layers)]
+    f32 = dataclasses.replace(cfg.model, compute_dtype="float32",
+                              attn_softmax_dtype="float32")
+    two_rows = Batch(*[None if x is None else x[:2] for x in batch])
+    for dtype, model_cfg, b in (("bfloat16", cfg.model, batch), ("float32", f32, two_rows)):
+        kernel = _step_grads(model_cfg, cfg.train, b, "auto")
+        plain = _step_grads(model_cfg, cfg.train, b, "xla")
+        rels = {}
+        for name, g_plain in plain.items():
+            if g_plain is None:  # the reg head: no loss reaches it
+                check(kernel[name] is None, f"{name}: gradient where the plain model has none")
+                continue
+            check(kernel[name] is not None, f"{name}: no gradient through the kernels")
+            rels[name] = float((kernel[name] - g_plain).norm() / g_plain.norm())
+        worst = sorted(rels, key=rels.get)[-3:]
+        print(f"[grad] {card}: {dtype}, kernel vs plain-attention model, one packed "
+              f"[{b.visual.shape[0]}, {b.visual.shape[1]}] step: {len(rels)} parameter "
+              f"gradients, relative L2 error median {statistics.median(rels.values()):.4g}, "
+              f"worst " + ", ".join(f"{n} {rels[n]:.4g}" for n in worst)
+              + f"; in_proj_weight {min(rels[n] for n in qkv):.4g}.."
+              f"{max(rels[n] for n in qkv):.4g} over {layers} layers")
+        check(all(float(kernel[n].abs().max()) > 0 for n in qkv),
+              "an in_proj_weight gradient is zero")
+        bound = GRAD_REL_BOUND[dtype]
+        bad = {n: r for n, r in rels.items() if not r <= bound}
+        check(not bad, f"{dtype}: relative gradient errors past {bound}: {bad}")
+        del kernel, plain
+
+
 def main() -> int:
     import torch
 
@@ -429,15 +800,41 @@ def main() -> int:
 
     card = phase_card_and_build()
     variants = phase_kernel_vs_plain()
+    bwd_variants = phase_backward_vs_plain()
     served = phase_main_path(card)
+    os.makedirs(os.path.join(ROOT, "runs"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=os.path.join(ROOT, "runs"))
+    try:
+        trained = phase_training(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    phase_gradients(card)
+
     head = next(r for r in variants if r["name"] == "packed_bf16_softmax_bf16")
+    bwd_head = next(r for r in bwd_variants if r["name"] == "packed_bf16_softmax_bf16")
+    source = "repurpose_tpu_torch/csrc/"
     kernels = [dict(
-        name="flash_fwd", route="cuda", source="repurpose_tpu_torch/csrc/flash_fwd.cu",
-        replaces="repurpose_tpu/ops/flash_attention.py:227", launches=served["launches"],
+        name="flash_fwd", route="cuda", source=source + "flash_fwd.cu",
+        replaces="repurpose_tpu/ops/flash_attention.py:227",
+        launches=trained["launches"]["flash_fwd"],
+        launches_by_path=dict(serving=served["launches"],
+                              training=trained["launches"]["flash_fwd"]),
         max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
         library_ms=head["library_ms"], variant=head["name"], variants=variants,
     )]
+    for name, key, line in (("flash_bwd_dq", "dq", 783), ("flash_bwd_dkv", "dkv", 1109)):
+        r = bwd_head[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=source + "flash_bwd.cu",
+            replaces=f"repurpose_tpu/ops/flash_attention.py:{line}",
+            launches=trained["launches"][name], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=bwd_head["library_ms"],
+            variant=bwd_head["name"],
+            variants=[dict(name=v["name"], **v[key], library_ms=v["library_ms"])
+                      for v in bwd_variants],
+        ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """PyTorch / CUDA port of repurpose_tpu for NVIDIA Hopper (H100).
 
-The serving path (MMCT forward -> decode -> Soft-NMS) runs here in PyTorch;
-the attention forward is a CUDA C++ kernel written for ``sm_90a``
-(``csrc/flash_fwd.cu``, bound in ``native.py``). The JAX package
+The serving path (MMCT forward -> decode -> Soft-NMS, ``infer.py``) and the
+training path (focal loss, Adam, the ``Trainer`` and ``python -m
+repurpose_tpu_torch.train``) run here in PyTorch; the attention forward and
+backward are CUDA C++ kernels written for ``sm_90a`` (``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu``, bound in ``native.py``). The JAX package
 ``repurpose_tpu`` stays the reference: this package imports nothing of it,
 and none of JAX, Flax or Optax.
 

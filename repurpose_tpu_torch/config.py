@@ -9,8 +9,9 @@ Knobs that only mean something on the TPU are kept for config compatibility
 and read as follows here:
 
 - ``attention_impl``: "xla" is the plain PyTorch attention (``mha_torch``);
-  "auto", "pallas" and "pallas_full" take the CUDA flash forward for every
-  T; "ring" is not ported yet (ROADMAP).
+  "auto" and "pallas_full" take the CUDA flash forward and backward kernels
+  for every T, "pallas" the flash forward with the plain recompute backward;
+  "ring" is not ported yet (ROADMAP).
 - ``matmul_precision``: ignored. TF32 is off (package docstring), so every
   float32 product already runs at the reference's "highest" precision.
 - ``attn_softmax_dtype``: the element type of the kernel's softmax interior,
@@ -91,7 +92,9 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (reference: configs/Repurpose.yaml:33-44).
-    Carried so reference-schema files load; the port does not train yet."""
+    ``pipeline_*``, ``shard_opt_state`` and ``rng_impl`` are carried so
+    reference-schema files load; the port trains on one card and ignores
+    them."""
 
     seed: int = 1234
     lr: float = 1e-3

@@ -2,10 +2,13 @@
 
 Copied from ``repurpose_tpu/data/synthetic.py``: the same random draws from
 the same ``numpy`` generator give the same samples in both packages, so a
-seed names one corpus for both.
+seed names one corpus for both. ``SyntheticDataset`` holds samples in
+memory.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import numpy as np
 
@@ -71,3 +74,29 @@ def synthetic_sample(
         "duration": n,
         "gt_segments": entry["segmentsOffset"],
     }
+
+
+class SyntheticDataset:
+    """In-memory dataset with the RepurposeDataset access protocol."""
+
+    def __init__(
+        self,
+        durations: Sequence[int],
+        model_cfg: ModelConfig,
+        seed: int = 0,
+        signal: float = 0.0,
+    ):
+        rng = np.random.default_rng(seed)
+        self.samples = [
+            synthetic_sample(rng, d, model_cfg, signal=signal) for d in durations
+        ]
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, idx: int) -> dict:
+        return self.samples[idx]
+
+    def lengths(self) -> list[int]:
+        return [s["duration"] for s in self.samples]
+

@@ -1,4 +1,4 @@
-"""Pre-LN transformer encoder, inference only (``repurpose_tpu/models/encoder.py``).
+"""Pre-LN transformer encoder (``repurpose_tpu/models/encoder.py``).
 
 Parameters carry the reference MMCTransformer's state-dict names
 (``multimodal_encoder.layers.{i}.self_attn.in_proj_weight`` ...), so
@@ -7,10 +7,15 @@ reference checkpoints load strictly. Numerics follow the JAX model:
 - parameters are float32 and cast to the compute dtype at use (bf16 Dense);
 - LayerNorms compute in float32 and are cast back to the compute dtype;
 - the packed QKV projection's output is split into q/k/v views that go to
-  the attention kernel without a copy.
+  the attention kernel without a copy;
+- dropout where the JAX encoder has it: after the attention output
+  projection, after the FFN ReLU and after the FFN output (none on the
+  attention weights, which the fused kernels do not expose). It is active in
+  ``model.train()`` only, with masks from the generator that
+  ``MMCT.set_dropout_generator`` hands out.
 
-Dropout and rematerialisation belong to training, which is not ported yet:
-this encoder is deterministic.
+Rematerialisation (``ModelConfig.remat``) is not ported: the training entry
+points raise for it.
 """
 
 from __future__ import annotations
@@ -35,6 +40,24 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
     return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, LN_EPS)
 
 
+class Dropout(nn.Module):
+    """Flax ``nn.Dropout``: zero each element with probability ``p`` and scale
+    the rest by 1/(1-p), in train mode only. The masks come from
+    ``generator`` (None: torch's default generator)."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                device=x.device))
+
+
 class SelfAttention(nn.Module):
     """Packed-QKV multi-head self-attention in torch MHA's parameter layout."""
 
@@ -57,7 +80,8 @@ class SelfAttention(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """x + SA(LN1(x)); x + FFN(LN2(x)) — pre-LN residual block."""
+    """x + Drop(SA(LN1(x))); x + Drop(FFN(LN2(x))) — pre-LN residual block
+    (dropout module names as in torch's TransformerEncoderLayer)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -66,14 +90,17 @@ class EncoderLayer(nn.Module):
         self.linear2 = nn.Linear(cfg.d_ff, cfg.d_model)
         self.norm1 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
+        self.dropout1 = Dropout(cfg.dropout)  # attention output
+        self.dropout = Dropout(cfg.dropout)  # FFN hidden
+        self.dropout2 = Dropout(cfg.dropout)  # FFN output
 
     def forward(self, x, key_valid, seg_ids=None):
         dtype = x.dtype
         y = layer_norm(x, self.norm1).to(dtype)
-        x = x + self.self_attn(y, key_valid, seg_ids)
+        x = x + self.dropout1(self.self_attn(y, key_valid, seg_ids))
         y = layer_norm(x, self.norm2).to(dtype)
-        y = torch.relu(linear(y, self.linear1, dtype))
-        return x + linear(y, self.linear2, dtype)
+        y = self.dropout(torch.relu(linear(y, self.linear1, dtype)))
+        return x + self.dropout2(linear(y, self.linear2, dtype))
 
 
 class Encoder(nn.Module):

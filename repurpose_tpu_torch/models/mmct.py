@@ -12,7 +12,9 @@ Module and parameter names are the reference MMCTransformer's
 are the JAX model's: bf16 Dense layers on float32 parameters, float32
 LayerNorms cast back to the compute dtype (the input norm stays float32 until
 the PE is added), the heads' last Dense in float32, and the PE gathered by
-``positions`` on packed batches.
+``positions`` on packed batches. Dropout (``ModelConfig.dropout``) sits where
+the JAX model has it: in the encoder layers, after the feature map's ReLU and
+after each head hidden ReLU; it is active in ``model.train()`` only.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repurpose_tpu_torch.config import ModelConfig
-from repurpose_tpu_torch.models.encoder import LN_EPS, Encoder, layer_norm, linear
+from repurpose_tpu_torch.models.encoder import LN_EPS, Dropout, Encoder, layer_norm, linear
 from repurpose_tpu_torch.models.positional import sinusoidal_positional_encoding
 
 
@@ -35,8 +37,9 @@ class MMCTOutput(NamedTuple):
 
 
 class _Head(nn.Module):
-    """LN -> Dense(hidden) -> relu -> Dense(hidden) -> relu -> Dense(out), with
-    the reference's Sequential indices (0 norm, 1 and 4 hidden, 7 out)."""
+    """LN -> Dense(hidden) -> relu -> drop -> Dense(hidden) -> relu -> drop ->
+    Dense(out), with the reference's Sequential indices (0 norm, 1 and 4
+    hidden, 3 and 6 dropout, 7 out)."""
 
     def __init__(self, cfg: ModelConfig, out_dim: int, final_relu: bool):
         super().__init__()
@@ -44,15 +47,17 @@ class _Head(nn.Module):
         self.final_relu = final_relu
         self.add_module("0", nn.LayerNorm(cfg.d_model, eps=LN_EPS))
         self.add_module("1", nn.Linear(cfg.d_model, cfg.hidden_dim))
+        self.add_module("3", Dropout(cfg.dropout))
         self.add_module("4", nn.Linear(cfg.hidden_dim, cfg.hidden_dim))
+        self.add_module("6", Dropout(cfg.dropout))
         self.add_module("7", nn.Linear(cfg.hidden_dim, out_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         m = self._modules
         dtype = x.dtype
         y = layer_norm(x, m["0"]).to(dtype)
-        y = torch.relu(linear(y, m["1"], dtype))
-        y = torch.relu(linear(y, m["4"], dtype))
+        y = m["3"](torch.relu(linear(y, m["1"], dtype)))
+        y = m["6"](torch.relu(linear(y, m["4"], dtype)))
         y = linear(y, m["7"], torch.float32)
         if self.final_relu:
             y = torch.relu(y) if self.cfg.reg_activation == "relu" else F.softplus(y)
@@ -84,9 +89,18 @@ class MMCT(nn.Module):
         self.positional_encoding = _PositionalEncoding(cfg)
         self.multimodal_encoder = Encoder(cfg)
         self.encoder_norm = nn.LayerNorm(d, eps=LN_EPS)
-        self.feature_map = nn.Sequential(nn.Linear(d, d), nn.LayerNorm(d, eps=LN_EPS))
+        self.feature_map = nn.Sequential(
+            nn.Linear(d, d), nn.LayerNorm(d, eps=LN_EPS), nn.ReLU(), Dropout(cfg.dropout)
+        )
         self.cls_head = _Head(cfg, 1, final_relu=False)
         self.reg_head = _Head(cfg, 2, final_relu=True)
+
+    def set_dropout_generator(self, generator: torch.Generator | None) -> None:
+        """Draw every dropout mask from ``generator`` (a torch.Generator on
+        the model's device)."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -117,8 +131,8 @@ class MMCT(nn.Module):
         x = self.multimodal_encoder(x, mask, seg_ids)
         x = layer_norm(x, self.encoder_norm).to(dtype)
 
-        fmap, fnorm = self.feature_map
-        f = torch.relu(layer_norm(linear(x, fmap, dtype), fnorm).to(dtype))
+        fmap, fnorm, _, fdrop = self.feature_map
+        f = fdrop(torch.relu(layer_norm(linear(x, fmap, dtype), fnorm).to(dtype)))
         return MMCTOutput(
             cls_logits=self.cls_head(f), offsets=self.reg_head(f), feats=f
         )

@@ -44,6 +44,18 @@ SIGNATURES = {
             _I,
         ),
     },
+    "flash_bwd": {
+        "flash_bwd_dq": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+            _I,
+        ),
+        "flash_bwd_dkv": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+             _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+            _I,
+        ),
+    },
 }
 
 

@@ -6,11 +6,13 @@ Counterpart of ``repurpose_tpu/ops/attention.py``:
   -1e9 bias on masked keys (not -inf, so fully masked rows stay finite),
   block-diagonal attention under sequence packing (``seg_ids``), output in
   q's dtype. It is the correctness baseline and ``attention_impl="xla"``.
-- ``select_attention_impl`` resolves ``ModelConfig.attention_impl``. Every
-  kernel choice ("auto", "pallas", "pallas_full") takes the flash forward
-  (ops/flash_attention.py) for every T: the JAX "T >= 512 on TPU" switch and
-  its odd-T fallback are TPU tiling artefacts, and the Hopper kernel masks its
-  own ragged edge.
+- ``select_attention_impl`` resolves ``ModelConfig.attention_impl`` as the
+  JAX one does: "auto" and "pallas_full" take the flash forward and the flash
+  backward kernels, "pallas" the flash forward with the plain recompute
+  backward (the VJP of ``mha_torch``), both through the autograd Function of
+  ops/flash_attention.py, for every T: the JAX "T >= 512 on TPU" switch and
+  its odd-T fallbacks are TPU tiling artefacts, and the Hopper kernels mask
+  their own ragged edge.
 
 Masking follows torch's ``src_key_padding_mask``: padded keys are excluded
 from every query's softmax; padded query rows hold finite values that no
@@ -54,12 +56,12 @@ def select_attention_impl(impl: str, softmax_dtype: str = "float32") -> Callable
     if impl == "xla":
         return mha_torch
     if impl in ("auto", "pallas", "pallas_full"):
-        from repurpose_tpu_torch.ops.flash_attention import flash_forward
+        from repurpose_tpu_torch.ops.flash_attention import flash_attention
+
+        backward = "xla" if impl == "pallas" else "pallas"
 
         def flash(q, k, v, key_valid, seg_ids=None):
-            return flash_forward(
-                q, k, v, key_valid, seg_ids=seg_ids, softmax_dtype=softmax_dtype
-            )[0]
+            return flash_attention(q, k, v, key_valid, seg_ids, softmax_dtype, backward)
 
         return flash
     if impl == "ring":

@@ -1,5 +1,5 @@
-"""Flash attention forward: the wrapper around the CUDA kernel and its plain
-PyTorch version.
+"""Flash attention: the wrappers around the CUDA kernels, their plain
+PyTorch versions, and the autograd Function that ties them together.
 
 ``flash_forward`` is the counterpart of ``_flash_forward`` in
 ``repurpose_tpu/ops/flash_attention.py``, whose dense TPU kernel
@@ -18,16 +18,30 @@ on the TPU:
   and lse = ``SKIP_LSE``. The TPU kernel does so for whole query blocks past
   it; these rows are padding either way.
 
-On a CPU tensor the wrapper computes ``flash_forward_reference``, the plain
-version. On a CUDA tensor it launches the kernel or raises: there is no
-fallback.
+``flash_backward`` is the counterpart of ``_flash_backward`` (same argument
+order): ``flash_bwd_dq`` and ``flash_bwd_dkv`` replace the TPU kernels
+``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (+ ``_dkv_compute``), unpacked and
+packed, with the two kernels of ``csrc/flash_bwd.cu``. dq rows and dk/dv rows
+at or past ``_kv_len`` are 0. The upstream gradient must be 0 on query rows
+at or past ``_kv_len``, which is what the model gives (the loss masks those
+rows and masked keys carry no softmax mass): there the TPU forward leaves
+real lse values where this one writes ``SKIP_LSE``, so only with that
+contract do the two backwards agree on every row.
+
+``FlashAttention`` (``flash_attention``) is the autograd Function of the
+model's attention: the kernel forward, then the kernel backward or, with
+``backward="xla"``, the plain recompute backward (the VJP of ``mha_torch``,
+the JAX ``backward="xla"`` escape hatch).
+
+On a CPU tensor each wrapper computes its plain version. On a CUDA tensor it
+launches the kernel or raises: there is no fallback.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repurpose_tpu_torch.ops.attention import NEG_INF
+from repurpose_tpu_torch.ops.attention import NEG_INF, mha_torch
 
 # LSE written for query rows past the last valid key: large enough that a
 # backward's exp(s - lse) underflows to exactly 0, small enough to stay finite.
@@ -143,3 +157,180 @@ def flash_forward(
 
 
 flash_forward.launches = 0  # kernel launches; the plain CPU path does not count
+
+
+def _bwd_terms(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype):
+    """(q_s, p, ds) of the plain backward: the TPU kernels' rounding points
+    over the whole key axis at once."""
+    sm_dtype = _SM_DTYPES[softmax_dtype]
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    qs = (q.float() * scale).to(q.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
+    ok = key_valid[:, None, None, :]
+    if seg_ids is not None:
+        # select form: masked entries are chosen away after the exp (which
+        # may overflow there), never multiplied by a mask
+        ok = ok & (seg_ids[:, None, :, None] == seg_ids[:, None, None, :])
+        p = torch.where(ok, torch.exp((s - lse).to(sm_dtype)), 0.0)
+    else:
+        p = torch.exp((s + torch.where(ok, 0.0, NEG_INF) - lse).to(sm_dtype))
+    dp = torch.einsum("bqhd,bkhd->bhqk", g.float(), v.float())
+    delta = (g.float() * o.float()).sum(-1).permute(0, 2, 1)[..., None]  # [B, H, T, 1]
+    ds = p * (dp - delta).to(sm_dtype)
+    return qs, p, ds
+
+
+def _zero_past_kv_len(x: torch.Tensor, key_valid: torch.Tensor) -> torch.Tensor:
+    skip = torch.arange(x.shape[1], device=x.device)[None, :] >= _kv_len(key_valid)
+    return x.masked_fill(skip[:, :, None, None], 0.0)
+
+
+def flash_bwd_dq_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
+                           softmax_dtype: str = "float32") -> torch.Tensor:
+    """Plain PyTorch version of the dq kernel."""
+    _, _, ds = _bwd_terms(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float()) * scale
+    return _zero_past_kv_len(dq.to(q.dtype), key_valid)
+
+
+def flash_bwd_dkv_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
+                            softmax_dtype: str = "float32"):
+    """Plain PyTorch version of the dk/dv kernel: (dk, dv)."""
+    qs, p, ds = _bwd_terms(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qs.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).float(), g.float())
+    return (_zero_past_kv_len(dk.to(k.dtype), key_valid),
+            _zero_past_kv_len(dv.to(v.dtype), key_valid))
+
+
+def flash_backward_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
+                             softmax_dtype: str = "float32"):
+    """Plain PyTorch version of both backward kernels: (dq, dk, dv)."""
+    dq = flash_bwd_dq_reference(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    return dq, dk, dv
+
+
+def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype, outs):
+    """Checks the inputs and launches kernel ``name`` of csrc/flash_bwd.cu
+    into the preallocated ``outs``."""
+    import ctypes
+
+    _check_cuda_inputs(q, k, v, key_valid, seg_ids)
+    for x_name, x in (("o", o), ("g", g)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{x_name} {x.shape} {x.dtype} {x.device} does not match "
+                             f"q {q.shape} {q.dtype} {q.device}")
+        item = x.element_size()
+        if x.stride(3) != 1 or x.data_ptr() % 16 or any(
+            (x.stride(i) * item) % 16 for i in range(3)
+        ):
+            raise ValueError(f"{x_name}: contiguous head-dim axis and 16-byte rows needed")
+    b, t, h, dh = q.shape
+    if (lse.dtype != torch.float32 or lse.shape != (b, h, t, 1)
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous float32 [{b}, {h}, {t}, 1] on {q.device}")
+    from repurpose_tpu_torch import native
+
+    lib = native.load("flash_bwd")
+    key_valid = key_valid.contiguous()
+    if seg_ids is not None:
+        seg_ids = seg_ids.contiguous()
+    strides = (ctypes.c_longlong * 15)(
+        *(x.stride(i) for x in (q, k, v, g, o) for i in range(3))
+    )
+    err = getattr(lib, name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), o.data_ptr(), strides,
+        key_valid.data_ptr(), None if seg_ids is None else seg_ids.data_ptr(),
+        lse.data_ptr(), *(x.data_ptr() for x in outs),
+        b, t, h, dh, int(q.dtype == torch.bfloat16), int(softmax_dtype == "bfloat16"),
+        1.0 / (dh ** 0.5), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _bwd_device(q, softmax_dtype: str, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one."""
+    if softmax_dtype not in _SM_DTYPES:
+        raise ValueError(f"bad softmax_dtype: {softmax_dtype}")
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {q.device}")
+    return True
+
+
+def flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids=None,
+                 softmax_dtype: str = "float32") -> torch.Tensor:
+    """dq ``[B, T, H, Dh]`` in q's dtype (contiguous)."""
+    if not _bwd_device(q, softmax_dtype, "flash_bwd_dq"):
+        return flash_bwd_dq_reference(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("flash_bwd_dq", q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype, (dq,))
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, key_valid, o, lse, g, seg_ids=None,
+                  softmax_dtype: str = "float32"):
+    """(dk, dv), each ``[B, T, H, Dh]`` in the input dtype (contiguous)."""
+    if not _bwd_device(q, softmax_dtype, "flash_bwd_dkv"):
+        return flash_bwd_dkv_reference(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("flash_bwd_dkv", q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype,
+                (dk, dv))
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0  # kernel launches; the plain CPU path does not count
+flash_bwd_dkv.launches = 0
+
+
+def flash_backward(q, k, v, key_valid, o, lse, g, seg_ids=None,
+                   softmax_dtype: str = "float32"):
+    """(dq, dk, dv) of ``out = flash_forward(q, k, v, key_valid, seg_ids)[0]``
+    for the upstream gradient ``g``, given the forward's ``o`` and ``lse``.
+    q/k/v may be strided views as for ``flash_forward``; ``g`` and ``o`` need
+    a contiguous head-dim axis and 16-byte rows."""
+    dq = flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    dk, dv = flash_bwd_dkv(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the kernel forward and, for ``backward="pallas"``, the
+    kernel backward; ``backward="xla"`` recomputes the plain attention and
+    takes its VJP instead. Returns out ``[B, T, H, Dh]``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid, seg_ids, softmax_dtype, backward):
+        out, lse = flash_forward(q, k, v, key_valid, seg_ids, softmax_dtype)
+        ctx.save_for_backward(q, k, v, out, lse, key_valid, seg_ids)
+        ctx.softmax_dtype = softmax_dtype
+        ctx.recompute = backward == "xla"
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse, key_valid, seg_ids = ctx.saved_tensors
+        if ctx.recompute:
+            with torch.enable_grad():
+                qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+                ref = mha_torch(*qkv, key_valid, seg_ids)
+                dq, dk, dv = torch.autograd.grad(ref, qkv, g)
+        else:
+            dq, dk, dv = flash_backward(q, k, v, key_valid, out, lse, g.contiguous(),
+                                        seg_ids, ctx.softmax_dtype)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, key_valid, seg_ids=None, softmax_dtype: str = "float32",
+                    backward: str = "pallas") -> torch.Tensor:
+    """Differentiable flash attention: out ``[B, T, H, Dh]``."""
+    if backward not in ("pallas", "xla"):
+        raise ValueError(f"bad backward: {backward}")
+    return FlashAttention.apply(q, k, v, key_valid, seg_ids, softmax_dtype, backward)

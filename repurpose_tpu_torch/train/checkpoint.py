@@ -1,0 +1,74 @@
+"""Checkpoints with ``torch.save`` (``repurpose_tpu/train/checkpoint.py``,
+which uses Orbax).
+
+One file per step, ``<directory>/<step>.pt``, holding the model and optimizer
+state dicts, the step, ``nonfinite_count`` and a JSON-like metadata dict
+(epoch, best metric). The schedule needs no state: it is a function of the
+step. Writes go to a temporary file first and are renamed into place, so a
+crash mid-write never leaves a truncated checkpoint; only the newest
+``max_to_keep`` are kept.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+import torch
+
+from repurpose_tpu_torch.train.state import TrainState
+
+
+class Checkpointer:
+    def __init__(self, directory: str, max_to_keep: int | None = 5):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, step: int) -> Path:
+        return Path(self.directory) / f"{step}.pt"
+
+    def all_steps(self) -> list[int]:
+        return sorted(int(p.stem) for p in Path(self.directory).glob("*.pt")
+                      if p.stem.isdigit())
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: TrainState, metadata: dict | None = None) -> None:
+        """Writes step ``step``, replacing a checkpoint of the same step (a
+        best-tIoU save can land on the step the epoch save just wrote)."""
+        blob = {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step),
+            "nonfinite_count": int(state.nonfinite_count),
+            "meta": dict(metadata or {}),
+        }
+        path = self._path(step)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        torch.save(blob, tmp)
+        os.replace(tmp, path)
+        if self.max_to_keep is not None:
+            for old in self.all_steps()[: -self.max_to_keep]:
+                self._path(old).unlink(missing_ok=True)
+
+    def restore(self, state: TrainState, step: int | None = None) -> tuple[TrainState, dict]:
+        """Loads step ``step`` (default: the latest) into ``state``'s model and
+        optimizer, on their device; returns the state and the metadata."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found in {self.directory}")
+        device = state.nonfinite_count.device
+        # loaded on the CPU: load_state_dict copies into the device's tensors,
+        # and the optimizer moves its moments to the parameters' device but
+        # keeps Adam's step counters on the host, where torch wants them
+        blob = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        state.model.load_state_dict(blob["model"], strict=True)
+        state.optimizer.load_state_dict(blob["optimizer"])
+        state.step = int(blob["step"])
+        state.nonfinite_count = torch.tensor(
+            blob["nonfinite_count"], dtype=torch.int32, device=device
+        )
+        return state, dict(blob["meta"])
