@@ -32,7 +32,18 @@ verdict line):
    step;
 6. gradients: one packed [6, 2048] step of the kernel model against the
    plain-attention model, parameter by parameter;
-7. a JSON line listing every ported kernel, then the verdict line
+7. long videos (``configs/longvideo.yaml``, buckets 2048..32768 at batch 1):
+   a. the streaming forward kernel against its plain version at [1, 4096] and
+      [1, 32768] unpacked, packed rows of [1, 8192] and [1, 32768], bf16 and
+      float32, timed with the plain version, SDPA and (packed 32768) the dense
+      kernel's packed variant;
+   b. the flagship serves request A (one video per bucket) unpacked and
+      packed, bit-identical, and request B (12 videos) in shared packed rows;
+      the [1, 32768] forward against the plain-stream model; exactly 16
+      launches of the streaming kernel per forward past T = 2048; the
+      latency of each request and a profile of the 32768 batch;
+   c. the inference CLI's ``run`` with ``--synthetic 4``, unpacked and packed;
+8. a JSON line listing every ported kernel, then the verdict line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -50,6 +61,7 @@ import sys
 import tempfile
 import time
 
+T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 
@@ -128,6 +140,21 @@ def production_config():
     )
 
 
+def longvideo_config():
+    """``load_config("configs/longvideo.yaml")`` built in Python (a CPU test
+    holds the two equal): the production model with ``remat`` (which serving
+    ignores), buckets to 32768 at batch 1, unpacked by default."""
+    from repurpose_tpu_torch.config import TrainConfig
+
+    cfg = production_config()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, remat=True),
+        train=TrainConfig(seed=1234, lr=1e-3, epochs=50, weight_decay=1e-4,
+                          warmup_epochs=0, save_epochs=5, batch_size=1, eval_freq=1,
+                          intra_epoch_eval_freq=50,
+                          buckets=(2048, 4096, 8192, 16384, 32768)))
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
@@ -149,6 +176,27 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _counted_wrappers() -> dict:
+    """Every kernel wrapper by kernel name; each counts its launches in
+    ``.launches``."""
+    from repurpose_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.flash_forward, "flash_fwd_stream": fa.flash_forward_stream,
+            "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv}
+
+
+def reset_launches() -> None:
+    """Sets every kernel's launch count to 0: called just before a path runs."""
+    for wrapper in _counted_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches(*names: str) -> dict:
+    """Launch counts of the kernels ``names``, read just after a path ran."""
+    wrappers = _counted_wrappers()
+    return {n: wrappers[n].launches for n in names}
 
 
 # -- phase 1 ------------------------------------------------------------------
@@ -178,23 +226,22 @@ def phase_card_and_build() -> str:
 # -- phase 2 ------------------------------------------------------------------
 
 
-def _packed_layout(b: int, t: int):
-    """seg_ids / key_valid of one packed batch from the port's own packing:
-    synthetic video lengths of 200-1800 s, first-fit decreasing into rows of
-    ``t`` (only the layout matters here, so the features are one wide)."""
+def _packed_layout(b: int, t: int, durs: list[int]):
+    """key_valid / seg_ids of the first packed batch of videos of ``durs``
+    steps from the port's own packing, first-fit decreasing into ``b`` rows
+    of ``t`` (only the layout matters here, so the features are one wide),
+    and the number of videos it holds."""
     import numpy as np
 
     from repurpose_tpu_torch.data.batching import pack_batch, plan_packing
 
-    rng = np.random.default_rng(SEED + 1)
-    durs = [int(d) for d in rng.integers(200, 1801, size=24)]
     rows = plan_packing(durs, t, b)[0]
     samples = [
         {m: np.zeros((d, 1), np.float32) for m in ("visual", "audio", "text")}
         | {"duration": d} for d in durs
     ]
     batch = pack_batch(samples, rows, t, batch_size=b)
-    return batch.mask, batch.seg_ids
+    return batch.mask, batch.seg_ids, sum(len(r) for r in rows)
 
 
 def _attention_inputs(variant: dict, gen):
@@ -207,7 +254,9 @@ def _attention_inputs(variant: dict, gen):
     qkv = torch.randn((b, t, 3 * h * dh), generator=gen, device="cuda").to(dtype)
     q, k, v = (z.view(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
     if variant["packed"]:
-        mask, seg = _packed_layout(b, t)
+        # synthetic videos of 200-1800 s
+        durs = [int(d) for d in np.random.default_rng(SEED + 1).integers(200, 1801, size=24)]
+        mask, seg, _ = _packed_layout(b, t, durs)
         seg = torch.from_numpy(seg).cuda()
     else:
         # lengths spread over 40-100 % of T, plus one all-padding row
@@ -246,16 +295,50 @@ def _bound(q, kv, seg):
             flops, bytes_)
 
 
-def phase_kernel_vs_plain() -> list[dict]:
+def _hold_forward(name: str, out, lse, ref_out, ref_lse, kv, seg, dtype: str):
+    """Holds a forward kernel's (out, lse) against its plain version under
+    ``TOL``: query rows before kvl that attend a key are compared, rows at or
+    past kvl must hold 0 / ``SKIP_LSE``. Returns (max |out error|, max |lse
+    error|, the out atol, the compared rows [B, T])."""
     import torch
+
+    from repurpose_tpu_torch.ops.flash_attention import SKIP_LSE, _kv_len
+
+    skip = torch.arange(out.shape[1], device=out.device)[None, :] >= _kv_len(kv)
+    live = ~skip if seg is None else ~skip & (seg >= 0)
+    got, want = out[live].float(), ref_out[live].float()
+    lse_rows = lambda m: m[:, None, :, None].expand_as(lse)  # noqa: E731
+    err = float((got - want).abs().max())
+    lse_err = float((lse[lse_rows(live)] - ref_lse[lse_rows(live)]).abs().max())
+    tol = TOL[dtype]
+    atol = tol.get("out_atol", 0.0) or tol["out_atol_rel_max"] * float(want.abs().max())
+    bad = int(((got - want).abs() > atol + tol["out_rtol"] * want.abs()).sum())
+    check(bad == 0, f"{name}: {bad} out elements past atol {atol:.3g} "
+                    f"rtol {tol['out_rtol']} (max err {err:.3g})")
+    check(lse_err <= tol["lse_atol"], f"{name}: lse err {lse_err:.3g}")
+    check(bool((out[skip] == 0).all()) and bool((lse[lse_rows(skip)] == SKIP_LSE).all()),
+          f"{name}: rows past kvl are not 0 / SKIP_LSE")
+    check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite out")
+    return err, lse_err, atol, live
+
+
+def _sdpa_ms(q, k, v, kv, seg, reps: int) -> float:
+    """Yardstick only: one PyTorch call computing the same attention,
+    ``scaled_dot_product_attention`` on the same boolean mask."""
     import torch.nn.functional as F
 
-    from repurpose_tpu_torch.ops.flash_attention import (
-        SKIP_LSE,
-        _kv_len,
-        flash_forward,
-        flash_forward_reference,
-    )
+    allowed = kv[:, None, None, :]
+    if seg is not None:
+        allowed = allowed & (seg[:, None, :, None] == seg[:, None, None, :])
+    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+    return median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed),
+                     reps=reps)
+
+
+def phase_kernel_vs_plain() -> list[dict]:
+    import torch
+
+    from repurpose_tpu_torch.ops.flash_attention import flash_forward, flash_forward_reference
 
     variants = [
         dict(name="unpacked_bf16_softmax_bf16", shape=(8, 2048, 8, 64),
@@ -276,35 +359,14 @@ def phase_kernel_vs_plain() -> list[dict]:
         out, lse = flash_forward(q, k, v, kv, seg_ids=seg, softmax_dtype=var["sm"])
         torch.cuda.synchronize()
         ref_out, ref_lse = flash_forward_reference(q, k, v, kv, seg, var["sm"])
-        t = q.shape[1]
-        skip = torch.arange(t, device="cuda")[None, :] >= _kv_len(kv)
-        live = ~skip if seg is None else ~skip & (seg >= 0)
-        got, want = out[live].float(), ref_out[live].float()
-        lse_rows = lambda m: m[:, None, :, None].expand_as(lse)  # noqa: E731
-        err = float((got - want).abs().max())
-        lse_err = float((lse[lse_rows(live)] - ref_lse[lse_rows(live)]).abs().max())
-        tol = TOL[var["dtype"]]
-        atol = tol.get("out_atol", 0.0) or tol["out_atol_rel_max"] * float(want.abs().max())
-        bad = int(((got - want).abs() > atol + tol["out_rtol"] * want.abs()).sum())
-        check(bad == 0, f"{var['name']}: {bad} out elements past atol {atol:.3g} "
-                        f"rtol {tol['out_rtol']} (max err {err:.3g})")
-        check(lse_err <= tol["lse_atol"], f"{var['name']}: lse err {lse_err:.3g}")
-        check(bool((out[skip] == 0).all()) and bool((lse[lse_rows(skip)] == SKIP_LSE).all()),
-              f"{var['name']}: rows past kvl are not 0 / SKIP_LSE")
-        check(bool(torch.isfinite(out.float()).all()), f"{var['name']}: non-finite out")
+        err, lse_err, atol, _ = _hold_forward(var["name"], out, lse, ref_out, ref_lse, kv,
+                                              seg, var["dtype"])
 
         ms = median_ms(lambda: flash_forward(q, k, v, kv, seg_ids=seg,
                                              softmax_dtype=var["sm"]), reps=20, warmup=3)
         plain_ms = median_ms(lambda: flash_forward_reference(q, k, v, kv, seg, var["sm"]),
                              reps=3, warmup=1)
-        # yardstick: one PyTorch call computing the same attention, boolean mask
-        allowed = kv[:, None, None, :]
-        if seg is not None:
-            allowed = allowed & (seg[:, None, :, None] == seg[:, None, None, :])
-        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-        library_ms = median_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed),
-            reps=10, warmup=2)
+        library_ms = _sdpa_ms(q, k, v, kv, seg, reps=10)
         bound_ms, bound_by, flops, bytes_ = _bound(q, kv, seg)
         row = dict(name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
                    softmax_dtype=var["sm"], packed=var["packed"], max_abs_err=err,
@@ -313,7 +375,7 @@ def phase_kernel_vs_plain() -> list[dict]:
                    flops=flops, bytes=bytes_)
         print(f"[kernel] {json.dumps(row)}")
         rows.append(row)
-        del q, k, v, kv, seg, out, lse, ref_out, ref_lse, allowed
+        del q, k, v, kv, seg, out, lse, ref_out, ref_lse
         torch.cuda.empty_cache()
     return rows
 
@@ -476,7 +538,7 @@ def phase_main_path(card: str) -> dict:
 
     latencies = []
     served = []
-    flash_forward.launches = 0
+    reset_launches()
     for i, videos in enumerate(requests):
         t0 = time.perf_counter()
         unpacked = pipe.score_videos(videos, pack=False)
@@ -575,19 +637,22 @@ def phase_main_path(card: str) -> dict:
     return dict(launches=launches, forwards=forwards[0])
 
 
-def _profile_request(pipe, videos, card: str) -> None:
-    """Where one packed request's time goes: device time by kernel against
-    the host clock (torch.profiler with CUDA activity)."""
+def _profile_request(pipe, videos, card: str, label: str | None = None, **score_kw) -> None:
+    """Where one request's time goes (packed unless ``score_kw`` says
+    otherwise): device time by kernel against the host clock (torch.profiler
+    with CUDA activity)."""
     from torch.profiler import ProfilerActivity, profile
 
+    score_kw = {"pack": True, **score_kw}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.score_videos(videos, pack=True)
+        pipe.score_videos(videos, **score_kw)
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     check(busy_ms > 0, "the profiler saw no device time")
-    print(f"[profile] {card}: packed request of {len(videos)} videos: {wall_ms:.1f} ms "
+    label = label or f"packed request of {len(videos)} videos"
+    print(f"[profile] {card}: {label}: {wall_ms:.1f} ms "
           f"on the host clock, device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f} %)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms  {e.count:5d} x  "
@@ -620,11 +685,6 @@ def phase_training(card: str, workdir: str) -> dict:
 
     from repurpose_tpu_torch.data.loader import BatchLoader
     from repurpose_tpu_torch.models.mmct import MMCT
-    from repurpose_tpu_torch.ops.flash_attention import (
-        flash_bwd_dkv,
-        flash_bwd_dq,
-        flash_forward,
-    )
     from repurpose_tpu_torch.train import __main__ as cli
     from repurpose_tpu_torch.train.loop import Trainer
 
@@ -643,15 +703,14 @@ def phase_training(card: str, workdir: str) -> dict:
             forwards["grad"] += int(torch.is_grad_enabled() and module.training)
 
     hook = torch.nn.modules.module.register_module_forward_hook(count)
-    flash_forward.launches = flash_bwd_dq.launches = flash_bwd_dkv.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     try:
         summary = cli.run(cfg, args)
     finally:
         hook.remove()
     wall_s = time.perf_counter() - t0
-    launches = dict(flash_fwd=flash_forward.launches, flash_bwd_dq=flash_bwd_dq.launches,
-                    flash_bwd_dkv=flash_bwd_dkv.launches)
+    launches = read_launches("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     layers = cfg.model.self_num_layers
     check(summary["step"] == steps == forwards["grad"] and steps > 0,
           f"{summary['step']} steps, {forwards['grad']} training forwards, plan {steps}")
@@ -786,6 +845,299 @@ def phase_gradients(card: str) -> None:
         del kernel, plain
 
 
+# -- phase 7: long videos -------------------------------------------------------
+
+
+LONG_REQUEST_A = (1900, 3000, 6000, 12000, 30000)  # seconds: one video per long bucket
+# Packed rows of phase 7a: video lengths (steps) per bucket, drawn from a seed;
+# the 12 of the 32768 row are also request B of phase 7b.
+LONG_PACKED = {8192: (4, 1500, 2000), 32768: (12, 1000, 2500)}
+
+
+def _long_packed_lengths(t: int) -> list[int]:
+    import numpy as np
+
+    n, lo, hi = LONG_PACKED[t]
+    rng = np.random.default_rng(SEED + 5 + t)
+    return [int(d) for d in rng.integers(lo, hi + 1, size=n)]
+
+
+def _long_attention_inputs(var: dict, gen):
+    """q/k/v as column views of one QKV projection; unpacked: kvl = 0.9 T
+    with one interior hole of 100 keys; packed: the ``_long_packed_lengths``
+    videos first-fit into one row."""
+    import numpy as np
+    import torch
+
+    b, t, h, dh = var["shape"]
+    dtype = getattr(torch, var["dtype"])
+    qkv = torch.randn((b, t, 3 * h * dh), generator=gen, device="cuda").to(dtype)
+    q, k, v = (z.view(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
+    seg = None
+    if var["packed"]:
+        lens = _long_packed_lengths(t)
+        mask, seg, held = _packed_layout(b, t, lens)
+        check(held == len(lens), f"{var['name']}: {len(lens)} videos do not fit {b} rows")
+        seg = torch.from_numpy(seg).cuda()
+    else:
+        mask = np.zeros((b, t), bool)
+        mask[:, : int(0.9 * t)] = True
+        mask[:, t // 3 : t // 3 + 100] = False
+    return q, k, v, torch.from_numpy(mask).cuda(), seg
+
+
+def phase_long_kernel_vs_plain() -> list[dict]:
+    """7a: the streaming kernel against its plain version at the long-video
+    shapes, timed with the plain version, SDPA on the same boolean mask
+    (yardstick only) and, at the packed 32768 row, the dense kernel's packed
+    variant, which sweeps every key tile up to kvl."""
+    import torch
+
+    from repurpose_tpu_torch.ops.flash_attention import (
+        flash_forward_stream,
+        flash_forward_stream_reference,
+        flash_fwd_dense,
+    )
+
+    variants = [
+        dict(name="unpacked_T4096", shape=(1, 4096, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=False),
+        dict(name="unpacked_T32768", shape=(1, 32768, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=False),
+        dict(name="packed_T8192", shape=(1, 8192, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=True),
+        dict(name="packed_T32768", shape=(1, 32768, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=True),
+        dict(name="unpacked_f32_T4096", shape=(1, 4096, 8, 64), dtype="float32",
+             sm="float32", packed=False),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows = []
+    for var in variants:
+        q, k, v, kv, seg = _long_attention_inputs(var, gen)
+        sm = var["sm"]
+        out, lse = flash_forward_stream(q, k, v, kv, seg, sm)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash_forward_stream_reference(q, k, v, kv, seg, sm)
+        err, lse_err, atol, live = _hold_forward(f"long {var['name']}", out, lse, ref_out,
+                                                 ref_lse, kv, seg, var["dtype"])
+        del ref_out, ref_lse
+
+        ms = median_ms(lambda: flash_forward_stream(q, k, v, kv, seg, sm), reps=10)
+        plain_ms = median_ms(lambda: flash_forward_stream_reference(q, k, v, kv, seg, sm),
+                             reps=3, warmup=1)
+        library_ms = _sdpa_ms(q, k, v, kv, seg, reps=5)
+        bound_ms, bound_by, flops, bytes_ = _bound(q, kv, seg)
+        row = dict(name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
+                   softmax_dtype=sm, packed=var["packed"], max_abs_err=err,
+                   lse_max_abs_err=lse_err, out_atol=atol, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   flops=flops, bytes=bytes_)
+        if var["packed"] and q.shape[1] == 32768:
+            # the dense kernel on the same inputs: what the bounded sweep saves
+            dense_out, _ = flash_fwd_dense(q, k, v, kv, seg, sm)
+            row["flash_fwd_packed_ms"] = median_ms(
+                lambda: flash_fwd_dense(q, k, v, kv, seg, sm), reps=5)
+            row["flash_fwd_packed_max_abs_diff"] = float(
+                (dense_out[live].float() - out[live].float()).abs().max())
+            check(row["flash_fwd_packed_ms"] > ms,
+                  f"packed 32768: the bounded sweep ({ms:.3f} ms) is not faster than "
+                  f"flash_fwd's packed variant ({row['flash_fwd_packed_ms']:.3f} ms)")
+            del dense_out
+        print(f"[long-kernel] {json.dumps(row)}")
+        rows.append(row)
+        del q, k, v, kv, seg, out, lse
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _plain_stream_attention(softmax_dtype: str):
+    """Attention callable of the plain-stream model: the streaming kernel's
+    plain version (query and key chunks; the dense plain attention at
+    T = 32768 would need ~34 GB of scores per layer)."""
+    from repurpose_tpu_torch.ops.flash_attention import flash_forward_stream_reference
+
+    def attn(q, k, v, key_valid, seg_ids=None):
+        return flash_forward_stream_reference(q, k, v, key_valid, seg_ids, softmax_dtype)[0]
+
+    return attn
+
+
+def phase_long_video_serving(card: str) -> dict:
+    """7b: the flagship serves long videos with ``configs/longvideo.yaml``'s
+    buckets at batch 1. Request A (one video per bucket 2048..32768) unpacked
+    and packed, bit-identical; request B (12 videos of 1000-2500 s) in one
+    32768 bucket and in 8192 buckets, packed rows shared, held against
+    unpacked; the 32768 forward against the plain-stream model. Every
+    forward launches the streaming kernel 16 times past T = 2048 and the
+    dense one 16 times at 2048."""
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch.config import TestConfig
+    from repurpose_tpu_torch.data.batching import collate
+    from repurpose_tpu_torch.data.synthetic import synthetic_sample
+    from repurpose_tpu_torch.infer import InferencePipeline
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.ops import flash_attention as fa
+
+    cfg = longvideo_config()
+    model_cfg, buckets, bs = cfg.model, cfg.train.buckets, cfg.train.batch_size
+    layers = model_cfg.self_num_layers
+    # phase 4's serving thresholds, so that random weights leave candidates
+    test_cfg = TestConfig(duration_thresh=0.001)
+    weights = build_model(model_cfg, "cpu", seed=SEED).state_dict()
+    pipe = InferencePipeline(model_cfg, weights, test_cfg, raw_outputs=True, device="cuda")
+
+    forwards = []  # (T, dense launches, stream launches) per forward
+
+    def counts():
+        return tuple(read_launches("flash_fwd", "flash_fwd_stream").values())
+
+    def before(module, args):
+        forwards.append(counts())
+
+    def after(module, args, output):
+        d0, s0 = forwards.pop()
+        d1, s1 = counts()
+        forwards.append((int(args[0].shape[1]), d1 - d0, s1 - s0))
+
+    pipe.model.register_forward_pre_hook(before)
+    pipe.model.register_forward_hook(after)
+
+    rng = np.random.default_rng(SEED + 4)
+    req_a = [synthetic_sample(rng, d, model_cfg) for d in LONG_REQUEST_A]
+    req_b = [synthetic_sample(rng, n - 1, model_cfg) for n in _long_packed_lengths(32768)]
+    reset_launches()
+    t0 = time.perf_counter()
+    a_unpacked = pipe.score_videos(req_a, buckets=buckets, batch_size=bs)
+    t1 = time.perf_counter()
+    a_packed = pipe.score_videos(req_a, buckets=buckets, batch_size=bs, pack=True)
+    t2 = time.perf_counter()
+    served = {"A unpacked": (t1 - t0) * 1e3, "A packed": (t2 - t1) * 1e3}
+    b_results = {}
+    for b_buckets in ((32768,), (8192,)):
+        t0 = time.perf_counter()
+        un = pipe.score_videos(req_b, buckets=b_buckets, batch_size=bs)
+        t1 = time.perf_counter()
+        pk = pipe.score_videos(req_b, buckets=b_buckets, batch_size=bs, pack=True)
+        t2 = time.perf_counter()
+        served[f"B {b_buckets[0]} unpacked"] = (t1 - t0) * 1e3
+        served[f"B {b_buckets[0]} packed"] = (t2 - t1) * 1e3
+        b_results[b_buckets[0]] = (un, pk)
+    launches = read_launches("flash_fwd", "flash_fwd_stream")
+    for t, dense, stream in forwards:
+        want = (0, layers) if t > fa.STREAM_MAX_T else (layers, 0)
+        check((dense, stream) == want, f"a forward at T = {t} launched flash_fwd {dense} and "
+                                       f"flash_fwd_stream {stream} times (want {want})")
+    n_served = len(forwards)
+    by_t = {t: sum(1 for f in forwards if f[0] == t) for t in sorted({f[0] for f in forwards})}
+    print(f"[long-serve] launches {json.dumps(launches)} over {len(forwards)} forwards "
+          f"(by T: {json.dumps(by_t)}): {layers} per forward, flash_fwd_stream past "
+          f"T = {fa.STREAM_MAX_T}, flash_fwd at 2048")
+    for name, ms in served.items():
+        print(f"[long-serve] {card}: request {name}: {ms:.1f} ms on the host clock")
+
+    def well_formed(v, r, bucket_max):
+        check(r["video_id"] == v["video_id"]
+              and r["duration"] == min(v["duration"], bucket_max), "result out of order")
+        check(r["raw_logits"].shape == (r["duration"],)
+              and bool(np.isfinite(r["raw_logits"]).all())
+              and bool(np.isfinite(r["raw_offsets"]).all()), "bad raw outputs")
+        check(bool(np.isfinite(r["scores"]).all()) and len(r["scores"]) == len(r["labels"])
+              and bool(((r["labels"] >= 0) & (r["labels"] < r["duration"])).all()),
+              "bad decoded result")
+
+    # Request A: one video per row at offset 0, so the packed forward sweeps
+    # the key tiles the unpacked one sweeps, in the same order: equal bits.
+    kept = 0
+    for v, a, b in zip(req_a, a_unpacked, a_packed):
+        well_formed(v, a, buckets[-1])
+        well_formed(v, b, buckets[-1])
+        kept += len(a["labels"])
+        check(np.array_equal(a["labels"], b["labels"])
+              and np.array_equal(a["scores"], b["scores"])
+              and np.array_equal(a["segments"], b["segments"])
+              and np.array_equal(a["raw_logits"], b["raw_logits"]),
+              f"request A {v['duration']} s: packed result differs from unpacked")
+    print(f"[long-serve] request A: packed == unpacked bit for bit in {len(req_a)}/"
+          f"{len(req_a)} videos of {json.dumps([v['duration'] for v in req_a])} steps "
+          f"({kept} kept segments)")
+    # Request B: shared rows put each video's key tiles elsewhere, so bf16
+    # rounding differs; the bf16 bound of phase 4.
+    for bucket, (un, pk) in b_results.items():
+        d = np.concatenate([np.abs(a["raw_logits"] - b["raw_logits"]) for a, b in zip(un, pk)])
+        same = 0
+        for v, a, b in zip(req_b, un, pk):
+            well_formed(v, a, bucket)
+            well_formed(v, b, bucket)
+            same += int(np.array_equal(a["labels"], b["labels"]))
+        check(float(d.max()) <= BF16_LOGIT_MAX and float(d.mean()) <= BF16_LOGIT_MEAN,
+              f"request B, buckets ({bucket},): max |d logit| {d.max():.4g} "
+              f"mean {d.mean():.4g}")
+        print(f"[long-serve] request B, {len(req_b)} videos, buckets ({bucket},): packed vs "
+              f"unpacked max |d logit| {d.max():.4g}, mean {d.mean():.4g}; identical kept "
+              f"labels in {same}/{len(req_b)}")
+
+    # the T = 32768 forward against the same model with plain-stream attention
+    plain = build_model(model_cfg, "cuda")
+    plain.load_state_dict(pipe.model.state_dict())
+    for layer in plain.multimodal_encoder.layers:
+        layer.self_attn.attn = _plain_stream_attention(model_cfg.attn_softmax_dtype)
+    batch = collate([req_a[-1]], (buckets[-1],), batch_size=1)
+    args = [torch.from_numpy(a).cuda() for a in (batch.visual, batch.audio, batch.text)]
+    mask = torch.from_numpy(batch.mask).cuda()
+    with torch.inference_mode():
+        out = pipe.model(*args, mask)
+        t0 = time.perf_counter()
+        ref = plain(*args, mask)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        d = (out.cls_logits - ref.cls_logits)[..., 0][mask].abs()
+        fwd_ms = median_ms(lambda: pipe.model(*args, mask), reps=3, warmup=1)
+    check(all(f[1:] == (0, layers) for f in forwards[n_served:]),
+          "a T = 32768 forward did not launch flash_fwd_stream 16 times")
+    p_max, p_mean = float(d.max()), float(d.mean())
+    check(p_max <= BF16_LOGIT_MAX and p_mean <= BF16_LOGIT_MEAN,
+          f"T = 32768: kernel vs plain-stream model: max {p_max:.4g} mean {p_mean:.4g}")
+    print(f"[long-forward] {card}: [1, 32768] batch of {int(batch.mask.sum())} valid steps: "
+          f"kernel vs plain-stream model, cls logits on valid rows: max |d| {p_max:.4g}, "
+          f"mean |d| {p_mean:.4g}; forward {fwd_ms:.3f} ms (plain-stream model "
+          f"{plain_s:.1f} s)")
+    del plain, out, ref, args, mask
+    torch.cuda.empty_cache()
+    _profile_request(pipe, [req_a[-1]], card, label="request A's 32768 batch (1 video)",
+                     buckets=buckets, batch_size=bs, pack=False)
+    return dict(launches=launches, forwards=n_served, latency_ms=served)
+
+
+def phase_long_cli(card: str) -> dict:
+    """7c: ``python -m repurpose_tpu_torch.inference``'s ``run`` on the
+    long-video config with ``--synthetic 4``, unpacked and ``--pack``."""
+    import contextlib
+    import io
+
+    from repurpose_tpu_torch import inference as cli
+
+    cfg = longvideo_config()
+    launches = {}
+    for extra in ([], ["--pack"]):
+        reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            means = cli.run(cfg, cli.parse_args(["--synthetic", "4", *extra]))
+        wall_s = time.perf_counter() - t0
+        lines = [x for x in buf.getvalue().splitlines() if "precision@tIoU" in x]
+        check(len(lines) == 6 and len(means) == 6, f"CLI {extra}: printed {lines}")
+        name = "packed" if extra else "unpacked"
+        launches[name] = read_launches("flash_fwd", "flash_fwd_stream")
+        check(launches[name]["flash_fwd_stream"] > 0, f"CLI {extra}: no streaming launch")
+        print(f"[long-cli] {card}: --synthetic 4 {' '.join(extra)}: {wall_s:.1f} s, launches "
+              f"{json.dumps(launches[name])}; " + "; ".join(lines))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -809,6 +1161,9 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     phase_gradients(card)
+    long_variants = phase_long_kernel_vs_plain()
+    long_served = phase_long_video_serving(card)
+    long_cli = phase_long_cli(card)
 
     head = next(r for r in variants if r["name"] == "packed_bf16_softmax_bf16")
     bwd_head = next(r for r in bwd_variants if r["name"] == "packed_bf16_softmax_bf16")
@@ -818,7 +1173,9 @@ def main() -> int:
         replaces="repurpose_tpu/ops/flash_attention.py:227",
         launches=trained["launches"]["flash_fwd"],
         launches_by_path=dict(serving=served["launches"],
-                              training=trained["launches"]["flash_fwd"]),
+                              training=trained["launches"]["flash_fwd"],
+                              long_video_serving=long_served["launches"]["flash_fwd"],
+                              long_video_cli=long_cli),
         max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
         library_ms=head["library_ms"], variant=head["name"], variants=variants,
@@ -835,6 +1192,21 @@ def main() -> int:
             variants=[dict(name=v["name"], **v[key], library_ms=v["library_ms"])
                       for v in bwd_variants],
         ))
+    long_head = next(r for r in long_variants if r["name"] == "unpacked_T32768")
+    kernels.append(dict(
+        name="flash_fwd_stream", route="cuda", source=source + "flash_fwd_stream.cu",
+        replaces="repurpose_tpu/ops/flash_attention.py:592",
+        also_replaces=["repurpose_tpu/ops/flash_attention.py:512",
+                       "repurpose_tpu/ops/flash_attention.py:657"],
+        launches=long_served["launches"]["flash_fwd_stream"],
+        launches_by_path=dict(long_video_serving=long_served["launches"],
+                              long_video_cli=long_cli),
+        max_abs_err=long_head["max_abs_err"], ms=long_head["ms"],
+        plain_ms=long_head["plain_ms"], bound_ms=long_head["bound_ms"],
+        bound_by=long_head["bound_by"], library_ms=long_head["library_ms"],
+        variant=long_head["name"], variants=long_variants,
+    ))
+    print(f"[time] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

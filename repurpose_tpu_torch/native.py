@@ -44,6 +44,13 @@ SIGNATURES = {
             _I,
         ),
     },
+    "flash_fwd_stream": {
+        "flash_fwd_stream": (
+            [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+             _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+            _I,
+        ),
+    },
     "flash_bwd": {
         "flash_bwd_dq": (
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

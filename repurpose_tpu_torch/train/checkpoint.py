@@ -54,6 +54,14 @@ class Checkpointer:
             for old in self.all_steps()[: -self.max_to_keep]:
                 self._path(old).unlink(missing_ok=True)
 
+    def restore_model(self, step: int | None = None) -> dict:
+        """The model state dict of step ``step`` (default: the latest), on the
+        CPU: what evaluation needs, without an optimizer."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint found in {self.directory}")
+        return torch.load(self._path(step), map_location="cpu", weights_only=True)["model"]
+
     def restore(self, state: TrainState, step: int | None = None) -> tuple[TrainState, dict]:
         """Loads step ``step`` (default: the latest) into ``state``'s model and
         optimizer, on their device; returns the state and the metadata."""
