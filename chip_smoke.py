@@ -43,7 +43,25 @@ verdict line):
       launches of the streaming kernel per forward past T = 2048; the
       latency of each request and a profile of the 32768 batch;
    c. the inference CLI's ``run`` with ``--synthetic 4``, unpacked and packed;
-8. a JSON line listing every ported kernel, then the verdict line
+8. long-video training (``configs/longvideo.yaml``, remat on, batch 1):
+   a. the streaming backward kernels (dq, dk/dv) against their plain
+      versions at [1, 4096] (bf16 and float32), [1, 16384] and [1, 32768]
+      unpacked and packed rows of [1, 8192] and [1, 32768], timed with the
+      plain versions, SDPA's backward and (packed 32768) the dense backward
+      kernels, which must give the same gradients;
+   b. the flagship trains through the CLI's ``run`` (``--synthetic 7``,
+      unpacked: buckets 4096..32768) and ``Trainer`` (12 videos packed into
+      rows of 32768 and of 8192), each with the val probe, a checkpoint and
+      the tIoU evaluation, and exactly 32 / 16 / 16 launches of
+      ``flash_fwd_stream`` / ``flash_bwd_dq_stream`` / ``flash_bwd_dkv_stream``
+      per step (forward and remat recompute; backward) and no dense
+      backward launch; then step time, videos/s and peak memory per bucket,
+      the [1, 16384] step without remat (a higher peak) and a profile of the
+      [1, 32768] step;
+   c. every parameter gradient of a [1, 8192] step, unpacked and packed, bf16
+      and float32, against the plain-stream model; remat on vs off with
+      dropout on, bit-identical;
+9. a JSON line listing every ported kernel, then the verdict line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -184,7 +202,9 @@ def _counted_wrappers() -> dict:
     from repurpose_tpu_torch.ops import flash_attention as fa
 
     return {"flash_fwd": fa.flash_forward, "flash_fwd_stream": fa.flash_forward_stream,
-            "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv}
+            "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "flash_bwd_dq_stream": fa.flash_bwd_dq_stream,
+            "flash_bwd_dkv_stream": fa.flash_bwd_dkv_stream}
 
 
 def reset_launches() -> None:
@@ -335,6 +355,29 @@ def _sdpa_ms(q, k, v, kv, seg, reps: int) -> float:
                      reps=reps)
 
 
+def _sdpa_bwd_ms(q, k, v, kv, seg, g, reps: int):
+    """Yardstick only, never called by the port: the backward alone of
+    ``scaled_dot_product_attention`` on the same boolean mask. Returns (ms,
+    None), or (None, the reason) where PyTorch cannot run the shape."""
+    import torch
+    import torch.nn.functional as F
+
+    allowed = kv[:, None, None, :]
+    if seg is not None:
+        allowed = allowed & (seg[:, None, :, None] == seg[:, None, None, :])
+    leaves = [z.transpose(1, 2).detach().requires_grad_() for z in (q, k, v)]
+    try:
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
+        g_t = g.transpose(1, 2)
+        return median_ms(lambda: torch.autograd.grad(out, leaves, g_t, retain_graph=True),
+                         reps=reps), None
+    except RuntimeError as e:  # out of memory, or no backend for the shape
+        return None, str(e).splitlines()[0][:160]
+    finally:
+        del allowed, leaves
+        torch.cuda.empty_cache()
+
+
 def phase_kernel_vs_plain() -> list[dict]:
     import torch
 
@@ -408,12 +451,29 @@ def _bwd_bound(q, kv, seg, products: int, outputs: int):
             flops, bytes_)
 
 
+def _hold_backward(label: str, got: dict, want: dict, rel: float, past) -> dict:
+    """Holds backward kernels' gradients (``dq``/``dk``/``dv``) against their
+    plain versions: max |kernel - plain| within ``rel`` x max |plain|, finite,
+    0 on the rows ``past`` kvl. Returns the max errors."""
+    import torch
+
+    errs = {}
+    for name in got:
+        a, w = got[name].float(), want[name].float()
+        scale = float(w.abs().max())
+        errs[name] = float((a - w).abs().max())
+        check(errs[name] <= rel * scale,
+              f"{label} {name}: max err {errs[name]:.3g} > {rel} x max {scale:.3g}")
+        check(bool(torch.isfinite(a).all()), f"{label} {name}: non-finite")
+        check(bool((got[name][past] == 0).all()), f"{label} {name}: rows past kvl are not 0")
+    return errs
+
+
 def phase_backward_vs_plain() -> list[dict]:
     """The dq and dk/dv kernels against their plain versions at the training
     shapes, on o / lse from the kernel forward and an upstream gradient that
     is random before each row's last valid key and 0 past it (the model's)."""
     import torch
-    import torch.nn.functional as F
 
     from repurpose_tpu_torch.ops.flash_attention import (
         _kv_len,
@@ -451,28 +511,11 @@ def phase_backward_vs_plain() -> list[dict]:
         torch.cuda.synchronize()
         want = dict(dq=flash_bwd_dq_reference(*args))
         want["dk"], want["dv"] = flash_bwd_dkv_reference(*args)
-        rel = BWD_REL.get((var["dtype"], sm), BWD_REL_BF16)
-        errs = {}
-        for name in ("dq", "dk", "dv"):
-            a, w = got[name].float(), want[name].float()
-            scale = float(w.abs().max())
-            errs[name] = float((a - w).abs().max())
-            check(errs[name] <= rel * scale,
-                  f"{var['name']} {name}: max err {errs[name]:.3g} > {rel} x max {scale:.3g}")
-            check(bool(torch.isfinite(a).all()), f"{var['name']} {name}: non-finite")
-            check(bool((got[name][past] == 0).all()),
-                  f"{var['name']} {name}: rows past kvl are not 0")
+        errs = _hold_backward(var["name"], got, want,
+                              BWD_REL.get((var["dtype"], sm), BWD_REL_BF16), past)
 
-        # yardstick, never called by the port: the backward alone of SDPA on
-        # the same boolean mask
-        allowed = kv[:, None, None, :]
-        if seg is not None:
-            allowed = allowed & (seg[:, None, :, None] == seg[:, None, None, :])
-        leaves = [z.transpose(1, 2).detach().requires_grad_() for z in (q, k, v)]
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
-        g_t = g.transpose(1, 2)
-        library_ms = median_ms(
-            lambda: torch.autograd.grad(out, leaves, g_t, retain_graph=True), reps=10)
+        library_ms, library_note = _sdpa_bwd_ms(q, k, v, kv, seg, g, reps=10)
+        check(library_ms is not None, f"{var['name']}: SDPA's backward failed: {library_note}")
         row = dict(name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
                    softmax_dtype=sm, packed=var["packed"], library_ms=library_ms)
         for kname, fn, ref_fn, products, outputs, keys in (
@@ -487,7 +530,7 @@ def phase_backward_vs_plain() -> list[dict]:
                 bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
         print(f"[backward] {json.dumps(row)}")
         rows.append(row)
-        del q, k, v, kv, seg, o, lse, g, got, want, args, allowed, leaves, out, g_t
+        del q, k, v, kv, seg, o, lse, g, got, want, args
         torch.cuda.empty_cache()
     return rows
 
@@ -763,13 +806,16 @@ def phase_training(card: str, workdir: str) -> dict:
                 videos_per_s=videos_per_s, **profile)
 
 
-def _profile_step(trainer, card: str) -> dict:
-    """Where one training step's time goes: device time by kernel against
-    the host clock (torch.profiler with CUDA activity)."""
+def _profile_step(trainer, card: str, batch=None, label: str = "one training step") -> dict:
+    """Where one training step's time goes (on ``batch``, by default the
+    first of epoch 2): device time by kernel against the host clock
+    (torch.profiler with CUDA activity)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    batch = trainer._device_batch(next(iter(trainer.train_loader.epoch(2))))
+    if batch is None:
+        batch = next(iter(trainer.train_loader.epoch(2)))
+    batch = trainer._device_batch(batch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -779,7 +825,7 @@ def _profile_step(trainer, card: str) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     check(busy_ms > 0, "the profiler saw no device time")
-    print(f"[profile] {card}: one training step: {wall_ms:.1f} ms on the host clock, "
+    print(f"[profile] {card}: {label}: {wall_ms:.1f} ms on the host clock, "
           f"device busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f} %)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms  {e.count:5d} x  "
@@ -787,15 +833,46 @@ def _profile_step(trainer, card: str) -> dict:
     return dict(profile_wall_ms=wall_ms, profile_busy_ms=busy_ms)
 
 
-def _step_grads(cfg, train_cfg, batch, impl: str) -> dict:
-    """Parameter gradients of one step (dropout 0) with ``impl`` attention."""
+def _step_grads(cfg, train_cfg, batch, impl: str, attn=None) -> dict:
+    """Parameter gradients of one step (dropout 0) with ``impl`` attention
+    or, given ``attn``, that callable in every layer."""
     from repurpose_tpu_torch.models import build_model
     from repurpose_tpu_torch.train.step import loss_fn
 
     model = build_model(dataclasses.replace(cfg, dropout=0.0, attention_impl=impl),
                         "cuda", seed=SEED).train()
+    if attn is not None:
+        for layer in model.multimodal_encoder.layers:
+            layer.self_attn.attn = attn
     loss_fn(model, train_cfg, batch)[0].backward()
     return {n: p.grad for n, p in model.named_parameters()}
+
+
+def _hold_grads(label: str, kernel: dict, plain: dict, bound: float, layers: int) -> dict:
+    """Holds every parameter gradient of the kernel model against the plain
+    one: relative L2 error within ``bound``; a parameter the plain model
+    gives no gradient gets none; every in_proj_weight gradient non-zero.
+    Returns the errors by parameter."""
+    rels = {}
+    for name, g_plain in plain.items():
+        if g_plain is None:  # the reg head: no loss reaches it
+            check(kernel[name] is None, f"{label} {name}: gradient where the plain model "
+                                        "has none")
+            continue
+        check(kernel[name] is not None, f"{label} {name}: no gradient through the kernels")
+        rels[name] = float((kernel[name] - g_plain).norm() / g_plain.norm())
+    qkv = [f"multimodal_encoder.layers.{i}.self_attn.in_proj_weight" for i in range(layers)]
+    worst = sorted(rels, key=rels.get)[-3:]
+    print(f"[grad] {label}: {len(rels)} parameter gradients, relative L2 error median "
+          f"{statistics.median(rels.values()):.4g}, worst "
+          + ", ".join(f"{n} {rels[n]:.4g}" for n in worst)
+          + f"; in_proj_weight {min(rels[n] for n in qkv):.4g}.."
+          f"{max(rels[n] for n in qkv):.4g} over {layers} layers")
+    check(all(float(kernel[n].abs().max()) > 0 for n in qkv),
+          f"{label}: an in_proj_weight gradient is zero")
+    bad = {n: r for n, r in rels.items() if not r <= bound}
+    check(not bad, f"{label}: relative gradient errors past {bound}: {bad}")
+    return rels
 
 
 def phase_gradients(card: str) -> None:
@@ -815,33 +892,15 @@ def phase_gradients(card: str) -> None:
     batch = next(iter(BatchLoader(train_ds, cfg.train.batch_size, cfg.train.buckets,
                                   seed=cfg.train.seed, pack=True).epoch(0)))
     batch = batch_to_device(batch, "cuda")
-    layers = cfg.model.self_num_layers
-    qkv = [f"multimodal_encoder.layers.{i}.self_attn.in_proj_weight" for i in range(layers)]
     f32 = dataclasses.replace(cfg.model, compute_dtype="float32",
                               attn_softmax_dtype="float32")
     two_rows = Batch(*[None if x is None else x[:2] for x in batch])
     for dtype, model_cfg, b in (("bfloat16", cfg.model, batch), ("float32", f32, two_rows)):
         kernel = _step_grads(model_cfg, cfg.train, b, "auto")
         plain = _step_grads(model_cfg, cfg.train, b, "xla")
-        rels = {}
-        for name, g_plain in plain.items():
-            if g_plain is None:  # the reg head: no loss reaches it
-                check(kernel[name] is None, f"{name}: gradient where the plain model has none")
-                continue
-            check(kernel[name] is not None, f"{name}: no gradient through the kernels")
-            rels[name] = float((kernel[name] - g_plain).norm() / g_plain.norm())
-        worst = sorted(rels, key=rels.get)[-3:]
-        print(f"[grad] {card}: {dtype}, kernel vs plain-attention model, one packed "
-              f"[{b.visual.shape[0]}, {b.visual.shape[1]}] step: {len(rels)} parameter "
-              f"gradients, relative L2 error median {statistics.median(rels.values()):.4g}, "
-              f"worst " + ", ".join(f"{n} {rels[n]:.4g}" for n in worst)
-              + f"; in_proj_weight {min(rels[n] for n in qkv):.4g}.."
-              f"{max(rels[n] for n in qkv):.4g} over {layers} layers")
-        check(all(float(kernel[n].abs().max()) > 0 for n in qkv),
-              "an in_proj_weight gradient is zero")
-        bound = GRAD_REL_BOUND[dtype]
-        bad = {n: r for n, r in rels.items() if not r <= bound}
-        check(not bad, f"{dtype}: relative gradient errors past {bound}: {bad}")
+        _hold_grads(f"{card}: {dtype}, kernel vs plain-attention model, one packed "
+                    f"[{b.visual.shape[0]}, {b.visual.shape[1]}] step", kernel, plain,
+                    GRAD_REL_BOUND[dtype], cfg.model.self_num_layers)
         del kernel, plain
 
 
@@ -1138,6 +1197,443 @@ def phase_long_cli(card: str) -> dict:
     return launches
 
 
+# -- phase 8: long-video training -------------------------------------------------
+
+
+# --synthetic videos of the unpacked run of phase 8b: the CLI draws their
+# durations from the config's seed (1234); these 7 fall in the buckets 4096,
+# 8192, 16384 and (four of them) 32768
+LONG_TRAIN_VIDEOS = 7
+
+
+def _grad_rows(kv, seg):
+    """[B, T]: the rows the model gives a gradient (before kvl and, packed,
+    inside a video)."""
+    import torch
+
+    from repurpose_tpu_torch.ops.flash_attention import _kv_len
+
+    rows = torch.arange(kv.shape[1], device=kv.device)[None, :] < _kv_len(kv)
+    return rows if seg is None else rows & (seg >= 0)
+
+
+def phase_long_backward_vs_plain() -> list[dict]:
+    """8a: the streaming backward kernels against their plain versions at
+    phase 7a's layouts (and [1, 16384]), on o / lse from the streaming
+    forward kernel and an upstream gradient that is 0 where the model's is;
+    timed with the plain versions, SDPA's backward on the same boolean mask
+    (yardstick only) and, on the packed [1, 32768] row, the dense backward
+    kernels, which sweep every key tile up to kvl and must give the same
+    gradients."""
+    import torch
+
+    from repurpose_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv,
+        flash_bwd_dkv_stream,
+        flash_bwd_dkv_stream_reference,
+        flash_bwd_dq,
+        flash_bwd_dq_stream,
+        flash_bwd_dq_stream_reference,
+        flash_forward_stream,
+    )
+
+    variants = [
+        dict(name="unpacked_T4096", shape=(1, 4096, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=False),
+        dict(name="unpacked_f32_T4096", shape=(1, 4096, 8, 64), dtype="float32",
+             sm="float32", packed=False),
+        dict(name="packed_T8192", shape=(1, 8192, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=True),
+        dict(name="unpacked_T16384", shape=(1, 16384, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=False),
+        dict(name="unpacked_T32768", shape=(1, 32768, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=False),
+        dict(name="packed_T32768", shape=(1, 32768, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=True),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = []
+    for var in variants:
+        q, k, v, kv, seg = _long_attention_inputs(var, gen)
+        sm = var["sm"]
+        o, lse = flash_forward_stream(q, k, v, kv, seg, sm)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+        g = g.masked_fill(~_grad_rows(kv, seg)[:, :, None, None], 0.0)
+        past = ~_grad_rows(kv, None)
+        args = (q, k, v, kv, o, lse, g, seg, sm)
+        got = dict(dq=flash_bwd_dq_stream(*args))
+        got["dk"], got["dv"] = flash_bwd_dkv_stream(*args)
+        torch.cuda.synchronize()
+        want = dict(dq=flash_bwd_dq_stream_reference(*args))
+        want["dk"], want["dv"] = flash_bwd_dkv_stream_reference(*args)
+        rel = BWD_REL.get((var["dtype"], sm), BWD_REL_BF16)
+        errs = _hold_backward(f"long {var['name']}", got, want, rel, past)
+        del want
+        library_ms, library_note = _sdpa_bwd_ms(q, k, v, kv, seg, g, reps=3)
+        big = q.shape[1] >= 16384
+        row = dict(name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
+                   softmax_dtype=sm, packed=var["packed"], max_abs_err_by_grad=errs,
+                   tolerance=f"{rel} x max |plain|", library_ms=library_ms,
+                   library_note=library_note)
+        for kname, fn, ref_fn, products, outputs, keys in (
+            ("dq", flash_bwd_dq_stream, flash_bwd_dq_stream_reference, 3, 1, ("dq",)),
+            ("dkv", flash_bwd_dkv_stream, flash_bwd_dkv_stream_reference, 4, 2, ("dk", "dv")),
+        ):
+            bound_ms, bound_by, flops, bytes_ = _bwd_bound(q, kv, seg, products, outputs)
+            row[kname] = dict(
+                max_abs_err=max(errs[x] for x in keys),
+                ms=median_ms(lambda: fn(*args), reps=5 if big else 10),
+                plain_ms=median_ms(lambda: ref_fn(*args), reps=1 if big else 3, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
+        if var["packed"] and q.shape[1] == 32768:
+            # the dense kernels on the same inputs: what the bounded sweeps save
+            dense = dict(dq=flash_bwd_dq(*args))
+            dense["dk"], dense["dv"] = flash_bwd_dkv(*args)
+            diff = _hold_backward(f"long {var['name']}: dense kernels vs stream", dense, got,
+                                  rel, past)
+            row["dense"] = dict(
+                flash_bwd_dq_ms=median_ms(lambda: flash_bwd_dq(*args), reps=3),
+                flash_bwd_dkv_ms=median_ms(lambda: flash_bwd_dkv(*args), reps=3),
+                max_abs_diff=max(diff.values()))
+            check(row["dense"]["flash_bwd_dq_ms"] > row["dq"]["ms"]
+                  and row["dense"]["flash_bwd_dkv_ms"] > row["dkv"]["ms"],
+                  f"packed 32768: the bounded sweeps are not faster than the dense kernels "
+                  f"{json.dumps(row['dense'])}")
+            del dense
+        print(f"[long-backward] {json.dumps(row)}")
+        rows.append(row)
+        del q, k, v, kv, seg, o, lse, g, got, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _long_training_config(buckets=None, pack: bool = False, epochs: int = 1,
+                          steps: int | None = None):
+    """``longvideo_config()`` (remat on, batch 1) for a smoke run of
+    ``epochs`` epochs that each save, evaluate and run the val probe once (at
+    the epoch's last step, given its ``steps``); ``buckets`` cuts the ladder;
+    ``pack`` packs rows, with loss_norm batch_size (per video)."""
+    cfg = longvideo_config()
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, epochs=epochs, save_epochs=1, eval_freq=1,
+        intra_epoch_eval_freq=steps or cfg.train.intra_epoch_eval_freq,
+        buckets=buckets or cfg.train.buckets, pack_sequences=pack,
+        loss_norm="batch_size" if pack else cfg.train.loss_norm))
+
+
+class _LaunchesPerStep:
+    """Kernel launches of every training step (its MMCT forward, the remat
+    recompute and the backward: from the forward to the optimizer step) and
+    of every forward without gradients (val probe, evaluation), each with
+    its T, from global module and optimizer hooks; a context manager."""
+
+    def __enter__(self):
+        import torch
+        from torch.optim.optimizer import register_optimizer_step_pre_hook
+
+        from repurpose_tpu_torch.models.mmct import MMCT
+
+        self.steps, self.forwards = [], []
+        self._step = self._forward = None
+        names = list(_counted_wrappers())
+
+        def start(module, args):
+            if isinstance(module, MMCT):
+                mark = (int(args[0].shape[1]), read_launches(*names))
+                if torch.is_grad_enabled() and module.training:
+                    self._step = mark
+                else:
+                    self._forward = mark
+
+        def end_forward(module, args, output):
+            if isinstance(module, MMCT) and not (torch.is_grad_enabled() and module.training):
+                self.forwards.append(self._since(self._forward))
+
+        def end_step(optimizer, args, kwargs):
+            if self._step is not None:
+                self.steps.append(self._since(self._step))
+                self._step = None
+
+        self._hooks = [torch.nn.modules.module.register_module_forward_pre_hook(start),
+                       torch.nn.modules.module.register_module_forward_hook(end_forward),
+                       register_optimizer_step_pre_hook(end_step)]
+        return self
+
+    def __exit__(self, *exc):
+        for hook in self._hooks:
+            hook.remove()
+
+    @staticmethod
+    def _since(mark):
+        t, before = mark
+        now = read_launches(*before)
+        return t, {n: now[n] - before[n] for n in before if now[n] != before[n]}
+
+
+def _hold_long_run(label: str, card: str, summary: dict, seen, workdir: str, steps: int,
+                   layers: int, wall_s: float) -> dict:
+    """Holds one long-video training run: ``steps`` steps, each past T = 2048
+    launching exactly flash_fwd_stream 2 x ``layers`` (forward and remat
+    recompute) and each streaming backward kernel ``layers`` times, nothing
+    else; each forward without gradients ``layers`` launches of its forward
+    kernel; finite losses, the val probe, the tIoU evaluation and a
+    checkpoint. Returns the launches summed over the run."""
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch.ops import flash_attention as fa
+
+    check(summary["step"] == steps == len(seen.steps) and steps > 0,
+          f"{label}: {summary['step']} steps, {len(seen.steps)} seen, plan {steps}")
+    step_want = {"flash_fwd_stream": 2 * layers, "flash_bwd_dq_stream": layers,
+                 "flash_bwd_dkv_stream": layers}
+    for t, launched in seen.steps:
+        check(t > fa.STREAM_MAX_T and launched == step_want,
+              f"{label}: a step at T = {t} launched {launched} (want {step_want})")
+    for t, launched in seen.forwards:
+        want = {"flash_fwd_stream" if t > fa.STREAM_MAX_T else "flash_fwd": layers}
+        check(launched == want, f"{label}: a forward at T = {t} launched {launched}")
+    total = dict.fromkeys(_counted_wrappers(), 0)
+    for _, launched in seen.steps + seen.forwards:
+        for n, c in launched.items():
+            total[n] += c
+    lines = [json.loads(line) for line in open(os.path.join(workdir, "metrics.jsonl"))]
+    losses = [m["batch/loss"] for m in lines if "batch/loss" in m]
+    check(len(losses) > 0 and all(np.isfinite(x) for x in losses)
+          and np.isfinite(summary["final_loss"]), f"{label}: non-finite losses {losses}")
+    check(any("val/loss" in m and np.isfinite(m["val/loss"]) for m in lines),
+          f"{label}: the val probe did not run")
+    check({"tiou/mean", "tiou/0.5"} <= set(summary), f"{label}: evaluate returned "
+                                                     f"{sorted(summary)}")
+    blob = torch.load(os.path.join(workdir, "ckpt", f"{steps}.pt"), map_location="cpu",
+                      weights_only=True)
+    check(blob["nonfinite_count"] == 0 and blob["step"] == steps, f"{label}: bad checkpoint")
+    by_t = {t: sum(1 for s in seen.steps if s[0] == t) for t in sorted({s[0] for s in seen.steps})}
+    print(f"[long-train] {card}: {label}: {steps} steps (by T: {json.dumps(by_t)}), "
+          f"{len(seen.forwards)} forwards without gradients (val probe, evaluation), "
+          f"launches {json.dumps(total)}: per step {json.dumps(step_want)}; final loss "
+          f"{summary['final_loss']:.4f}, tIoU mean {summary['tiou/mean']:.4f}, checkpoint "
+          f"at step {steps}; run {wall_s:.1f} s on the host clock")
+    return total
+
+
+def _time_long_steps(trainer, batch, label: str, card: str, reps: int = 2) -> dict:
+    """Step time of ``batch`` (staging, forward, recompute, backward, Adam;
+    synchronised), median over ``reps`` steps after one warm-up step, with
+    videos/s and the peak of allocated device memory."""
+    import torch
+
+    device_batch = trainer._device_batch(batch)
+    trainer.train_step(trainer.state, device_batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        m = trainer.train_step(trainer.state, trainer._device_batch(batch))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    row = dict(T=int(batch.visual.shape[1]), videos=int(m["n_real"]),
+               step_ms=statistics.median(times) * 1e3,
+               videos_per_s=int(m["n_real"]) / statistics.median(times),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"[long-step] {card}: {label}: {json.dumps(row)}")
+    return row
+
+
+def phase_long_training(card: str, workdir: str) -> dict:
+    """8b: the flagship trains on ``configs/longvideo.yaml`` (remat on, batch
+    1) through the entry points: the training CLI's ``run`` on
+    ``--synthetic 7`` unpacked (buckets 4096, 8192, 16384 and 32768), and
+    ``Trainer`` on 12 videos of 1000-2500 s packed into rows of 32768 (the
+    YAML's ladder, two epochs) and of 8192 (the ladder cut at 8192). Each run
+    takes the val probe, a checkpoint and the tIoU evaluation, with exact
+    launch counts per step. Then, per bucket, the step time, videos/s and
+    peak memory; at 16384 the same step without remat, whose peak must be
+    higher; and a profile of the 32768 step."""
+    import torch
+
+    from repurpose_tpu_torch.data.loader import BatchLoader
+    from repurpose_tpu_torch.data.synthetic import SyntheticDataset
+    from repurpose_tpu_torch.train import __main__ as cli
+    from repurpose_tpu_torch.train.loop import Trainer
+
+    layers = longvideo_config().model.self_num_layers
+    launches = dict.fromkeys(_counted_wrappers(), 0)
+
+    def add(total):
+        for n, c in total.items():
+            launches[n] += c
+
+    # unpacked, through the CLI
+    cfg = _long_training_config()
+    train_ds, _, _ = cli.build_datasets(cfg, LONG_TRAIN_VIDEOS)
+    steps = BatchLoader(train_ds, 1, cfg.train.buckets,
+                        seed=cfg.train.seed).batches_per_epoch(0)
+    cfg = _long_training_config(steps=steps)
+    run_dir = os.path.join(workdir, "unpacked")
+    args = cli.parse_args(["--synthetic", str(LONG_TRAIN_VIDEOS), "--epochs", "1",
+                           "--workdir", run_dir])
+    reset_launches()
+    with _LaunchesPerStep() as seen:
+        t0 = time.perf_counter()
+        summary = cli.run(cfg, args)
+        wall_s = time.perf_counter() - t0
+    add(_hold_long_run(f"unpacked, CLI run --synthetic {LONG_TRAIN_VIDEOS}", card, summary,
+                       seen, run_dir, steps, layers, wall_s))
+
+    trainer = Trainer(cfg, run_dir, train_ds, device="cuda")
+    check(trainer.resume() and trainer.state.step == steps,
+          "resume() did not restore the long-video checkpoint's step")
+    by_t = {}
+    for batch in trainer.train_loader.epoch(1):
+        by_t.setdefault(int(batch.visual.shape[1]), batch)
+    check(sorted(by_t) == [4096, 8192, 16384, 32768], f"unpacked buckets {sorted(by_t)}")
+    timings = {}
+    encoder = trainer.state.model.multimodal_encoder
+    for t, batch in sorted(by_t.items()):
+        timings[f"unpacked_T{t}"] = _time_long_steps(trainer, batch, f"unpacked [1, {t}]", card)
+        if t == 16384:  # the same step without remat: its peak must be higher
+            encoder.remat = False
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            trainer.train_step(trainer.state, trainer._device_batch(batch))
+            torch.cuda.synchronize()
+            no_remat = dict(step_ms=(time.perf_counter() - t1) * 1e3,
+                            peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            encoder.remat = True
+            check(no_remat["peak_gb"] > timings[f"unpacked_T{t}"]["peak_gb"],
+                  f"[1, 16384]: peak without remat {no_remat} is not above the peak with "
+                  f"remat {timings[f'unpacked_T{t}']}")
+            timings[f"unpacked_T{t}"]["no_remat"] = no_remat
+            print(f"[long-step] {card}: unpacked [1, 16384] without remat: "
+                  f"{json.dumps(no_remat)}")
+    profile = _profile_step(trainer, card, by_t[32768],
+                            label="one unpacked [1, 32768] training step (remat)")
+    trainer.close()
+
+    # packed, through the Trainer: 12 videos in rows of 32768 and of 8192
+    lens = _long_packed_lengths(32768)
+    for rows_t, buckets, epochs in ((32768, None, 2), (8192, (2048, 4096, 8192), 1)):
+        cfg = _long_training_config(buckets, pack=True, epochs=epochs)
+        train_ds = SyntheticDataset(lens, cfg.model, seed=1)
+        steps = BatchLoader(train_ds, 1, cfg.train.buckets, seed=cfg.train.seed,
+                            pack=True).batches_per_epoch(0)
+        cfg = _long_training_config(buckets, pack=True, epochs=epochs, steps=steps)
+        run_dir = os.path.join(workdir, f"packed_{rows_t}")
+        trainer = Trainer(cfg, run_dir, train_ds, SyntheticDataset(lens[:2], cfg.model, seed=2),
+                          SyntheticDataset(lens[:3], cfg.model, seed=3), device="cuda")
+        with _LaunchesPerStep() as seen:
+            t0 = time.perf_counter()
+            summary = trainer.fit()
+            wall_s = time.perf_counter() - t0
+        add(_hold_long_run(f"packed, Trainer, {len(lens)} videos of {min(lens)}-{max(lens)} s "
+                           f"in rows of {rows_t}", card, summary, seen, run_dir,
+                           steps * epochs, layers, wall_s))
+        batch = next(iter(trainer.train_loader.epoch(epochs)))
+        check(batch.visual.shape[1] == rows_t, f"packed rows of {batch.visual.shape[1]}")
+        timings[f"packed_T{rows_t}"] = _time_long_steps(
+            trainer, batch, f"packed [1, {rows_t}] of {int(batch.seg_ids.max()) + 1} videos",
+            card)
+        trainer.close()
+    return dict(launches=launches, timings=timings, **profile)
+
+
+def _plain_stream_trainable(softmax_dtype: str):
+    """Attention callable of the plain-stream training model: an autograd
+    Function whose forward is ``flash_forward_stream_reference`` and whose
+    backward the two streaming plain versions (the dense plain attention at
+    T = 8192 would hold 2 GB of scores per layer)."""
+    import torch
+
+    from repurpose_tpu_torch.ops.flash_attention import (
+        flash_bwd_dkv_stream_reference,
+        flash_bwd_dq_stream_reference,
+        flash_forward_stream_reference,
+    )
+
+    class PlainStream(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, key_valid, seg_ids):
+            out, lse = flash_forward_stream_reference(q, k, v, key_valid, seg_ids,
+                                                      softmax_dtype)
+            ctx.save_for_backward(q, k, v, out, lse, key_valid, seg_ids)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, out, lse, key_valid, seg_ids = ctx.saved_tensors
+            args = (q, k, v, key_valid, out, lse, g.contiguous(), seg_ids, softmax_dtype)
+            dk, dv = flash_bwd_dkv_stream_reference(*args)
+            return flash_bwd_dq_stream_reference(*args), dk, dv, None, None
+
+    return lambda q, k, v, key_valid, seg_ids=None: PlainStream.apply(q, k, v, key_valid,
+                                                                      seg_ids)
+
+
+def phase_long_gradients(card: str) -> None:
+    """8c: every parameter gradient of one [1, 8192] step of the flagship on
+    the long-video config (remat on) with the kernels against the same model
+    whose attention is the plain-stream Function, unpacked and packed, in
+    the production setting (bf16, bf16 interior) and in float32; then the
+    kernel model with remat on against off, dropout 0.1 on: masks, loss and
+    gradients bit-identical, and the dropout generator in the same state."""
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch.data.batching import collate, pack_batch, plan_packing
+    from repurpose_tpu_torch.data.synthetic import synthetic_sample
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.train.step import batch_to_device, loss_fn
+
+    cfg = longvideo_config()
+    layers = cfg.model.self_num_layers
+    train_cfg = dataclasses.replace(cfg.train, loss_norm="batch_size")
+    rng = np.random.default_rng(SEED + 8)
+    videos = [synthetic_sample(rng, n, cfg.model) for n in _long_packed_lengths(8192)]
+    rows = plan_packing([v["duration"] for v in videos], 8192, 1)[0]
+    check(sum(len(r) for r in rows) == len(videos), "the 8192 row does not hold its videos")
+    batches = {
+        "unpacked": collate([synthetic_sample(rng, 7000, cfg.model)], (8192,), batch_size=1),
+        "packed": pack_batch(videos, rows, 8192, batch_size=1),
+    }
+    f32 = dataclasses.replace(cfg.model, compute_dtype="float32", attn_softmax_dtype="float32")
+    for dtype, model_cfg in (("bfloat16", cfg.model), ("float32", f32)):
+        for name, batch in batches.items():
+            b = batch_to_device(batch, "cuda")
+            kernel = _step_grads(model_cfg, train_cfg, b, "auto")
+            plain = _step_grads(model_cfg, train_cfg, b, "auto",
+                                attn=_plain_stream_trainable(model_cfg.attn_softmax_dtype))
+            _hold_grads(f"{card}: {dtype}, {name} [1, 8192], remat on, kernel vs plain-stream "
+                        "model", kernel, plain, GRAD_REL_BOUND[dtype], layers)
+            del kernel, plain
+            torch.cuda.empty_cache()
+
+    b = batch_to_device(batches["unpacked"], "cuda")
+    runs = []
+    for remat in (True, False):
+        model = build_model(dataclasses.replace(cfg.model, remat=remat), "cuda",
+                            seed=SEED).train()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+        model.set_dropout_generator(gen)
+        loss = loss_fn(model, train_cfg, b)[0]
+        loss.backward()
+        runs.append((loss.detach(), {n: p.grad for n, p in model.named_parameters()},
+                     gen.get_state()))
+        del model
+    (loss_on, grads_on, gen_on), (loss_off, grads_off, gen_off) = runs
+    same = [n for n, g in grads_off.items()
+            if (g is None and grads_on[n] is None) or (g is not None and torch.equal(g, grads_on[n]))]
+    check(torch.equal(loss_on, loss_off) and len(same) == len(grads_off)
+          and torch.equal(gen_on, gen_off),
+          f"remat on vs off, dropout {cfg.model.dropout}: loss {float(loss_on)} vs "
+          f"{float(loss_off)}, {len(same)}/{len(grads_off)} gradients equal, generator "
+          f"{'equal' if torch.equal(gen_on, gen_off) else 'differs'}")
+    print(f"[grad] {card}: unpacked [1, 8192], dropout {cfg.model.dropout}: remat on vs off "
+          f"bit-identical: loss {float(loss_on):.6f}, {len(same)}/{len(grads_off)} parameter "
+          "gradients, the dropout generator's final state")
+
+
 def main() -> int:
     import torch
 
@@ -1164,10 +1660,18 @@ def main() -> int:
     long_variants = phase_long_kernel_vs_plain()
     long_served = phase_long_video_serving(card)
     long_cli = phase_long_cli(card)
+    long_bwd_variants = phase_long_backward_vs_plain()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_long_", dir=os.path.join(ROOT, "runs"))
+    try:
+        long_trained = phase_long_training(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    phase_long_gradients(card)
 
     head = next(r for r in variants if r["name"] == "packed_bf16_softmax_bf16")
     bwd_head = next(r for r in bwd_variants if r["name"] == "packed_bf16_softmax_bf16")
     source = "repurpose_tpu_torch/csrc/"
+    long_train = long_trained["launches"]
     kernels = [dict(
         name="flash_fwd", route="cuda", source=source + "flash_fwd.cu",
         replaces="repurpose_tpu/ops/flash_attention.py:227",
@@ -1175,7 +1679,8 @@ def main() -> int:
         launches_by_path=dict(serving=served["launches"],
                               training=trained["launches"]["flash_fwd"],
                               long_video_serving=long_served["launches"]["flash_fwd"],
-                              long_video_cli=long_cli),
+                              long_video_cli=long_cli,
+                              long_video_training=long_train["flash_fwd"]),
         max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
         library_ms=head["library_ms"], variant=head["name"], variants=variants,
@@ -1185,7 +1690,10 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source + "flash_bwd.cu",
             replaces=f"repurpose_tpu/ops/flash_attention.py:{line}",
-            launches=trained["launches"][name], max_abs_err=r["max_abs_err"],
+            launches=trained["launches"][name],
+            launches_by_path=dict(training=trained["launches"][name],
+                                  long_video_training=long_train[name]),
+            max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=bwd_head["library_ms"],
             variant=bwd_head["name"],
@@ -1200,12 +1708,33 @@ def main() -> int:
                        "repurpose_tpu/ops/flash_attention.py:657"],
         launches=long_served["launches"]["flash_fwd_stream"],
         launches_by_path=dict(long_video_serving=long_served["launches"],
-                              long_video_cli=long_cli),
+                              long_video_cli=long_cli,
+                              long_video_training=long_train["flash_fwd_stream"]),
         max_abs_err=long_head["max_abs_err"], ms=long_head["ms"],
         plain_ms=long_head["plain_ms"], bound_ms=long_head["bound_ms"],
         bound_by=long_head["bound_by"], library_ms=long_head["library_ms"],
         variant=long_head["name"], variants=long_variants,
     ))
+    long_bwd_head = next(r for r in long_bwd_variants if r["name"] == "unpacked_T32768")
+    fa_line = "repurpose_tpu/ops/flash_attention.py:"
+    for name, key, replaces, also in (
+        ("flash_bwd_dq_stream", "dq", 859, [914, 992]),
+        ("flash_bwd_dkv_stream", "dkv", 1200, []),
+    ):
+        r = long_bwd_head[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=source + "flash_bwd_stream.cu",
+            replaces=f"{fa_line}{replaces}", also_replaces=[f"{fa_line}{n}" for n in also],
+            launches=long_train[name],
+            launches_by_path=dict(long_video_training=long_train[name]),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=long_bwd_head["library_ms"], variant=long_bwd_head["name"],
+            variants=[dict(name=v["name"], **v[key], library_ms=v["library_ms"],
+                           library_note=v["library_note"]) for v in long_bwd_variants],
+        ))
+    check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched: "
+          + json.dumps({k["name"]: k["launches"] for k in kernels}))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

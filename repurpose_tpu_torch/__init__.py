@@ -2,9 +2,12 @@
 
 The serving path (MMCT forward -> decode -> Soft-NMS, ``infer.py``) and the
 training path (focal loss, Adam, the ``Trainer`` and ``python -m
-repurpose_tpu_torch.train``) run here in PyTorch; the attention forward and
-backward are CUDA C++ kernels written for ``sm_90a`` (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd.cu``, bound in ``native.py``). The JAX package
+repurpose_tpu_torch.train``) run here in PyTorch, up to the long-video
+buckets of ``configs/longvideo.yaml`` (T to 32768, remat for training); the
+attention forward and backward are CUDA C++ kernels written for ``sm_90a``
+(``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` up to T = 2048,
+``csrc/flash_fwd_stream.cu`` and ``csrc/flash_bwd_stream.cu`` past it, bound
+in ``native.py``). The JAX package
 ``repurpose_tpu`` stays the reference: this package imports nothing of it,
 and none of JAX, Flax or Optax.
 

@@ -47,7 +47,8 @@
 // shared memory, which keeps it at two blocks per SM, and delta is summed by
 // two threads per row with every load in flight at once. Not done yet: wgmma,
 // TMA, a multi-stage K/V ring, one fused kernel with atomic dq, and skipping
-// tiles of a packed row that share no video.
+// tiles of a packed row that share no video (past T = 2048 the streaming
+// kernels of flash_bwd_stream.cu do: they sweep only each tile's own videos).
 //
 // Layout: q/k/v/g/o are read through (batch, token, head) strides with a
 // contiguous Dh axis and 16-byte row starts; lse is [B, H, T] float32;

@@ -12,16 +12,24 @@ reference checkpoints load strictly. Numerics follow the JAX model:
   projection, after the FFN ReLU and after the FFN output (none on the
   attention weights, which the fused kernels do not expose). It is active in
   ``model.train()`` only, with masks from the generator that
-  ``MMCT.set_dropout_generator`` hands out.
-
-Rematerialisation (``ModelConfig.remat``) is not ported: the training entry
-points raise for it.
+  ``MMCT.set_dropout_generator`` hands out;
+- rematerialisation (``ModelConfig.remat``, ``nn.remat(EncoderLayer)`` in
+  the JAX encoder): with gradients on, each layer runs under
+  ``torch.utils.checkpoint`` and keeps only its input; the backward
+  recomputes the layer. The recompute draws the same dropout masks as the
+  forward did, as Flax replays the same dropout key: checkpoint restores
+  only torch's default generators, so the layer's own dropout generator is
+  set back to its state at the forward for the recompute and then returned
+  to where the recompute found it.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repurpose_tpu_torch.config import ModelConfig
@@ -103,14 +111,44 @@ class EncoderLayer(nn.Module):
         return x + self.dropout2(linear(y, self.linear2, dtype))
 
 
+def _replaying_dropout(layer: nn.Module):
+    """``context_fn`` for ``torch.utils.checkpoint`` of ``layer``: nothing
+    around the forward; around the recompute, the layer's dropout generators
+    back at their state of this forward, then returned to their state before
+    the recompute."""
+    gens = list({id(m.generator): m.generator for m in layer.modules()
+                 if isinstance(m, Dropout) and m.generator is not None}.values())
+    at_forward = [g.get_state() for g in gens]
+
+    @contextlib.contextmanager
+    def replay():
+        before = [g.get_state() for g in gens]
+        for g, state in zip(gens, at_forward):
+            g.set_state(state)
+        try:
+            yield
+        finally:
+            for g, state in zip(gens, before):
+                g.set_state(state)
+
+    return lambda: (contextlib.nullcontext(), replay())
+
+
 class Encoder(nn.Module):
-    """Stack of pre-LN layers (reference: 16, models/MMCTransformer.py:51-55)."""
+    """Stack of pre-LN layers (reference: 16, models/MMCTransformer.py:51-55),
+    each rematerialised in the backward when ``cfg.remat`` is on."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
+        self.remat = cfg.remat
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.self_num_layers))
 
     def forward(self, x, key_valid, seg_ids=None):
         for layer in self.layers:
-            x = layer(x, key_valid, seg_ids)
+            if self.remat and torch.is_grad_enabled():
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, key_valid, seg_ids, use_reentrant=False,
+                    context_fn=_replaying_dropout(layer))
+            else:
+                x = layer(x, key_valid, seg_ids)
         return x

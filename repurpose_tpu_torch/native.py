@@ -63,6 +63,16 @@ SIGNATURES = {
             _I,
         ),
     },
+    "flash_bwd_stream": {
+        "flash_bwd_dq_stream": (
+            [_P] * 13 + [_I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+            _I,
+        ),
+        "flash_bwd_dkv_stream": (
+            [_P] * 14 + [_I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+            _I,
+        ),
+    },
 }
 
 

@@ -19,10 +19,16 @@ on the TPU:
   it; these rows are padding either way.
 
 ``flash_backward`` is the counterpart of ``_flash_backward`` (same argument
-order): ``flash_bwd_dq`` and ``flash_bwd_dkv`` replace the TPU kernels
-``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (+ ``_dkv_compute``), unpacked and
-packed, with the two kernels of ``csrc/flash_bwd.cu``. dq rows and dk/dv rows
-at or past ``_kv_len`` are 0. The upstream gradient must be 0 on query rows
+order): up to ``STREAM_MAX_T``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` replace
+the TPU kernels ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (+
+``_dkv_compute``), unpacked and packed, with the two kernels of
+``csrc/flash_bwd.cu``; past it, ``flash_bwd_dq_stream`` and
+``flash_bwd_dkv_stream`` replace the four long-T TPU backward kernels
+(``_bwd_dq_stream_kernel``, ``_bwd_dq_packed_stream_kernel``,
+``_bwd_dq_hbm_kernel``, ``_bwd_dkv_stream_kernel``) with the two kernels of
+``csrc/flash_bwd_stream.cu``, which sweep 64-row tiles and, packed, only the
+tiles of each tile's own videos. dq rows and dk/dv rows at or past
+``_kv_len`` are 0. The upstream gradient must be 0 on query rows
 at or past ``_kv_len``, which is what the model gives (the loss masks those
 rows and masked keys carry no softmax mass): there the TPU forward leaves
 real lse values where this one writes ``SKIP_LSE``, so only with that
@@ -223,6 +229,42 @@ def packed_block_bounds(
     return lo.to(torch.int32), torch.maximum(hi, lo).to(torch.int32)
 
 
+def _stream_ranges(key_valid: torch.Tensor, seg_ids: torch.Tensor | None, k_block: int):
+    """The sweeps of the stream kernels: kvl per batch row (a list) and, per
+    batch row, the ``k_block`` tile range ``[lo, hi)`` each 64-row tile
+    meets (two long ``[n_tiles]`` tensors): ``[0, ceil(kvl / k_block))``
+    unpacked, ``[lo, min(hi, ceil(kvl / k_block)))`` packed
+    (``packed_block_bounds``)."""
+    b, t = key_valid.shape
+    kvl = _kv_len(key_valid)[:, 0].tolist()
+    if seg_ids is not None:
+        lo, hi = (x.long() for x in packed_block_bounds(seg_ids, STREAM_TILE, k_block))
+    n_tiles = -(-t // STREAM_TILE)
+    ranges = []
+    for bi in range(b):
+        n_live = -(-kvl[bi] // k_block)
+        if seg_ids is None:
+            ranges.append((torch.zeros(n_tiles, dtype=torch.long, device=key_valid.device),
+                           torch.full((n_tiles,), n_live, dtype=torch.long,
+                                      device=key_valid.device)))
+        else:
+            ranges.append((lo[bi], hi[bi].clamp(max=n_live)))
+    return kvl, ranges
+
+
+def _stream_keys(b_idx, k, v, key_valid, seg_ids, tp):
+    """Keys of batch row ``b_idx`` padded to ``tp``: k, v ``[H, Tp, Dh]``
+    float32, key_valid and seg_ids (-1) ``[Tp]``, and whether a key exists."""
+    t = k.shape[1]
+    pad_rows = (0, 0, 0, 0, 0, tp - t)
+    k_b = torch.nn.functional.pad(k[b_idx], pad_rows).float().permute(1, 0, 2)
+    v_b = torch.nn.functional.pad(v[b_idx], pad_rows).float().permute(1, 0, 2)
+    ok_key = torch.nn.functional.pad(key_valid[b_idx], (0, tp - t))
+    seg_k = (None if seg_ids is None
+             else torch.nn.functional.pad(seg_ids[b_idx], (0, tp - t), value=-1))
+    return k_b, v_b, ok_key, seg_k, torch.arange(tp, device=k.device) < t
+
+
 def flash_forward_stream_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
     seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32",
@@ -253,28 +295,15 @@ def flash_forward_stream_reference(
     scale = 1.0 / (dh ** 0.5)
     dev = q.device
     q_block = STREAM_TILE  # the kernel's query tile: what packed bounds are taken over
-    nqt, nkt = -(-t // q_block), -(-t // k_block)
-    tp = nkt * k_block
+    tp = -(-t // k_block) * k_block
     q_chunk = max(q_block, q_chunk // q_block * q_block)
     tiles_per_chunk = max(1, k_chunk // k_block)
-    kvl = _kv_len(key_valid)[:, 0].tolist()
-    if seg_ids is not None:
-        lo, hi = (x.long() for x in packed_block_bounds(seg_ids, q_block, k_block))
+    kvl, ranges = _stream_ranges(key_valid, seg_ids, k_block)
     out = torch.zeros((b, t, h, dh), dtype=q.dtype, device=dev)
     lse = torch.full((b, h, t, 1), SKIP_LSE, dtype=torch.float32, device=dev)
-    key_exists = torch.arange(tp, device=dev) < t
-    pad_rows = (0, 0, 0, 0, 0, tp - t)
     for bi in range(b):
-        n_live = -(-kvl[bi] // k_block)
-        if seg_ids is None:
-            tile_lo = torch.zeros(nqt, dtype=torch.long, device=dev)
-            tile_hi = torch.full((nqt,), n_live, dtype=torch.long, device=dev)
-        else:
-            tile_lo, tile_hi = lo[bi], hi[bi].clamp(max=n_live)
-            seg_k = torch.nn.functional.pad(seg_ids[bi], (0, tp - t), value=-1)
-        k_b = torch.nn.functional.pad(k[bi], pad_rows).float().permute(1, 0, 2)  # [H, Tp, Dh]
-        v_b = torch.nn.functional.pad(v[bi], pad_rows).float().permute(1, 0, 2)
-        ok_key = torch.nn.functional.pad(key_valid[bi], (0, tp - t))
+        tile_lo, tile_hi = ranges[bi]
+        k_b, v_b, ok_key, seg_k, key_exists = _stream_keys(bi, k, v, key_valid, seg_ids, tp)
         for r0 in range(0, kvl[bi], q_chunk):
             r1 = min(r0 + q_chunk, kvl[bi])
             tile = torch.arange(r0, r1, device=dev) // q_block
@@ -419,7 +448,10 @@ def flash_backward_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
 
 def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype, outs):
     """Checks the inputs and launches kernel ``name`` of csrc/flash_bwd.cu
-    into the preallocated ``outs``."""
+    or, for a ``*_stream`` name, of csrc/flash_bwd_stream.cu, into the
+    preallocated ``outs``. A stream kernel also gets kvl and, packed, the
+    64/64 tile bounds, computed here once (the TPU kernels' scalar-prefetch
+    operands)."""
     import ctypes
 
     _check_cuda_inputs(q, k, v, key_valid, seg_ids)
@@ -438,16 +470,26 @@ def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype
         raise ValueError(f"lse must be contiguous float32 [{b}, {h}, {t}, 1] on {q.device}")
     from repurpose_tpu_torch import native
 
-    lib = native.load("flash_bwd")
+    stream_kernel = name.endswith("_stream")
+    lib = native.load("flash_bwd_stream" if stream_kernel else "flash_bwd")
     key_valid = key_valid.contiguous()
     if seg_ids is not None:
         seg_ids = seg_ids.contiguous()
     strides = (ctypes.c_longlong * 15)(
         *(x.stride(i) for x in (q, k, v, g, o) for i in range(3))
     )
+    sweep = ()
+    if stream_kernel:
+        kvl = _kv_len(key_valid)[:, 0].contiguous()
+        lo = hi = None
+        if seg_ids is not None:
+            lo, hi = (x.contiguous() for x in packed_block_bounds(seg_ids, STREAM_TILE,
+                                                                   STREAM_TILE))
+        sweep = (kvl.data_ptr(), None if lo is None else lo.data_ptr(),
+                 None if hi is None else hi.data_ptr())
     err = getattr(lib, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), o.data_ptr(), strides,
-        key_valid.data_ptr(), None if seg_ids is None else seg_ids.data_ptr(),
+        key_valid.data_ptr(), None if seg_ids is None else seg_ids.data_ptr(), *sweep,
         lse.data_ptr(), *(x.data_ptr() for x in outs),
         b, t, h, dh, int(q.dtype == torch.bfloat16), int(softmax_dtype == "bfloat16"),
         1.0 / (dh ** 0.5), torch.cuda.current_stream(q.device).cuda_stream,
@@ -484,12 +526,189 @@ flash_bwd_dq.launches = 0  # kernel launches; the plain CPU path does not count
 flash_bwd_dkv.launches = 0
 
 
+# -- long T: the streaming backward ----------------------------------------------
+
+
+def _stream_probs(qs, gf, delta, lse, kc, vc, ok, active, sm_dtype):
+    """(p, ds) ``[H, R, K]`` of the TPU stream kernels for query rows
+    (``qs``, ``gf`` ``[H, R, Dh]`` float32, ``delta``, ``lse`` ``[H, R, 1]``)
+    against keys ``kc``/``vc`` ``[H, K, Dh]`` float32, in the bias form
+    (fa:891-903, 1257-1272): p = exp(R(s + bias - lse)), ds = p R(dp - delta),
+    R the softmax dtype. ``ok`` ([R or 1, K]) chooses the bias, ``active``
+    ([R, K]) the pairs of the sweep; others get p = ds = 0."""
+    s = torch.matmul(qs, kc.transpose(1, 2))
+    p = torch.exp((s + torch.where(ok, 0.0, NEG_INF) - lse).to(sm_dtype))
+    p = p.masked_fill(~active, 0.0)
+    ds = p * (torch.matmul(gf, vc.transpose(1, 2)) - delta).to(sm_dtype)
+    return p, ds
+
+
+def _stream_rows(b_idx, r0, r1, q, o, lse, g):
+    """float32 ``[H, R, *]`` operands of query rows r0..r1 of batch row
+    ``b_idx``: q scaled and rounded to its dtype, g, delta = rowsum(g o), lse."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    qs = (q[b_idx, r0:r1].float() * scale).to(q.dtype).float().permute(1, 0, 2)
+    gf = g[b_idx, r0:r1].float().permute(1, 0, 2)
+    delta = (gf * o[b_idx, r0:r1].float().permute(1, 0, 2)).sum(-1, keepdim=True)
+    return qs, gf, delta, lse[b_idx, :, r0:r1]
+
+
+def flash_bwd_dq_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
+                                  softmax_dtype: str = "float32", q_chunk: int = 4096,
+                                  k_chunk: int = 4096) -> torch.Tensor:
+    """Plain PyTorch version of the streaming dq kernel: the TPU kernels
+    ``_bwd_dq_stream_kernel``, ``_bwd_dq_packed_stream_kernel`` and
+    ``_bwd_dq_hbm_kernel`` (fa:859-1103) at 64-key tiles. dq accumulates in
+    float32 over the key tiles of each 64-row query tile's sweep (``[0,
+    ceil(kvl / 64))``, packed ``[lo, min(hi, ceil(kvl / 64)))``), every
+    tile normalised by the saved lse with no running max; ds is rounded to
+    k's dtype for the product and dq = scale * sum in q's dtype. Query rows
+    at or past kvl, and tiles with an empty range, get 0. The loop runs over
+    ``q_chunk`` query rows and ``k_chunk`` keys at a time (a few GB live at
+    T = 32768, 8 heads)."""
+    b, t, h, dh = q.shape
+    sm_dtype = _SM_DTYPES[softmax_dtype]
+    tile = STREAM_TILE
+    tp = -(-t // tile) * tile
+    q_chunk = max(tile, q_chunk // tile * tile)
+    tiles_per_chunk = max(1, k_chunk // tile)
+    kvl, ranges = _stream_ranges(key_valid, seg_ids, tile)
+    dq = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    for bi in range(b):
+        tile_lo, tile_hi = ranges[bi]
+        k_b, v_b, ok_key, seg_k, key_exists = _stream_keys(bi, k, v, key_valid, seg_ids, tp)
+        for r0 in range(0, kvl[bi], q_chunk):
+            r1 = min(r0 + q_chunk, kvl[bi])
+            row_tile = torch.arange(r0, r1, device=q.device) // tile
+            row_lo, row_hi = tile_lo[row_tile], tile_hi[row_tile]  # [R]
+            live = row_lo < row_hi
+            if not bool(live.any()):
+                continue
+            qs, gf, delta, lse_r = _stream_rows(bi, r0, r1, q, o, lse, g)
+            acc = torch.zeros((h, r1 - r0, dh), dtype=torch.float32, device=q.device)
+            kt0, kt1 = int(row_lo[live].min()), int(row_hi[live].max())
+            for c0 in range(kt0, kt1, tiles_per_chunk):
+                j0, j1 = c0 * tile, min(c0 + tiles_per_chunk, kt1) * tile
+                key_tile = torch.arange(j0, j1, device=q.device) // tile
+                active = ((row_lo[:, None] <= key_tile) & (key_tile < row_hi[:, None])
+                          & key_exists[j0:j1])
+                ok = ok_key[None, j0:j1]
+                if seg_k is not None:
+                    ok = ok & (seg_ids[bi, r0:r1, None] == seg_k[None, j0:j1])
+                _, ds = _stream_probs(qs, gf, delta, lse_r, k_b[:, j0:j1], v_b[:, j0:j1],
+                                      ok, active, sm_dtype)
+                acc += torch.matmul(ds.to(k.dtype).float(), k_b[:, j0:j1])
+                del ds
+            dq_rows = (acc * (1.0 / dh ** 0.5)).permute(1, 0, 2).to(q.dtype)
+            dq[bi, r0:r1][live] = dq_rows[live]
+    return dq
+
+
+def flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
+                                   softmax_dtype: str = "float32", q_chunk: int = 4096,
+                                   k_chunk: int = 4096):
+    """Plain PyTorch version of the streaming dk/dv kernel: the TPU kernel
+    ``_bwd_dkv_stream_kernel`` (fa:1200-1282) at 64-row tiles, (dk, dv).
+    Each 64-key tile accumulates in float32 over the query tiles that meet
+    its videos: ``[0, ceil(kvl / 64))`` unpacked and, packed, ``[lo,
+    min(hi, ceil(kvl / 64)))`` of the key tile's own ``packed_block_bounds``
+    (the mask seg_q == seg_k is symmetric, so at 64/64 tiles these are the
+    query tiles whose videos overlap the key tile, the TPU's lo <= ki < hi).
+    dv += round_g(p)^T g and dk += round_q(ds)^T q_s. Key rows at or past
+    kvl, and key tiles with an empty range, get 0. The loop runs over
+    ``k_chunk`` keys and ``q_chunk`` query rows at a time."""
+    b, t, h, dh = q.shape
+    sm_dtype = _SM_DTYPES[softmax_dtype]
+    tile = STREAM_TILE
+    tp = -(-t // tile) * tile
+    q_chunk = max(tile, q_chunk // tile * tile)
+    k_chunk = max(tile, k_chunk // tile * tile)
+    kvl, ranges = _stream_ranges(key_valid, seg_ids, tile)
+    dk = torch.zeros(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+    for bi in range(b):
+        tile_lo, tile_hi = ranges[bi]  # query tiles per key tile
+        k_b, v_b, ok_key, seg_k, key_exists = _stream_keys(bi, k, v, key_valid, seg_ids, tp)
+        for j0 in range(0, kvl[bi], k_chunk):
+            j1 = min(j0 + k_chunk, -(-kvl[bi] // tile) * tile)
+            key_tile = torch.arange(j0, j1, device=k.device) // tile
+            col_lo, col_hi = tile_lo[key_tile], tile_hi[key_tile]  # [K]
+            live = col_lo < col_hi
+            if not bool(live.any()):
+                continue
+            acc_k = torch.zeros((h, j1 - j0, dh), dtype=torch.float32, device=k.device)
+            acc_v = torch.zeros_like(acc_k)
+            r_end = min(int(col_hi[live].max()) * tile, t)
+            for r0 in range(int(col_lo[live].min()) * tile, r_end, q_chunk):
+                r1 = min(r0 + q_chunk, r_end)
+                row_tile = torch.arange(r0, r1, device=k.device) // tile
+                active = ((col_lo <= row_tile[:, None]) & (row_tile[:, None] < col_hi)
+                          & key_exists[j0:j1])
+                ok = ok_key[None, j0:j1]
+                if seg_k is not None:
+                    ok = ok & (seg_ids[bi, r0:r1, None] == seg_k[None, j0:j1])
+                qs, gf, delta, lse_r = _stream_rows(bi, r0, r1, q, o, lse, g)
+                p, ds = _stream_probs(qs, gf, delta, lse_r, k_b[:, j0:j1], v_b[:, j0:j1],
+                                      ok, active, sm_dtype)
+                acc_v += torch.matmul(p.to(g.dtype).float().transpose(1, 2), gf)
+                acc_k += torch.matmul(ds.to(q.dtype).float().transpose(1, 2), qs)
+                del p, ds
+            rows = min(j1, kvl[bi]) - j0  # keys at or past kvl stay 0
+            dk[bi, j0:j0 + rows] = acc_k[:, :rows].permute(1, 0, 2).to(k.dtype)
+            dv[bi, j0:j0 + rows] = acc_v[:, :rows].permute(1, 0, 2).to(v.dtype)
+    return dk, dv
+
+
+def flash_bwd_dq_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
+                        softmax_dtype: str = "float32") -> torch.Tensor:
+    """dq of the streaming backward, ``[B, T, H, Dh]`` in q's dtype: the
+    kernel ``flash_bwd_dq_stream`` of csrc/flash_bwd_stream.cu on CUDA
+    tensors (counted in ``flash_bwd_dq_stream.launches``),
+    ``flash_bwd_dq_stream_reference`` on CPU ones."""
+    if not _on_cuda(q, softmax_dtype, "flash_bwd_dq_stream"):
+        return flash_bwd_dq_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids,
+                                             softmax_dtype)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("flash_bwd_dq_stream", q, k, v, key_valid, o, lse, g, seg_ids,
+                softmax_dtype, (dq,))
+    flash_bwd_dq_stream.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
+                         softmax_dtype: str = "float32"):
+    """(dk, dv) of the streaming backward, each ``[B, T, H, Dh]`` in the
+    input dtype: the kernel ``flash_bwd_dkv_stream`` of
+    csrc/flash_bwd_stream.cu on CUDA tensors (counted in
+    ``flash_bwd_dkv_stream.launches``), ``flash_bwd_dkv_stream_reference``
+    on CPU ones."""
+    if not _on_cuda(q, softmax_dtype, "flash_bwd_dkv_stream"):
+        return flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids,
+                                              softmax_dtype)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _bwd_launch("flash_bwd_dkv_stream", q, k, v, key_valid, o, lse, g, seg_ids,
+                softmax_dtype, (dk, dv))
+    flash_bwd_dkv_stream.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq_stream.launches = 0  # kernel launches; the plain CPU path does not count
+flash_bwd_dkv_stream.launches = 0
+
+
 def flash_backward(q, k, v, key_valid, o, lse, g, seg_ids=None,
                    softmax_dtype: str = "float32"):
     """(dq, dk, dv) of ``out = flash_forward(q, k, v, key_valid, seg_ids)[0]``
-    for the upstream gradient ``g``, given the forward's ``o`` and ``lse``.
-    q/k/v may be strided views as for ``flash_forward``; ``g`` and ``o`` need
-    a contiguous head-dim axis and 16-byte rows."""
+    for the upstream gradient ``g``, given the forward's ``o`` and ``lse``:
+    the dense kernels up to ``STREAM_MAX_T``, the streaming ones past it, as
+    on the TPU (fa:1340-1341, 1461-1468). q/k/v may be strided views as for
+    ``flash_forward``; ``g`` and ``o`` need a contiguous head-dim axis and
+    16-byte rows."""
+    if q.shape[1] > STREAM_MAX_T:
+        dq = flash_bwd_dq_stream(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+        dk, dv = flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+        return dq, dk, dv
     dq = flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     dk, dv = flash_bwd_dkv(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     return dq, dk, dv

@@ -80,10 +80,6 @@ class Trainer:
                 "pipeline and data parallelism are not ported yet (ROADMAP.md, "
                 "Queue 1 item 9)"
             )
-        if cfg.model.remat:
-            raise NotImplementedError(
-                "ModelConfig.remat is not ported yet (ROADMAP.md, Queue 1 item 8)"
-            )
         if tc.pack_sequences and tc.loss_norm == "config_batch_size":
             logger.warning(
                 "pack_sequences with loss_norm='config_batch_size' divides the loss "

@@ -100,10 +100,6 @@ def make_train_step(
     regression loss on), ``learning_rate`` as a float, and with
     ``per_layer_grad_norms`` a stacked vector ``grad_norms/stacked`` labelled
     by ``kernel_layer_names``."""
-    if model_cfg.remat:
-        raise NotImplementedError(
-            "ModelConfig.remat is not ported yet (ROADMAP.md, Queue 1 item 8)"
-        )
     accum = max(int(train_cfg.grad_accum_steps), 1)
     accum_dtype = (torch.bfloat16 if train_cfg.grad_accum_dtype == "bfloat16"
                    else torch.float32)

@@ -315,9 +315,11 @@ def test_entry_points_raise_without_a_card(tmp_path):
 
 
 def test_training_options_not_ported_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        Trainer(dataclasses.replace(CFG, model=dataclasses.replace(MODEL, remat=True)),
-                str(tmp_path), _datasets()[0], device="cpu")
+    """The mesh is not ported and raises; remat is ported (tests/test_torch_remat.py)
+    and builds a Trainer whose encoder rematerialises its layers."""
+    remat = Trainer(dataclasses.replace(CFG, model=dataclasses.replace(MODEL, remat=True)),
+                    str(tmp_path), _datasets()[0], device="cpu")
+    assert remat.state.model.multimodal_encoder.remat
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         Trainer(dataclasses.replace(CFG, mesh=MeshConfig(data=1, model=2)),
                 str(tmp_path), _datasets()[0], device="cpu")
