@@ -61,7 +61,17 @@ verdict line):
    c. every parameter gradient of a [1, 8192] step, unpacked and packed, bf16
       and float32, against the plain-stream model; remat on vs off with
       dropout on, bit-identical;
-9. a JSON line listing every ported kernel, then the verdict line
+9. the bench tools (``repurpose_tpu_torch.tools``):
+   a. the no-transpose forward ``mha_nt`` against its plain version at the
+      tool's [8, 2048, 8 * 64] bf16 (keys >= 1800 masked) at each
+      heads-per-block the kernel has, and at [2, 1000, 8 * 64] float32 with
+      key holes and a fully masked row, every row compared; timed with the
+      plain version, ``flash_forward`` and SDPA on the same inputs;
+   b. ``int8_core`` and ``int8_matmul`` against their plain versions, bit for
+      bit, at the tool's three shapes and a ragged one, timed with the plain
+      versions, ``torch._int_mm`` (core) and bf16 ``torch.matmul``;
+   c. each tool's ``main([])`` on the card, with its launches;
+10. a JSON line listing every ported kernel, then the verdict line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -84,7 +94,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 
 # One H100 SXM, dense peaks (NVIDIA data sheet, at the 700 W limit).
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor cores; f32 FMA
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12,  # bf16 tensor cores; f32 FMA
+            "int8": 1979e12}
 HBM_BYTES_PER_S = 3.35e12
 
 # Kernel vs plain tolerances. float32: the kernel sums in another order and
@@ -200,11 +211,15 @@ def _counted_wrappers() -> dict:
     """Every kernel wrapper by kernel name; each counts its launches in
     ``.launches``."""
     from repurpose_tpu_torch.ops import flash_attention as fa
+    from repurpose_tpu_torch.tools import bench_attention_fwd, bench_int8_matmul
 
     return {"flash_fwd": fa.flash_forward, "flash_fwd_stream": fa.flash_forward_stream,
             "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
             "flash_bwd_dq_stream": fa.flash_bwd_dq_stream,
-            "flash_bwd_dkv_stream": fa.flash_bwd_dkv_stream}
+            "flash_bwd_dkv_stream": fa.flash_bwd_dkv_stream,
+            "flash_fwd_nt": bench_attention_fwd.mha_nt,
+            "int8_matmul": bench_int8_matmul.int8_matmul,
+            "int8_core": bench_int8_matmul.int8_core}
 
 
 def reset_launches() -> None:
@@ -1634,6 +1649,181 @@ def phase_long_gradients(card: str) -> None:
           "gradients, the dropout generator's final state")
 
 
+# -- phase 9: the bench tools ---------------------------------------------------
+
+
+def _nt_bound(q, kv):
+    """Least time for the no-transpose forward on these inputs: the two
+    products of every query row with the keys it needs (the valid keys; all
+    T in a row with none), against q and out once, k/v rows up to kvl (all
+    T in a row with no valid key) and key_valid read once."""
+    import torch
+
+    from repurpose_tpu_torch.ops.flash_attention import _kv_len
+
+    b, t, d = q.shape
+    n = kv.sum(dim=1)
+    flops = 4.0 * t * float(torch.where(n > 0, n, t).double().sum()) * d
+    kvl = _kv_len(kv)[:, 0]
+    kvl = torch.where(kvl > 0, kvl, t)
+    bytes_ = (2 * float(kvl.sum()) * d + 2 * q.numel()) * q.element_size() + kv.numel()
+    dtype = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    t_ops = flops / PEAK_OPS[dtype] * 1e3
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            flops, bytes_)
+
+
+def phase_nt_vs_plain() -> list[dict]:
+    """9a: ``mha_nt`` against ``mha_nt_reference`` on every row under ``TOL``
+    (rows past the last valid key and fully masked rows included), timed with
+    the plain version, the port's ``flash_forward`` on [B, T, H, Dh] views of
+    the same tensors and SDPA (yardstick only, on the same boolean mask)."""
+    import torch
+
+    from repurpose_tpu_torch.ops.flash_attention import flash_forward
+    from repurpose_tpu_torch.tools import bench_attention_fwd as baf
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    variants = [dict(name=f"tool_bf16_hpb{g}", shape=(baf.B, baf.T, baf.H, baf.DH),
+                     dtype="bfloat16", hpb=g) for g in baf.NT_HEADS_PER_BLOCK]
+    variants.append(dict(name="f32_T1000_holes_masked_row", shape=(2, 1000, 8, 64),
+                         dtype="float32", hpb=2))
+    rows = []
+    for var in variants:
+        b, t, h, dh = var["shape"]
+        dtype = getattr(torch, var["dtype"])
+        q, k, v = (torch.randn((b, t, h * dh), generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        kv = torch.ones((b, t), dtype=torch.bool, device="cuda")
+        if var["dtype"] == "bfloat16":
+            kv[:, baf.KEYS_VALID:] = False  # the tool's mask
+        else:
+            kv[0, 900:] = False  # a ragged row with interior holes,
+            kv[0, torch.randint(0, 900, (100,), generator=gen, device="cuda")] = False
+            kv[1] = False  # and a row with no valid key
+        out = baf.mha_nt(q, k, v, kv, heads=h, heads_per_block=var["hpb"])
+        torch.cuda.synchronize()
+        ref = baf.mha_nt_reference(q, k, v, kv, h)
+        got, want = out.float(), ref.float()
+        err = float((got - want).abs().max())
+        tol = TOL[var["dtype"]]
+        atol = tol.get("out_atol", 0.0) or tol["out_atol_rel_max"] * float(want.abs().max())
+        bad = int(((got - want).abs() > atol + tol["out_rtol"] * want.abs()).sum())
+        check(bad == 0, f"mha_nt {var['name']}: {bad} elements past atol {atol:.3g} "
+                        f"rtol {tol['out_rtol']} (max err {err:.3g})")
+        check(bool(torch.isfinite(got).all()), f"mha_nt {var['name']}: non-finite out")
+
+        views = [z.view(b, t, h, dh) for z in (q, k, v)]
+        bound_ms, bound_by, flops, bytes_ = _nt_bound(q, kv)
+        row = dict(
+            name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
+            heads_per_block=var["hpb"], max_abs_err=err, out_atol=atol,
+            ms=median_ms(lambda: baf.mha_nt(q, k, v, kv, heads=h, heads_per_block=var["hpb"]),
+                         reps=20, warmup=3),
+            plain_ms=median_ms(lambda: baf.mha_nt_reference(q, k, v, kv, h), reps=3, warmup=1),
+            flash_forward_ms=median_ms(lambda: flash_forward(*views, kv), reps=20, warmup=3),
+            library_ms=_sdpa_ms(*views, kv, None, reps=10),
+            bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
+        print(f"[nt-kernel] {json.dumps(row)}")
+        rows.append(row)
+        del q, k, v, kv, out, ref, got, want, views
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _int8_bounds(m: int, k: int, n: int, x_bytes: int) -> dict:
+    """Least times of the two int8 kernels at (m, k, n): 2 m k n int8
+    operations at the card's int8 peak against their bytes (the fused kernel:
+    x, wq, ws read and out in x's dtype written once; the core kernel: xq and
+    wq read and the int32 out written once)."""
+    t_ops = 2.0 * m * k * n / PEAK_OPS["int8"] * 1e3
+    out = {}
+    for name, bytes_ in (("fused", m * k * x_bytes + k * n + 4 * n + m * n * x_bytes),
+                         ("core", m * k + k * n + 4 * m * n)):
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(bound_ms=max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops >= t_bytes else "bytes",
+                         ops=2.0 * m * k * n, bytes=bytes_)
+    return out
+
+
+def phase_int8_vs_plain() -> list[dict]:
+    """9b: ``int8_core`` and ``int8_matmul`` against their plain versions,
+    bit for bit, at the tool's shapes and a ragged one, bf16 x with an
+    all-zero row; timed with the plain versions, ``torch._int_mm`` (the
+    core kernel's yardstick, never on the port's path) and the bf16
+    ``torch.matmul`` incumbent."""
+    import torch
+
+    from repurpose_tpu_torch.tools import bench_int8_matmul as bim
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    rows = []
+    for m, k, n in [*bim.SHAPES, (1000, 520, 776)]:
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        x[3] = 0  # the 1e-12 scale clamp
+        w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        wq, ws = bim.quantize_columns(w)
+        xq, _ = bim.quantize_rows(x)
+        fused, core = bim.int8_matmul(x, wq, ws), bim.int8_core(xq, wq)
+        torch.cuda.synchronize()
+        want_fused, want_core = bim.int8_matmul_reference(x, wq, ws), bim.int8_core_reference(xq, wq)
+        for label, got, want in (("int8_matmul", fused, want_fused), ("int8_core", core, want_core)):
+            diff = int((got != want).sum())
+            check(diff == 0, f"{label} [{m}x{k}x{n}]: {diff} elements differ from the plain version")
+        bounds = _int8_bounds(m, k, n, x.element_size())
+        row = dict(
+            shape=[m, k, n], max_abs_err=0.0,
+            fused=dict(ms=median_ms(lambda: bim.int8_matmul(x, wq, ws), reps=20, warmup=3),
+                       plain_ms=median_ms(lambda: bim.int8_matmul_reference(x, wq, ws),
+                                          reps=3, warmup=1),
+                       library_ms=None, **bounds["fused"]),
+            core=dict(ms=median_ms(lambda: bim.int8_core(xq, wq), reps=20, warmup=3),
+                      plain_ms=median_ms(lambda: bim.int8_core_reference(xq, wq),
+                                         reps=3, warmup=1),
+                      library_ms=median_ms(lambda: torch._int_mm(xq, wq), reps=20, warmup=3),
+                      **bounds["core"]),
+            bf16_matmul_ms=median_ms(lambda: torch.matmul(x, w), reps=20, warmup=3))
+        print(f"[int8-kernel] {json.dumps(row)}")
+        rows.append(row)
+        del x, w, wq, ws, xq, fused, core, want_fused, want_core
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_bench_tools(card: str) -> dict:
+    """9c: each tool's ``main([])`` on the card, its lines printed and its
+    kernels' launches read."""
+    import contextlib
+    import io
+
+    from repurpose_tpu_torch.tools import bench_attention_fwd, bench_int8_matmul
+
+    launches = {}
+    for tool, kernels, n_lines in ((bench_attention_fwd, ("flash_fwd_nt", "flash_fwd"), 8),
+                                   (bench_int8_matmul, ("int8_matmul", "int8_core"),
+                                    1 + 2 * len(bench_int8_matmul.SHAPES))):
+        name = tool.__name__.rsplit(".", 1)[-1]
+        reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main([])
+        wall_s = time.perf_counter() - t0
+        launches[name] = read_launches(*kernels)
+        lines = buf.getvalue().splitlines()
+        check(rc == 0 and len(lines) == n_lines and card in lines[0],
+              f"{name}: rc {rc}, printed {lines}")
+        check(all(launches[name][kn] > 0 for kn in kernels),
+              f"{name}: a kernel was not launched: {launches[name]}")
+        for line in lines:
+            print(f"[bench-tools] {name}: {line}")
+        print(f"[bench-tools] {name}: main([]) {wall_s:.1f} s, launches "
+              f"{json.dumps(launches[name])}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1667,6 +1857,9 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     phase_long_gradients(card)
+    nt_variants = phase_nt_vs_plain()
+    int8_variants = phase_int8_vs_plain()
+    bench = phase_bench_tools(card)
 
     head = next(r for r in variants if r["name"] == "packed_bf16_softmax_bf16")
     bwd_head = next(r for r in bwd_variants if r["name"] == "packed_bf16_softmax_bf16")
@@ -1680,7 +1873,8 @@ def main() -> int:
                               training=trained["launches"]["flash_fwd"],
                               long_video_serving=long_served["launches"]["flash_fwd"],
                               long_video_cli=long_cli,
-                              long_video_training=long_train["flash_fwd"]),
+                              long_video_training=long_train["flash_fwd"],
+                              bench_attention_fwd=bench["bench_attention_fwd"]["flash_fwd"]),
         max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
         library_ms=head["library_ms"], variant=head["name"], variants=variants,
@@ -1732,6 +1926,33 @@ def main() -> int:
             library_ms=long_bwd_head["library_ms"], variant=long_bwd_head["name"],
             variants=[dict(name=v["name"], **v[key], library_ms=v["library_ms"],
                            library_note=v["library_note"]) for v in long_bwd_variants],
+        ))
+    nt_head = next(r for r in nt_variants if r["name"] == "tool_bf16_hpb2")
+    kernels.append(dict(
+        name="flash_fwd_nt", route="cuda", source=source + "flash_fwd_nt.cu",
+        replaces="tools/bench_attention_fwd.py:73",
+        launches=bench["bench_attention_fwd"]["flash_fwd_nt"],
+        launches_by_path=dict(bench_attention_fwd=bench["bench_attention_fwd"]["flash_fwd_nt"]),
+        max_abs_err=nt_head["max_abs_err"], ms=nt_head["ms"], plain_ms=nt_head["plain_ms"],
+        bound_ms=nt_head["bound_ms"], bound_by=nt_head["bound_by"],
+        library_ms=nt_head["library_ms"], variant=nt_head["name"], variants=nt_variants,
+    ))
+    int8_head = next(r for r in int8_variants if r["shape"] == [16384, 512, 512])
+    for name, key, line in (("int8_matmul", "fused", 67), ("int8_core", "core", 102)):
+        r = int8_head[key]
+        kernels.append(dict(
+            name=name, route="cuda", source=source + "int8_matmul.cu",
+            replaces=f"tools/bench_int8_matmul.py:{line}",
+            launches=bench["bench_int8_matmul"][name],
+            launches_by_path=dict(bench_int8_matmul=bench["bench_int8_matmul"][name]),
+            max_abs_err=int8_head["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
+            library_note=(None if r["library_ms"] is not None else
+                          "no single PyTorch call quantises, multiplies in int8 and "
+                          "dequantises; bf16_matmul_ms is the bf16 torch.matmul incumbent"),
+            bf16_matmul_ms=int8_head["bf16_matmul_ms"], variant=str(int8_head["shape"]),
+            variants=[dict(shape=v["shape"], bf16_matmul_ms=v["bf16_matmul_ms"], **v[key])
+                      for v in int8_variants],
         ))
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched: "
           + json.dumps({k["name"]: k["launches"] for k in kernels}))

@@ -7,7 +7,9 @@ buckets of ``configs/longvideo.yaml`` (T to 32768, remat for training); the
 attention forward and backward are CUDA C++ kernels written for ``sm_90a``
 (``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` up to T = 2048,
 ``csrc/flash_fwd_stream.cu`` and ``csrc/flash_bwd_stream.cu`` past it, bound
-in ``native.py``). The JAX package
+in ``native.py``). ``tools/`` ports the two bench tools whose Pallas kernels
+lie outside the JAX package (``csrc/flash_fwd_nt.cu``,
+``csrc/int8_matmul.cu``). The JAX package
 ``repurpose_tpu`` stays the reference: this package imports nothing of it,
 and none of JAX, Flax or Optax.
 

@@ -73,6 +73,17 @@ SIGNATURES = {
             _I,
         ),
     },
+    "flash_fwd_nt": {
+        "flash_fwd_nt": (
+            [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P,
+             _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+            _I,
+        ),
+    },
+    "int8_matmul": {
+        "int8_core": ([_P, _P, _P, _I, _I, _I, _P], _I),
+        "int8_matmul": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    },
 }
 
 

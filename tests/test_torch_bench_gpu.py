@@ -1,0 +1,154 @@
+"""The bench tools' CUDA kernels (csrc/flash_fwd_nt.cu, csrc/int8_matmul.cu)
+against their plain PyTorch versions, on the card. Marked ``gpu``; each test
+skips (in its fixture) where no card is visible. Run on a machine with an
+H100:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_bench_gpu.py
+
+(``--noconftest``: the repository's conftest imports JAX, which that machine
+does not have.) This file imports neither JAX nor PyYAML.
+
+Tolerances: ``mha_nt``, every row (rows past the last valid key and fully
+masked rows included), float32 atol 1e-4 / rtol 1e-4 (the kernel sums in
+another order and rescales its online softmax, ~1e-6 relative per step);
+bf16 atol 1e-2 * max |out| / rtol 1e-2 (bf16 outputs, one ulp 2**-8
+relative, and the kernel rounds exp(s - m) to bf16 against its running max
+where the plain version uses the final max). The int8 kernels: bit for bit.
+"""
+
+import pytest
+import torch
+
+from repurpose_tpu_torch.tools import bench_attention_fwd as baf
+from repurpose_tpu_torch.tools import bench_int8_matmul as bim
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: (1e-4, False), torch.bfloat16: (1e-2, True)}  # atol, relative to max
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _nt_inputs(seed, b, t, heads, dh, dtype, device):
+    """q/k/v [b, t, heads * dh]; key_valid: row 0 full, row 1 fully masked,
+    row 2 ragged with interior holes, row 3 with its first keys masked."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((b, t, heads * dh), generator=gen, device=device).to(dtype)
+               for _ in range(3))
+    kv = torch.ones((b, t), dtype=torch.bool, device=device)
+    kv[1] = False
+    n = max(1, int(0.6 * t))
+    kv[2, n:] = False
+    kv[2, torch.randint(0, n, (max(1, n // 8),), generator=gen, device=device)] = False
+    kv[2, 0] = True
+    kv[3, : max(1, t // 3)] = False
+    return q, k, v, kv
+
+
+def _check_nt(q, k, v, kv, heads, hpb):
+    out = baf.mha_nt(q, k, v, kv, heads=heads, heads_per_block=hpb)
+    torch.cuda.synchronize()
+    ref = baf.mha_nt_reference(q, k, v, kv, heads).float()
+    atol, rel = TOL[q.dtype]
+    atol = atol * float(ref.abs().max()) if rel else atol
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=1e-2 if rel else 1e-4)
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("t", [64, 1000, 2048])
+@pytest.mark.parametrize("hpb", baf.NT_HEADS_PER_BLOCK)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_mha_nt_matches_plain(cuda, t, hpb, dtype):
+    _check_nt(*_nt_inputs(t + hpb, 4, t, 8, 64, dtype, cuda), 8, hpb)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 128])
+def test_mha_nt_other_head_dims(cuda, dh):
+    for hpb in baf.NT_HEADS_PER_BLOCK:
+        if hpb * dh <= baf.NT_MAX_GROUP_WIDTH:
+            for dtype in (torch.bfloat16, torch.float32):
+                _check_nt(*_nt_inputs(dh + hpb, 4, 200, 4, dh, dtype, cuda), 4, hpb)
+
+
+def test_mha_nt_strided_views_match_contiguous(cuda):
+    b, t, h, dh = 4, 300, 8, 64
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn((b, t, 3 * h * dh), generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split(h * dh, dim=-1)
+    kv = _nt_inputs(3, b, t, h, dh, torch.bfloat16, cuda)[3]
+    got = baf.mha_nt(q, k, v, kv, heads=h)
+    want = baf.mha_nt(q.contiguous(), k.contiguous(), v.contiguous(), kv, heads=h)
+    torch.testing.assert_close(got, want, atol=0.0, rtol=0.0)
+
+
+def _int8_inputs(m, k, n, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+    x[min(3, m - 1)] = 0  # the 1e-12 scale clamp
+    wq, ws = bim.quantize_columns(torch.randn((k, n), generator=gen, device=device) * 0.02)
+    return x, wq, ws
+
+
+INT8_SHAPES = [*bim.SHAPES, (1000, 520, 776), (17, 16, 8), (130, 2048, 136), (5, 3, 7),
+               (300, 1, 129)]
+
+
+@pytest.mark.parametrize("m,k,n", INT8_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_int8_kernels_equal_plain_bit_for_bit(cuda, m, k, n, dtype):
+    x, wq, ws = _int8_inputs(m, k, n, dtype, cuda)
+    got = bim.int8_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got, bim.int8_matmul_reference(x, wq, ws))
+    xq, _ = bim.quantize_rows(x)
+    core = bim.int8_core(xq, wq)
+    torch.cuda.synchronize()
+    assert core.dtype == torch.int32
+    assert torch.equal(core, bim.int8_core_reference(xq, wq))
+
+
+def test_int8_core_at_the_int32_extremes(cuda):
+    xq = torch.full((256, 2048), 127, dtype=torch.int8, device=cuda)
+    xq[1::2] = -127
+    wq = torch.full((2048, 256), -127, dtype=torch.int8, device=cuda)
+    wq[:, ::3] = 127
+    assert torch.equal(bim.int8_core(xq, wq), bim.int8_core_reference(xq, wq))
+
+
+def test_cuda_tensors_launch_the_kernels(cuda):
+    q, k, v, kv = _nt_inputs(5, 4, 128, 4, 32, torch.bfloat16, cuda)
+    x, wq, ws = _int8_inputs(64, 64, 64, torch.bfloat16, cuda)
+    before = (baf.mha_nt.launches, bim.int8_matmul.launches, bim.int8_core.launches)
+    baf.mha_nt(q, k, v, kv, heads=4)
+    bim.int8_matmul(x, wq, ws)
+    bim.int8_core(bim.quantize_rows(x)[0], wq)
+    torch.cuda.synchronize()
+    after = (baf.mha_nt.launches, bim.int8_matmul.launches, bim.int8_core.launches)
+    assert after == tuple(n + 1 for n in before)
+
+
+def test_wrappers_raise_on_unsupported_inputs(cuda):
+    q, k, v, kv = _nt_inputs(6, 4, 64, 4, 32, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        baf.mha_nt(q.half(), k.half(), v.half(), kv, heads=4)
+    with pytest.raises(ValueError):
+        baf.mha_nt(q, k.cpu(), v, kv, heads=4)
+    with pytest.raises(ValueError):
+        baf.mha_nt(q, k, v, kv.int(), heads=4)
+    x, wq, ws = _int8_inputs(64, 64, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        bim.int8_matmul(x.half(), wq, ws)
+    with pytest.raises(ValueError):
+        bim.int8_matmul(x, wq.cpu(), ws)
+    with pytest.raises(ValueError):
+        bim.int8_matmul(x, wq, ws.double())
+    with pytest.raises(ValueError):
+        bim.int8_core(x, wq)  # not int8
+    with pytest.raises(ValueError):
+        bim.int8_core(bim.quantize_rows(x)[0], wq[:32])  # inner sizes differ

@@ -52,6 +52,17 @@ def test_entry_points_raise_without_cuda():
         InferencePipeline(cfg, sd, TestConfig())
 
 
+@pytest.mark.parametrize("tool", ["bench_attention_fwd", "bench_int8_matmul"])
+def test_bench_tool_entry_points_raise_without_cuda(tool):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    import importlib
+
+    module = importlib.import_module(f"repurpose_tpu_torch.tools.{tool}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main([])
+
+
 def _run_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
