@@ -44,18 +44,23 @@ verdict line):
       latency of each request and a profile of the 32768 batch;
    c. the inference CLI's ``run`` with ``--synthetic 4``, unpacked and packed;
 8. long-video training (``configs/longvideo.yaml``, remat on, batch 1):
-   a. the streaming backward kernels (dq, dk/dv) against their plain
-      versions at [1, 4096] (bf16 and float32), [1, 16384] and [1, 32768]
-      unpacked and packed rows of [1, 8192] and [1, 32768], timed with the
-      plain versions, SDPA's backward and (packed 32768) the dense backward
-      kernels, which must give the same gradients;
+   a. the streaming backward kernels (the prep, dq, dk/dv) against their
+      plain versions at [1, 4096] (bf16 and float32), [1, 16384] and
+      [1, 32768] unpacked and packed rows of [1, 8192], [1, 16384] and
+      [1, 32768]; two launches of each kernel give equal bits; each kernel
+      timed over >= 5 chains of back-to-back launches (median, min, max per
+      launch) with the plain versions, SDPA's backward timed the same way and
+      each time's ratio to it in this run, and (packed
+      32768) the dense backward kernels, which must give the same gradients
+      and be slower, as must SDPA;
    b. the flagship trains through the CLI's ``run`` (``--synthetic 7``,
       unpacked: buckets 4096..32768) and ``Trainer`` (12 videos packed into
       rows of 32768 and of 8192), each with the val probe, a checkpoint and
-      the tIoU evaluation, and exactly 32 / 16 / 16 launches of
+      the tIoU evaluation, and exactly 32 / 16 / 16 / 16 launches of
       ``flash_fwd_stream`` / ``flash_bwd_dq_stream`` / ``flash_bwd_dkv_stream``
-      per step (forward and remat recompute; backward) and no dense
-      backward launch; then step time, videos/s and peak memory per bucket,
+      / ``flash_bwd_stream_prep`` per step (forward and remat recompute;
+      backward) and no dense backward launch; then step time, videos/s and
+      peak memory per bucket,
       the [1, 16384] step without remat (a higher peak) and a profile of the
       [1, 32768] step;
    c. every parameter gradient of a [1, 8192] step, unpacked and packed, bf16
@@ -82,6 +87,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -189,8 +195,14 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def median_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median over ``reps`` single calls, each timed with CUDA events."""
+def spread_ms(fn, reps: int, warmup: int = 2, chain: int = 1) -> dict:
+    """Median, min and max over ``reps`` timings with CUDA events, each of
+    one call or, with ``chain`` > 1, the time per call of ``chain``
+    back-to-back calls queued behind one more: the card's own time per call
+    wherever the host queues a call faster than the card runs it, since each
+    call's host work (argument checks, small launches) then overlaps the
+    kernel before it. One call alone also counts the host work before its
+    launch."""
     import torch
 
     for _ in range(warmup):
@@ -199,12 +211,22 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if chain > 1:
+            torch.cuda.synchronize()
+            fn()  # keeps the card busy while the chain is queued
         start.record()
-        fn()
+        for _ in range(chain):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        times.append(start.elapsed_time(end) / chain)
+    return dict(ms=statistics.median(times), min_ms=min(times), max_ms=max(times), reps=reps,
+                chain=chain)
+
+
+def median_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median over ``reps`` single calls, each timed with CUDA events."""
+    return spread_ms(fn, reps, warmup)["ms"]
 
 
 def _counted_wrappers() -> dict:
@@ -217,6 +239,7 @@ def _counted_wrappers() -> dict:
             "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
             "flash_bwd_dq_stream": fa.flash_bwd_dq_stream,
             "flash_bwd_dkv_stream": fa.flash_bwd_dkv_stream,
+            "flash_bwd_stream_prep": fa.flash_bwd_stream_prep,
             "flash_fwd_nt": bench_attention_fwd.mha_nt,
             "int8_matmul": bench_int8_matmul.int8_matmul,
             "int8_core": bench_int8_matmul.int8_core}
@@ -252,9 +275,16 @@ def phase_card_and_build() -> str:
     print(f"[build] {', '.join(n + '.cu' for n in names)} built and loaded in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a)")
     for n, log in native.build_logs.items():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {n}: {line.strip()}")
+            entry = re.search(r"Compiling entry function '(\w+)'", line)
+            if entry:  # the kernel's own name follows its length in the mangled name
+                name = re.search(r"\d\d((?:flash|int8)\w*?_kernel)", entry.group(1))
+                rest = entry.group(1)[name.end():] if name else ""
+                kernel = (name.group(1) if name else entry.group(1)) + (
+                    rest.split("Ev")[0] if rest.startswith("I") else "")
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {n}: {kernel}: {line.strip()}")
     return smi
 
 
@@ -370,10 +400,11 @@ def _sdpa_ms(q, k, v, kv, seg, reps: int) -> float:
                      reps=reps)
 
 
-def _sdpa_bwd_ms(q, k, v, kv, seg, g, reps: int):
+def _sdpa_bwd_ms(q, k, v, kv, seg, g, reps: int, chain: int = 1):
     """Yardstick only, never called by the port: the backward alone of
-    ``scaled_dot_product_attention`` on the same boolean mask. Returns (ms,
-    None), or (None, the reason) where PyTorch cannot run the shape."""
+    ``scaled_dot_product_attention`` on the same boolean mask, timed as
+    ``spread_ms`` times with ``chain``. Returns (ms, None), or (None, the
+    reason) where PyTorch cannot run the shape."""
     import torch
     import torch.nn.functional as F
 
@@ -384,8 +415,8 @@ def _sdpa_bwd_ms(q, k, v, kv, seg, g, reps: int):
     try:
         out = F.scaled_dot_product_attention(*leaves, attn_mask=allowed)
         g_t = g.transpose(1, 2)
-        return median_ms(lambda: torch.autograd.grad(out, leaves, g_t, retain_graph=True),
-                         reps=reps), None
+        return spread_ms(lambda: torch.autograd.grad(out, leaves, g_t, retain_graph=True),
+                         reps=reps, chain=chain)["ms"], None
     except RuntimeError as e:  # out of memory, or no backend for the shape
         return None, str(e).splitlines()[0][:160]
     finally:
@@ -923,9 +954,9 @@ def phase_gradients(card: str) -> None:
 
 
 LONG_REQUEST_A = (1900, 3000, 6000, 12000, 30000)  # seconds: one video per long bucket
-# Packed rows of phase 7a: video lengths (steps) per bucket, drawn from a seed;
-# the 12 of the 32768 row are also request B of phase 7b.
-LONG_PACKED = {8192: (4, 1500, 2000), 32768: (12, 1000, 2500)}
+# Packed rows of phases 7a and 8a: video lengths (steps) per bucket, drawn from
+# a seed; the 12 of the 32768 row are also request B of phase 7b.
+LONG_PACKED = {8192: (4, 1500, 2000), 16384: (8, 1000, 2000), 32768: (12, 1000, 2500)}
 
 
 def _long_packed_lengths(t: int) -> list[int]:
@@ -1232,14 +1263,52 @@ def _grad_rows(kv, seg):
     return rows if seg is None else rows & (seg >= 0)
 
 
+def _prep_bound(q, seg):
+    """Least time for the prep's work: q, g and o read once, lse, key_valid
+    and seg_ids read once; q_s, {lse, delta} and {flag, segment} written
+    once; against a multiply and a multiply-add per element at the float32
+    rate."""
+    b, t, h, dh = q.shape
+    tp = -(-t // 64) * 64
+    elem = q.element_size()
+    bytes_ = (4 * q.numel() * elem + b * h * t * 4 + b * t * (1 if seg is None else 5)
+              + b * h * tp * 8 + b * tp * 8)
+    flops = 3.0 * q.numel()
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS["float32"] * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", flops, bytes_
+
+
+def _hold_prep(label: str, got, want) -> float:
+    """The prep kernel against its plain version: q_s, lse and the flags
+    exactly, delta within float32 summation order (1e-5 x max |delta|).
+    Returns the max |delta| error."""
+    import torch
+
+    check(torch.equal(got[0], want[0]), f"{label}: prep q_s differs")
+    check(torch.equal(got[1][..., 0], want[1][..., 0]), f"{label}: prep lse differs")
+    check(torch.equal(got[2], want[2]), f"{label}: prep flags / segments differ")
+    delta = want[1][..., 1]
+    err = float((got[1][..., 1] - delta).abs().max())
+    check(err <= 1e-5 * float(delta.abs().max()),
+          f"{label}: prep delta max err {err:.3g} > 1e-5 x max {float(delta.abs().max()):.3g}")
+    return err
+
+
 def phase_long_backward_vs_plain() -> list[dict]:
     """8a: the streaming backward kernels against their plain versions at
-    phase 7a's layouts (and [1, 16384]), on o / lse from the streaming
-    forward kernel and an upstream gradient that is 0 where the model's is;
-    timed with the plain versions, SDPA's backward on the same boolean mask
-    (yardstick only) and, on the packed [1, 32768] row, the dense backward
-    kernels, which sweep every key tile up to kvl and must give the same
-    gradients."""
+    phase 7a's layouts (and [1, 16384] unpacked and packed), on o / lse from
+    the streaming forward kernel and an upstream gradient that is 0 where
+    the model's is. In bf16 at Dh 64 the prep kernel is held against its
+    plain version too, and dq and dk/dv are timed on its outputs. Every
+    kernel is timed over >= 5 chains of back-to-back launches (median, min
+    and max of the time per launch: the card's time, not the host's), with
+    the plain versions, SDPA's backward on the same boolean mask (yardstick
+    only, timed the same way) and each time's ratio to SDPA in this run;
+    two launches of each kernel must
+    give equal bits. On the packed [1, 32768] row the dense backward kernels,
+    which sweep every key tile up to kvl, must give the same gradients and
+    be slower."""
     import torch
 
     from repurpose_tpu_torch.ops.flash_attention import (
@@ -1249,7 +1318,10 @@ def phase_long_backward_vs_plain() -> list[dict]:
         flash_bwd_dq,
         flash_bwd_dq_stream,
         flash_bwd_dq_stream_reference,
+        flash_bwd_stream_prep,
+        flash_bwd_stream_prep_reference,
         flash_forward_stream,
+        stream_tc,
     )
 
     variants = [
@@ -1261,6 +1333,8 @@ def phase_long_backward_vs_plain() -> list[dict]:
              sm="bfloat16", packed=True),
         dict(name="unpacked_T16384", shape=(1, 16384, 8, 64), dtype="bfloat16",
              sm="bfloat16", packed=False),
+        dict(name="packed_T16384", shape=(1, 16384, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=True),
         dict(name="unpacked_T32768", shape=(1, 32768, 8, 64), dtype="bfloat16",
              sm="bfloat16", packed=False),
         dict(name="packed_T32768", shape=(1, 32768, 8, 64), dtype="bfloat16",
@@ -1278,18 +1352,37 @@ def phase_long_backward_vs_plain() -> list[dict]:
         args = (q, k, v, kv, o, lse, g, seg, sm)
         got = dict(dq=flash_bwd_dq_stream(*args))
         got["dk"], got["dv"] = flash_bwd_dkv_stream(*args)
+        again = (flash_bwd_dq_stream(*args), *flash_bwd_dkv_stream(*args))
         torch.cuda.synchronize()
+        check(all(torch.equal(got[n], a) for n, a in zip(("dq", "dk", "dv"), again)),
+              f"long {var['name']}: two launches of the stream kernels differ")
+        del again
         want = dict(dq=flash_bwd_dq_stream_reference(*args))
         want["dk"], want["dv"] = flash_bwd_dkv_stream_reference(*args)
         rel = BWD_REL.get((var["dtype"], sm), BWD_REL_BF16)
         errs = _hold_backward(f"long {var['name']}", got, want, rel, past)
         del want
-        library_ms, library_note = _sdpa_bwd_ms(q, k, v, kv, seg, g, reps=3)
         big = q.shape[1] >= 16384
+        chain = 2 if big else 8  # back-to-back calls per timing: the card's time
+        library_ms, library_note = _sdpa_bwd_ms(q, k, v, kv, seg, g, reps=5, chain=chain)
         row = dict(name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
                    softmax_dtype=sm, packed=var["packed"], max_abs_err_by_grad=errs,
                    tolerance=f"{rel} x max |plain|", library_ms=library_ms,
-                   library_note=library_note)
+                   library_note=library_note, deterministic=True)
+        kw = {}
+        if stream_tc(q):
+            prep = flash_bwd_stream_prep(*args[:-1])
+            torch.cuda.synchronize()
+            delta_err = _hold_prep(f"long {var['name']}", prep,
+                                   flash_bwd_stream_prep_reference(*args[:-1]))
+            bound_ms, bound_by, flops, bytes_ = _prep_bound(q, seg)
+            row["prep"] = dict(
+                max_abs_err=delta_err,
+                **spread_ms(lambda: flash_bwd_stream_prep(*args[:-1]), reps=10, chain=chain),
+                plain_ms=median_ms(lambda: flash_bwd_stream_prep_reference(*args[:-1]),
+                                   reps=3, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
+            kw = dict(prep=prep)
         for kname, fn, ref_fn, products, outputs, keys in (
             ("dq", flash_bwd_dq_stream, flash_bwd_dq_stream_reference, 3, 1, ("dq",)),
             ("dkv", flash_bwd_dkv_stream, flash_bwd_dkv_stream_reference, 4, 2, ("dk", "dv")),
@@ -1297,9 +1390,16 @@ def phase_long_backward_vs_plain() -> list[dict]:
             bound_ms, bound_by, flops, bytes_ = _bwd_bound(q, kv, seg, products, outputs)
             row[kname] = dict(
                 max_abs_err=max(errs[x] for x in keys),
-                ms=median_ms(lambda: fn(*args), reps=5 if big else 10),
+                **spread_ms(lambda: fn(*args, **kw), reps=5 if big else 10, chain=chain),
                 plain_ms=median_ms(lambda: ref_fn(*args), reps=1 if big else 3, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
+        pair_ms = row["dq"]["ms"] + row["dkv"]["ms"] + row.get("prep", {}).get("ms", 0.0)
+        row["pair_ms"] = pair_ms
+        if library_ms is not None:
+            for key in ("prep", "dq", "dkv"):
+                if key in row:
+                    row[key]["ratio_to_library"] = row[key]["ms"] / library_ms
+            row["pair_ratio_to_library"] = pair_ms / library_ms
         if var["packed"] and q.shape[1] == 32768:
             # the dense kernels on the same inputs: what the bounded sweeps save
             dense = dict(dq=flash_bwd_dq(*args))
@@ -1314,10 +1414,19 @@ def phase_long_backward_vs_plain() -> list[dict]:
                   and row["dense"]["flash_bwd_dkv_ms"] > row["dkv"]["ms"],
                   f"packed 32768: the bounded sweeps are not faster than the dense kernels "
                   f"{json.dumps(row['dense'])}")
+            check(library_ms is not None and pair_ms < library_ms,
+                  f"packed 32768: the stream backward ({pair_ms:.3f} ms) is not faster than "
+                  f"SDPA's backward ({library_ms} ms)")
             del dense
         print(f"[long-backward] {json.dumps(row)}")
+        summary = {key: [round(row[key][x], 3) for x in ("ms", "min_ms", "max_ms")]
+                   for key in ("prep", "dq", "dkv") if key in row}
+        print(f"[long-backward-time] {var['name']}: ms per call of {chain} chained, "
+              f"[median, min, max] "
+              f"{json.dumps(summary)}; SDPA backward {library_ms} ms; pair / SDPA "
+              f"{row.get('pair_ratio_to_library')}")
         rows.append(row)
-        del q, k, v, kv, seg, o, lse, g, got, args
+        del q, k, v, kv, seg, o, lse, g, got, args, kw
         torch.cuda.empty_cache()
     return rows
 
@@ -1389,8 +1498,8 @@ def _hold_long_run(label: str, card: str, summary: dict, seen, workdir: str, ste
                    layers: int, wall_s: float) -> dict:
     """Holds one long-video training run: ``steps`` steps, each past T = 2048
     launching exactly flash_fwd_stream 2 x ``layers`` (forward and remat
-    recompute) and each streaming backward kernel ``layers`` times, nothing
-    else; each forward without gradients ``layers`` launches of its forward
+    recompute) and each streaming backward kernel (the prep, dq, dk/dv)
+    ``layers`` times, nothing else; each forward without gradients ``layers`` launches of its forward
     kernel; finite losses, the val probe, the tIoU evaluation and a
     checkpoint. Returns the launches summed over the run."""
     import numpy as np
@@ -1401,7 +1510,7 @@ def _hold_long_run(label: str, card: str, summary: dict, seen, workdir: str, ste
     check(summary["step"] == steps == len(seen.steps) and steps > 0,
           f"{label}: {summary['step']} steps, {len(seen.steps)} seen, plan {steps}")
     step_want = {"flash_fwd_stream": 2 * layers, "flash_bwd_dq_stream": layers,
-                 "flash_bwd_dkv_stream": layers}
+                 "flash_bwd_dkv_stream": layers, "flash_bwd_stream_prep": layers}
     for t, launched in seen.steps:
         check(t > fa.STREAM_MAX_T and launched == step_want,
               f"{label}: a step at T = {t} launched {launched} (want {step_want})")
@@ -1921,12 +2030,26 @@ def main() -> int:
             replaces=f"{fa_line}{replaces}", also_replaces=[f"{fa_line}{n}" for n in also],
             launches=long_train[name],
             launches_by_path=dict(long_video_training=long_train[name]),
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], min_ms=r["min_ms"], max_ms=r["max_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=long_bwd_head["library_ms"], variant=long_bwd_head["name"],
             variants=[dict(name=v["name"], **v[key], library_ms=v["library_ms"],
                            library_note=v["library_note"]) for v in long_bwd_variants],
         ))
+    r = long_bwd_head["prep"]
+    kernels.append(dict(
+        name="flash_bwd_stream_prep", route="cuda", source=source + "flash_bwd_stream.cu",
+        replaces=f"{fa_line}1271", also_replaces=[f"{fa_line}1253"],
+        launches=long_train["flash_bwd_stream_prep"],
+        launches_by_path=dict(long_video_training=long_train["flash_bwd_stream_prep"]),
+        max_abs_err=r["max_abs_err"], ms=r["ms"], min_ms=r["min_ms"], max_ms=r["max_ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+        library_ms=None,
+        library_note="no single PyTorch call scales q and sums g * o per row",
+        variant=long_bwd_head["name"],
+        variants=[dict(name=v["name"], **v["prep"]) for v in long_bwd_variants
+                  if "prep" in v],
+    ))
     nt_head = next(r for r in nt_variants if r["name"] == "tool_bf16_hpb2")
     kernels.append(dict(
         name="flash_fwd_nt", route="cuda", source=source + "flash_fwd_nt.cu",

@@ -26,7 +26,7 @@
 //   p_ij  = R(exp(R(s_ij + (allowed(i, j) ? 0 : -1e9) - lse_i)))
 //   allowed(i, j) = key_valid[j] && (no seg_ids || seg_ids[i] == seg_ids[j])
 //   dp_ij = dot(g_i, v_j) in float32
-//   d_i   = sum_d g_id * o_id in float32           (delta, in the kernel body)
+//   d_i   = sum_d g_id * o_id in float32           (delta)
 //   ds_ij = R(p_ij * R(dp_ij - d_i))
 //   dq_i  = scale * sum_j in(ds_ij) k_j            float32 sums
 //   dk_j  = sum_i in(ds_ij) q_s_i                  (no extra scale: q_s has it)
@@ -60,7 +60,48 @@
 // operations. Packed, the bounded sweeps cut the work to the videos' own
 // squares; without them a packed row costs what an unpacked one costs.
 //
-// What the design does about it, and what it leaves for later. The TPU
+// Two designs share the contract above.
+//
+// bf16 at Dh 64 (the model's shape) takes the tensor-core path,
+// flash_bwd_{dq,dkv}_stream_tc_kernel, after a small prep kernel:
+//   - flash_bwd_stream_prep_kernel runs once per backward (the wrapper hands
+//     its outputs to both kernels): q_s [B, T, H, 64] bf16, the per-row
+//     stats {lse, delta} [B, H, Tp] float2 and the per-token info {key flag,
+//     segment} [B, Tp] int2, Tp = T rounded up to 64, rows past T padded
+//     (lse 1e30, delta 0, flag -1). It replaces what the TPU kernels repeat
+//     per tile, the q scaling (fa:1253) and delta = rowsum(g o) (fa:1271):
+//     the dk/dv kernel used to rescale Q in shared memory and re-read o from
+//     device memory for every query tile of every key tile (~14 GB at
+//     [1, 32768, 8, 64]).
+//   - A block is one warpgroup of consumers (128 threads) and one producer
+//     warp. The producer feeds a 3-stage ring through TMA (4D tensor maps over
+//     the strided [B, T, H, Dh] views, 128-byte swizzle; rows past T arrive
+//     as zeros) and bulk copies (the padded stats / info tiles), completing
+//     on mbarriers; consumers release a stage with an arrive on its "empty"
+//     barrier. The tensor maps come from cuTensorMapEncodeTiled fetched with
+//     cudaGetDriverEntryPointByVersion, so nothing links against libcuda.
+//   - Products are wgmma m64n64k16 with float32 register accumulators. dq:
+//     S = Q_s K^T and dP = G V^T from shared memory (both K-major), p and ds
+//     formed in registers on the accumulator layout, then dq += dS K with dS
+//     as the register A operand and K as the transposed (MN-major) B operand
+//     of the same shared tile. dk/dv: S^T = K Q_s^T and dP^T = V G^T with
+//     keys as M, so that P^T and dS^T are already the A operands of
+//     dV += P^T G and dK += dS^T Q_s; lse and delta broadcast along columns.
+//     No score tile touches shared memory. Each product is waited for only
+//     where its result or its stage is next needed: dV runs while ds is
+//     formed, and dq / dK while the next tile's S and dP are issued. The
+//     kernels are templated on the softmax interior; under bf16 p and ds
+//     are already bf16 values and pack into A operands by a byte permute.
+//   - 64-row tiles, about 68 KB of shared memory; dq at <= 128 registers
+//     (three blocks an SM), dk/dv at <= 200 (two), static_asserts below.
+// What still bounds it: the elementwise work per (query, key) pair (the bias,
+// two bf16 roundings, expf and the ds roundings) costs more issue slots than
+// the three or four 64x64x64 products it feeds; at [1, 32768, 8, 64] dq and
+// dk/dv run at ~4x their bounds (PERF.md).
+//
+// Every other instance (float32, which must keep float32 parity and so
+// cannot use TF32 tensor cores, and bf16 at Dh 16, 32 and 128) keeps the
+// first design, described next. The TPU
 // kernels hold [Tq, Dblk] query slabs and walk [k_block, Dblk] K/V chunks
 // (dq) or [Qc, Dblk] query chunks (dk/dv) with f32 VMEM scratch; here one
 // block owns a 64-row query tile (dq) or a key tile (dk/dv) of one head and
@@ -75,10 +116,9 @@
 // each q tile in shared memory after it lands (cp.async copies raw bytes) and
 // sums delta from the g tile and o in device memory; its bf16 accumulators
 // are staged for the store over the ring, and the dq kernel's over its score
-// tiles, which keeps the bf16 Dh 64 kernels at two blocks per SM. float32
-// Dh 128 takes 32-key tiles, and float32 writes p and ds over s and dp, to
-// stay inside the 227 KB a block may use. Not done yet: wgmma, TMA, warp
-// specialisation and one fused kernel with atomic dq.
+// tiles. float32 Dh 128 takes 32-key tiles, and float32 writes p and ds over
+// s and dp, to stay inside the 227 KB a block may use. This design has no
+// bf16 Dh 64 instance: that shape takes the tensor-core kernels.
 //
 // Layout: q/k/v/g/o are read through (batch, token, head) strides with a
 // contiguous Dh axis and 16-byte row starts; lse is [B, H, T] float32;
@@ -86,6 +126,7 @@
 // 2**31 (lse at b*H*T, the batch strides, b*T*H*Dh) is 64-bit. Dh is 16, 32,
 // 64 or 128; T is any length >= 1 (the ragged edge is masked).
 
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -240,12 +281,6 @@ struct DkvSmem {
   static constexpr size_t kBytes = kDelta + G::f32(BQ);
   static_assert(kBytes <= MAX_SMEM, "dk/dv: shared memory past the 227 KB a block may use");
 };
-
-// the production instance (bf16, Dh 64) keeps two blocks on each SM (1 KB of
-// each block's share is reserved)
-static_assert(2 * (DqSmem<bf16, 64>::kBytes + 1024) <= SM_SMEM, "dq bf16 Dh 64: one block/SM");
-static_assert(2 * (DkvSmem<bf16, 64>::kBytes + 1024) <= SM_SMEM,
-              "dk/dv bf16 Dh 64: one block/SM");
 
 // Copies `rows` rows row0.. of one head into shared memory, zero-filling rows
 // at or past T. With `scale` > 0 each element becomes round(float(x) * scale).
@@ -703,6 +738,679 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_stream_kernel(Args a) {
   store_rows<T, DH>(dv_bh, D, sAccV, j0, G::BK, T_len, kvl, 1.f);
 }
 
+// ---- the tensor-core path: bf16 at Dh 64 ------------------------------------------
+
+// Hopper primitives: shared-memory addresses, mbarriers, TMA and bulk copies,
+// wgmma m64n64k16 (bf16 in, float32 accumulators in registers).
+
+#define WG_D32(d)                                                                            \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),             \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),          \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WG_D32_LIST                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Spins until the phase of parity `parity` of `bar` has completed. The loop
+// lives inside one asm statement, so the compiler sees no divergent branch
+// before the wgmma that follow (it would serialise them); it traps (the
+// launch then fails) after 2**28 polls instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.gt.u32 p, n, 268435456;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// 64 rows t0.. of head h, batch row b, of a [B, T, H, 64] view into a
+// 128-byte-swizzled [64, 64] tile; completes on `bar`.
+__device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int h, int t0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(h), "r"(t0), "r"(b)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (16-byte aligned, a multiple of 16); completes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins registers an asynchronous wgmma reads or writes at this point.
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
+}
+
+// Descriptor of a 128-byte-swizzled bf16 tile with 128-byte rows (as TMA
+// writes it), 8-row groups 1024 bytes apart. K-major use (Dh the reduction
+// axis): lbo is unused, a k16 slice starts 32 bytes further. MN-major use
+// (rows the reduction axis, the transposed B operand): groups of 8 reduction
+// rows are `sbo` = 1024 apart, a k16 slice starts 2048 bytes further, and
+// the 64 columns are one swizzle span (lbo unused). Checked on the card.
+constexpr unsigned SW_GROUP = 1024;
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile, unsigned lbo, unsigned sbo) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
+}
+constexpr uint64_t K_STEP = 32 >> 4;    // descriptor step of a k16 slice, K-major
+constexpr uint64_t MN_STEP = 2048 >> 4;  // and MN-major
+
+// d += A . B^T over one k16 slice, A [64, 16] and B [64, 16] K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A . B over one k16 slice, A [64, 16] bf16 in registers (the m16n8k16
+// A layout per warp) and B [16, 64] MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Two floats as a bf16 pair (lo in the low half): rounded to nearest even,
+// or, with EXACT (both already hold bf16 values), their upper halves by one
+// byte permute.
+template <bool EXACT>
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  if constexpr (EXACT) {
+    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// Accumulator layout of m64nN: thread (warp w, lane l) holds rows
+// r = 16w + l/4 and r + 8, columns c = 8n + 2(l%4) and c + 1 of block n:
+// d[4n + 0, 1] = (r, c / c + 1), d[4n + 2, 3] = (r + 8, c / c + 1). The A
+// operand of a k16 slice kk holds the blocks 2kk and 2kk + 1 the same way,
+// so a 64 x 64 accumulator becomes four bf16 slices in place.
+template <bool EXACT>
+__device__ __forceinline__ void acc_to_a(const float (&d)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16<EXACT>(d[8 * kk + 0], d[8 * kk + 1]);
+    a[kk][1] = pack_bf16<EXACT>(d[8 * kk + 2], d[8 * kk + 3]);
+    a[kk][2] = pack_bf16<EXACT>(d[8 * kk + 4], d[8 * kk + 5]);
+    a[kk][3] = pack_bf16<EXACT>(d[8 * kk + 6], d[8 * kk + 7]);
+  }
+}
+
+constexpr int TC_DH = 64;                      // head width of the tensor-core path
+constexpr int TC_STAGES = 3;                   // ring depth
+constexpr int TC_CONSUMERS = 128;              // one warpgroup
+constexpr int TC_THREADS = TC_CONSUMERS + 32;  // and one producer warp
+constexpr unsigned TC_TILE = BQ * TC_DH * 2;   // bytes of a [64, 64] bf16 tile
+constexpr unsigned TC_META = BQ * 8;           // bytes of 64 float2 / int2
+
+// Shared memory of the dq kernel: this query tile's q_s and g, a ring of
+// K / V tiles with their keys' {flag, segment}, this tile's rows' {lse,
+// delta} and {flag, segment}, the barriers. Tiles are 1024-byte aligned
+// (the swizzle's period).
+struct __align__(1024) DqTcSmem {
+  bf16 q[BQ * TC_DH];
+  bf16 g[BQ * TC_DH];
+  bf16 k[TC_STAGES][BQ * TC_DH];
+  bf16 v[TC_STAGES][BQ * TC_DH];
+  int2 keys[TC_STAGES][BQ];
+  float2 rows[BQ];
+  int2 row_info[BQ];
+  uint64_t own, full[TC_STAGES], empty[TC_STAGES];
+};
+
+// Shared memory of the dk/dv kernel: this key tile's K and V and its keys'
+// {flag, segment}, a ring of q_s / g tiles with their rows' {lse, delta} and
+// {flag, segment}, the barriers.
+struct __align__(1024) DkvTcSmem {
+  bf16 k[BQ * TC_DH];
+  bf16 v[BQ * TC_DH];
+  bf16 q[TC_STAGES][BQ * TC_DH];
+  bf16 g[TC_STAGES][BQ * TC_DH];
+  float2 rows[TC_STAGES][BQ];
+  int2 row_info[TC_STAGES][BQ];
+  int2 key_info[BQ];
+  uint64_t own, full[TC_STAGES], empty[TC_STAGES];
+};
+
+// + 1024: the dynamic window is aligned by hand. Three dq and two dk/dv
+// blocks share an SM (1 KB of each block's share is reserved); registers
+// hold them there too (__launch_bounds__ below).
+constexpr size_t TC_SMEM_DQ = sizeof(DqTcSmem) + 1024;
+constexpr size_t TC_SMEM_DKV = sizeof(DkvTcSmem) + 1024;
+static_assert(3 * (TC_SMEM_DQ + 1024) <= SM_SMEM, "dq tc: three blocks no longer share an SM");
+static_assert(2 * (TC_SMEM_DKV + 1024) <= SM_SMEM, "dk/dv tc: two blocks no longer share an SM");
+
+template <typename S>
+__device__ __forceinline__ S& tc_smem(unsigned char* raw) {
+  return *reinterpret_cast<S*>(raw + ((1024 - (smem_addr(raw) & 1023)) & 1023));
+}
+
+struct TcArgs {
+  CUtensorMap q, k, v, g;  // q: the prep's q_s
+  const float2* rows;      // [B, H, Tp] {lse, delta}
+  const int2* info;        // [B, Tp] {key flag, segment}
+  const int* kvl;          // [B]
+  const int* tile_lo;      // [B, ceil(T / 64)], null: unpacked
+  const int* tile_hi;
+  bf16 *out0, *out1;  // dq, or dk and dv: [B, T, H, 64]
+  int T, Tp, H;
+  float scale;
+};
+
+// p of one score in the bias form with the stream kernels' rounding points
+// (as warp_probs; SM_BF16: the bf16 softmax interior): key flag `ok` 1 valid,
+// 0 masked, -1 past T (p = 0).
+template <bool SM_BF16>
+__device__ __forceinline__ float tc_prob(float s, int ok, bool same_video, float lse) {
+  const float x = s + ((ok == 1 && same_video) ? 0.f : MASK_BIAS) - lse;
+  const float p = SM_BF16 ? round_bf16(expf(round_bf16(x))) : expf(x);
+  return ok < 0 ? 0.f : p;
+}
+
+template <bool SM_BF16>
+__device__ __forceinline__ float tc_ds(float p, float dp, float delta) {
+  const float dd = dp - delta;
+  return SM_BF16 ? round_bf16(p * round_bf16(dd)) : p * dd;
+}
+
+// Rows row0 + (this thread's accumulator rows) of one head of a [B, T, H, 64]
+// output: acc * mul before kvl, 0 from kvl to T.
+__device__ __forceinline__ void tc_store(bf16* out_bh, long long row_stride,
+                                         const float (&d)[32], int row0, int T_len, int kvl,
+                                         float mul) {
+  const int lane = threadIdx.x % 32, r = 16 * (threadIdx.x / 32) + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int t = row0 + r + 8 * half;
+    if (t >= T_len) continue;
+    bf16* row = out_bh + (long long)t * row_stride;
+    const bool live = t < kvl;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float x0 = live ? d[4 * n + 2 * half] * mul : 0.f;
+      const float x1 = live ? d[4 * n + 2 * half + 1] * mul : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n + c0) = __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+// Zeros for rows row0..row0 + 64 (those before T) of one head.
+__device__ void tc_zero_rows(bf16* out_bh, long long row_stride, int row0, int T_len) {
+  for (int idx = threadIdx.x; idx < BQ * 8; idx += blockDim.x) {
+    const int t = row0 + idx / 8;
+    if (t < T_len)
+      *reinterpret_cast<uint4*>(out_bh + (long long)t * row_stride + (idx % 8) * 8) =
+          make_uint4(0, 0, 0, 0);
+  }
+}
+
+__device__ __forceinline__ void tc_init_barriers(uint64_t* own, uint64_t* full, uint64_t* empty) {
+  mbar_init(own, 1);
+  for (int i = 0; i < TC_STAGES; ++i) {
+    mbar_init(&full[i], 1);
+    mbar_init(&empty[i], TC_CONSUMERS);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+template <bool SM_BF16>
+__global__ void __launch_bounds__(TC_THREADS, 3)
+    flash_bwd_dq_stream_tc_kernel(const __grid_constant__ TcArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  DqTcSmem& s = tc_smem<DqTcSmem>(smem_raw);
+  const int qt = blockIdx.x, q0 = qt * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, T_len = a.T;
+  const long long D = (long long)a.H * TC_DH;
+  bf16* dq_bh = a.out0 + (long long)b * T_len * D + h * TC_DH;
+
+  // the sweep in 64-key tiles: [0, ceil(kvl / 64)), packed bounded by [lo, hi)
+  const int kvl = a.kvl[b];
+  int kt_lo = 0, kt_hi = (kvl + BQ - 1) / BQ;
+  if (a.tile_lo != nullptr) {
+    const long long n_tiles = (T_len + TILE - 1) / TILE;
+    kt_lo = a.tile_lo[(long long)b * n_tiles + qt];
+    kt_hi = min(a.tile_hi[(long long)b * n_tiles + qt], kt_hi);
+  }
+  if (q0 >= kvl || kt_lo >= kt_hi) {  // padding rows, or no key to sweep: dq = 0
+    tc_zero_rows(dq_bh, D, q0, T_len);
+    return;
+  }
+  if (tid == 0) tc_init_barriers(&s.own, s.full, s.empty);
+  __syncthreads();
+  const float2* rows_bh = a.rows + ((long long)b * a.H + h) * a.Tp;
+  const int2* info_b = a.info + (long long)b * a.Tp;
+
+  // the role, read through a shuffle so that the compiler sees it is
+  // warp-uniform, as the consumers' wgmma need
+  if (__shfl_sync(0xffffffffu, tid / TC_CONSUMERS, 0) != 0) {
+    // the producer warp: one thread issues every copy
+    if (tid == TC_CONSUMERS) {
+      mbar_arrive_expect_tx(&s.own, 2 * TC_TILE + 2 * TC_META);
+      tma_load_rows(s.q, &a.q, &s.own, h, q0, b);
+      tma_load_rows(s.g, &a.g, &s.own, h, q0, b);
+      bulk_load(s.rows, rows_bh + q0, TC_META, &s.own);
+      bulk_load(s.row_info, info_b + q0, TC_META, &s.own);
+      for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
+        const int st = i % TC_STAGES;
+        mbar_wait(&s.empty[st], ((i / TC_STAGES) & 1) ^ 1);  // the first round passes
+        mbar_arrive_expect_tx(&s.full[st], 2 * TC_TILE + TC_META);
+        tma_load_rows(s.k[st], &a.k, &s.full[st], h, kt * BQ, b);
+        tma_load_rows(s.v[st], &a.v, &s.full[st], h, kt * BQ, b);
+        bulk_load(s.keys[st], info_b + kt * BQ, TC_META, &s.full[st]);
+      }
+    }
+    return;
+  }
+
+  // consumers: rows r and r + 8 of the tile, columns c0 + 8n and c0 + 8n + 1
+  const int lane = tid % 32, r = 16 * (tid / 32) + lane / 4, c0 = 2 * (lane % 4);
+  mbar_wait(&s.own, 0);
+  const float2 stat[2] = {s.rows[r], s.rows[r + 8]};  // {lse, delta}
+  const int seg[2] = {s.row_info[r].y, s.row_info[r + 8].y};
+  const uint64_t dQ = sw128_desc(s.q, 16, SW_GROUP), dG = sw128_desc(s.g, 16, SW_GROUP);
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  uint32_t ds_a[4][4] = {};  // read by the dq product, which runs into the next iteration
+
+  for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
+    const int st = i % TC_STAGES;
+    mbar_wait(&s.full[st], (i / TC_STAGES) & 1);
+    const uint64_t dK = sw128_desc(s.k[st], 16, SW_GROUP), dV = sw128_desc(s.v[st], 16, SW_GROUP);
+    float sc[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, dQ + K_STEP * kk, dK + K_STEP * kk);  // s
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, dG + K_STEP * kk, dV + K_STEP * kk);  // dp
+    wg_commit();
+    wg_wait<1>();  // s, and the previous tile's dq product, are done
+    reg_fence(sc);
+    reg_fence(ds_a);
+    if (i > 0) mbar_arrive(&s.empty[(i - 1) % TC_STAGES]);  // done with that stage
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {  // p over s, in place
+      const int4 kf = *reinterpret_cast<const int4*>(&s.keys[st][8 * n + c0]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ok = (e & 1) ? kf.z : kf.x, kseg = (e & 1) ? kf.w : kf.y;
+        sc[4 * n + e] =
+            tc_prob<SM_BF16>(sc[4 * n + e], ok, kseg == seg[e >> 1], stat[e >> 1].x);
+      }
+    }
+    wg_wait<0>();
+    reg_fence(dp);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {  // ds over dp, in place
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * n + e] = tc_ds<SM_BF16>(sc[4 * n + e], dp[4 * n + e], stat[e >> 1].y);
+    }
+    acc_to_a<SM_BF16>(dp, ds_a);
+    const uint64_t dKt = sw128_desc(s.k[st], SW_GROUP, SW_GROUP);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(dq, ds_a[kk], dKt + MN_STEP * kk);  // dq += ds K
+    wg_commit();
+  }
+  wg_wait<0>();
+  reg_fence(dq);
+  tc_store(dq_bh, D, dq, q0, T_len, kvl, a.scale);
+}
+
+template <bool SM_BF16>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+    flash_bwd_dkv_stream_tc_kernel(const __grid_constant__ TcArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  DkvTcSmem& s = tc_smem<DkvTcSmem>(smem_raw);
+  const int kt = blockIdx.x, j0 = kt * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, T_len = a.T;
+  const long long D = (long long)a.H * TC_DH;
+  bf16* dk_bh = a.out0 + (long long)b * T_len * D + h * TC_DH;
+  bf16* dv_bh = a.out1 + (long long)b * T_len * D + h * TC_DH;
+
+  // the sweep in 64-row query tiles: [0, ceil(kvl / 64)), packed bounded by
+  // this key tile's own [lo, hi) (the mask is symmetric)
+  const int kvl = a.kvl[b];
+  int qt_lo = 0, qt_hi = (kvl + BQ - 1) / BQ;
+  if (a.tile_lo != nullptr) {
+    const long long n_tiles = (T_len + TILE - 1) / TILE;
+    qt_lo = a.tile_lo[(long long)b * n_tiles + kt];
+    qt_hi = min(a.tile_hi[(long long)b * n_tiles + kt], qt_hi);
+  }
+  if (j0 >= kvl || qt_lo >= qt_hi) {  // no valid key, or no query to sweep: 0
+    tc_zero_rows(dk_bh, D, j0, T_len);
+    tc_zero_rows(dv_bh, D, j0, T_len);
+    return;
+  }
+  if (tid == 0) tc_init_barriers(&s.own, s.full, s.empty);
+  __syncthreads();
+  const float2* rows_bh = a.rows + ((long long)b * a.H + h) * a.Tp;
+  const int2* info_b = a.info + (long long)b * a.Tp;
+
+  if (__shfl_sync(0xffffffffu, tid / TC_CONSUMERS, 0) != 0) {  // as in the dq kernel
+    // the producer warp: one thread issues every copy
+    if (tid == TC_CONSUMERS) {
+      mbar_arrive_expect_tx(&s.own, 2 * TC_TILE + TC_META);
+      tma_load_rows(s.k, &a.k, &s.own, h, j0, b);
+      tma_load_rows(s.v, &a.v, &s.own, h, j0, b);
+      bulk_load(s.key_info, info_b + j0, TC_META, &s.own);
+      for (int qt = qt_lo, i = 0; qt < qt_hi; ++qt, ++i) {
+        const int st = i % TC_STAGES;
+        mbar_wait(&s.empty[st], ((i / TC_STAGES) & 1) ^ 1);  // the first round passes
+        mbar_arrive_expect_tx(&s.full[st], 2 * TC_TILE + 2 * TC_META);
+        tma_load_rows(s.q[st], &a.q, &s.full[st], h, qt * BQ, b);
+        tma_load_rows(s.g[st], &a.g, &s.full[st], h, qt * BQ, b);
+        bulk_load(s.rows[st], rows_bh + qt * BQ, TC_META, &s.full[st]);
+        bulk_load(s.row_info[st], info_b + qt * BQ, TC_META, &s.full[st]);
+      }
+    }
+    return;
+  }
+
+  // consumers: keys r and r + 8 of the tile (rows), query columns c0 + 8n
+  // and c0 + 8n + 1
+  const int lane = tid % 32, r = 16 * (tid / 32) + lane / 4, c0 = 2 * (lane % 4);
+  mbar_wait(&s.own, 0);
+  const int2 key[2] = {s.key_info[r], s.key_info[r + 8]};  // {flag, segment}
+  const uint64_t dK = sw128_desc(s.k, 16, SW_GROUP), dV = sw128_desc(s.v, 16, SW_GROUP);
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  // read by the dv / dk products, which run into the ds work / next iteration
+  uint32_t p_a[4][4] = {}, ds_a[4][4] = {};
+
+  for (int qt = qt_lo, i = 0; qt < qt_hi; ++qt, ++i) {
+    const int st = i % TC_STAGES;
+    mbar_wait(&s.full[st], (i / TC_STAGES) & 1);
+    const uint64_t dQ = sw128_desc(s.q[st], 16, SW_GROUP), dG = sw128_desc(s.g[st], 16, SW_GROUP);
+    float sc[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, dK + K_STEP * kk, dQ + K_STEP * kk);  // s^T
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, dV + K_STEP * kk, dG + K_STEP * kk);  // dp^T
+    wg_commit();
+    wg_wait<1>();  // s^T, and the previous tile's dv / dk products, are done
+    reg_fence(sc);
+    reg_fence(p_a);
+    reg_fence(ds_a);
+    if (i > 0) mbar_arrive(&s.empty[(i - 1) % TC_STAGES]);  // done with that stage
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {  // p^T over s^T, in place
+      const float4 rs = *reinterpret_cast<const float4*>(&s.rows[st][8 * n + c0]);
+      const int4 ri = *reinterpret_cast<const int4*>(&s.row_info[st][8 * n + c0]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lse = (e & 1) ? rs.z : rs.x;
+        const int qseg = (e & 1) ? ri.w : ri.y;
+        sc[4 * n + e] =
+            tc_prob<SM_BF16>(sc[4 * n + e], key[e >> 1].x, key[e >> 1].y == qseg, lse);
+      }
+    }
+    acc_to_a<SM_BF16>(sc, p_a);
+    const uint64_t dGt = sw128_desc(s.g[st], SW_GROUP, SW_GROUP);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(dv, p_a[kk], dGt + MN_STEP * kk);  // dv += p^T g
+    wg_commit();
+    wg_wait<1>();  // dp^T is in; dv runs under the ds work
+    reg_fence(dp);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {  // ds^T over dp^T, in place
+      const float4 rs = *reinterpret_cast<const float4*>(&s.rows[st][8 * n + c0]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[4 * n + e] = tc_ds<SM_BF16>(sc[4 * n + e], dp[4 * n + e], (e & 1) ? rs.w : rs.y);
+    }
+    acc_to_a<SM_BF16>(dp, ds_a);
+    const uint64_t dQt = sw128_desc(s.q[st], SW_GROUP, SW_GROUP);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(dk, ds_a[kk], dQt + MN_STEP * kk);  // dk += ds^T q_s
+    wg_commit();
+  }
+  wg_wait<0>();
+  reg_fence(dk);
+  reg_fence(dv);
+  tc_store(dk_bh, D, dk, j0, T_len, kvl, 1.f);
+  tc_store(dv_bh, D, dv, j0, T_len, kvl, 1.f);
+}
+
+// The prep: q_s, {lse, delta} and {key flag, segment} once per backward, eight
+// threads per (b, t, h) row (16 bytes of q, g and o each), rows past T padded.
+// Bound by bytes: q, g and o read once, q_s written once.
+constexpr int PREP_THREADS = 256;
+
+struct PrepArgs {
+  const bf16 *q, *g, *o;
+  Strides sq, sg, so;
+  const float* lse;  // [B, H, T]
+  const uint8_t* key_valid;
+  const int* seg_ids;  // null: unpacked (segment 0)
+  bf16* qs;            // [B, T, H, 64]
+  float2* rows;        // [B, H, Tp]
+  int2* info;          // [B, Tp]
+  int B, T, Tp, H;
+  float scale;
+};
+
+__global__ void __launch_bounds__(PREP_THREADS) flash_bwd_stream_prep_kernel(PrepArgs a) {
+  const long long gid = (long long)blockIdx.x * PREP_THREADS + threadIdx.x;
+  const long long row = gid / 8;
+  const int part = static_cast<int>(gid % 8), h = static_cast<int>(row % a.H);
+  const long long bt = row / a.H;
+  const int t = static_cast<int>(bt % a.Tp);
+  const long long b = bt / a.Tp;
+  const bool real = b < a.B && t < a.T;
+  float acc = 0.f;
+  if (real) {
+    const int c = 8 * part;
+    const uint4 qv = *reinterpret_cast<const uint4*>(a.q + b * a.sq.b + t * a.sq.t + h * a.sq.h + c);
+    const uint4 gv = *reinterpret_cast<const uint4*>(a.g + b * a.sg.b + t * a.sg.t + h * a.sg.h + c);
+    const uint4 ov = *reinterpret_cast<const uint4*>(a.o + b * a.so.b + t * a.so.t + h * a.so.h + c);
+    const bf16* qe = reinterpret_cast<const bf16*>(&qv);
+    const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+    const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+    __align__(16) bf16 out[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      out[e] = __float2bfloat16_rn(__bfloat162float(qe[e]) * a.scale);
+      acc += __bfloat162float(ge[e]) * __bfloat162float(oe[e]);
+    }
+    *reinterpret_cast<uint4*>(a.qs + ((b * a.T + t) * a.H + h) * TC_DH + c) =
+        *reinterpret_cast<const uint4*>(out);
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);  // the row's eight parts
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (part != 0 || b >= a.B) return;
+  const float lse = t < a.T ? a.lse[(b * a.H + h) * a.T + t] : SKIP_LSE;
+  a.rows[(b * a.H + h) * a.Tp + t] = make_float2(lse, t < a.T ? acc : 0.f);
+  if (h == 0) {
+    const int ok = t < a.T ? (a.key_valid[b * a.T + t] ? 1 : 0) : -1;
+    const int sg = (a.seg_ids != nullptr && t < a.T) ? a.seg_ids[b * a.T + t] : 0;
+    a.info[b * a.Tp + t] = make_int2(ok, sg);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up at run time (nothing links against libcuda)
+// with cudaGetDriverEntryPointByVersion, which CUDA 12.5 introduced.
+#if CUDART_VERSION < 12050
+#error "flash_bwd_stream.cu needs the CUDA 12.5 toolkit or newer"
+#endif
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over a [B, T, H, 64] bf16 view (element strides of batch,
+// token and head; contiguous head dim): boxes of 64 rows of one head, with
+// the 128-byte swizzle the wgmma descriptors expect; rows past T read as 0.
+int encode_rows(CUtensorMap* map, const void* base, int B, int T_len, int H, const Strides& s) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t dims[4] = {TC_DH, (cuuint64_t)H, (cuuint64_t)T_len, (cuuint64_t)B};
+  cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.t * 2, (cuuint64_t)s.b * 2};
+  cuuint32_t box[4] = {TC_DH, 1, BQ, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+int run_prep(const void* q, const void* g, const void* o, const long long* strides,
+             const void* lse, const void* key_valid, const void* seg_ids, void* qs, void* rows,
+             void* info, int B, int T_len, int H, int Dh, float scale, cudaStream_t stream) {
+  if (B <= 0 || T_len <= 0 || H <= 0) return 0;
+  if (Dh != TC_DH) return (int)cudaErrorInvalidValue;
+  PrepArgs a;
+  a.q = static_cast<const bf16*>(q);
+  a.g = static_cast<const bf16*>(g);
+  a.o = static_cast<const bf16*>(o);
+  Strides* st[3] = {&a.sq, &a.sg, &a.so};
+  for (int i = 0; i < 3; ++i)
+    *st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  a.lse = static_cast<const float*>(lse);
+  a.key_valid = static_cast<const uint8_t*>(key_valid);
+  a.seg_ids = static_cast<const int*>(seg_ids);
+  a.qs = static_cast<bf16*>(qs);
+  a.rows = static_cast<float2*>(rows);
+  a.info = static_cast<int2*>(info);
+  a.B = B;
+  a.T = T_len;
+  a.Tp = (T_len + BQ - 1) / BQ * BQ;
+  a.H = H;
+  a.scale = scale;
+  const long long threads = (long long)B * a.Tp * H * 8;
+  flash_bwd_stream_prep_kernel<<<(unsigned)((threads + PREP_THREADS - 1) / PREP_THREADS),
+                                 PREP_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int run_tc(bool dq, const void* qs, const void* k, const void* v, const void* g,
+           const long long* strides, const void* rows, const void* info, const void* kvl,
+           const void* lo, const void* hi, void* out0, void* out1, int B, int T_len, int H,
+           int sm_bf16, float scale, cudaStream_t stream) {
+  if (B <= 0 || T_len <= 0 || H <= 0) return 0;
+  if (!kvl || (lo == nullptr) != (hi == nullptr)) return (int)cudaErrorInvalidValue;
+  TcArgs a;
+  const Strides qs_strides{(long long)T_len * H * TC_DH, (long long)H * TC_DH, TC_DH};
+  const void* bases[4] = {qs, k, v, g};
+  CUtensorMap* maps[4] = {&a.q, &a.k, &a.v, &a.g};
+  for (int i = 0; i < 4; ++i) {
+    const Strides s = i == 0 ? qs_strides
+                             : Strides{strides[3 * (i - 1)], strides[3 * (i - 1) + 1],
+                                       strides[3 * (i - 1) + 2]};
+    const int err = encode_rows(maps[i], bases[i], B, T_len, H, s);
+    if (err != 0) return err;
+  }
+  a.rows = static_cast<const float2*>(rows);
+  a.info = static_cast<const int2*>(info);
+  a.kvl = static_cast<const int*>(kvl);
+  a.tile_lo = static_cast<const int*>(lo);
+  a.tile_hi = static_cast<const int*>(hi);
+  a.out0 = static_cast<bf16*>(out0);
+  a.out1 = static_cast<bf16*>(out1);
+  a.T = T_len;
+  a.Tp = (T_len + BQ - 1) / BQ * BQ;
+  a.H = H;
+  a.scale = scale;
+  void (*kernel)(TcArgs) =
+      dq ? (sm_bf16 ? &flash_bwd_dq_stream_tc_kernel<true> : &flash_bwd_dq_stream_tc_kernel<false>)
+         : (sm_bf16 ? &flash_bwd_dkv_stream_tc_kernel<true>
+                    : &flash_bwd_dkv_stream_tc_kernel<false>);
+  const size_t smem = dq ? TC_SMEM_DQ : TC_SMEM_DKV;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.Tp / BQ, H, B);
+  kernel<<<grid, TC_THREADS, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int DH>
 int launch(bool dq, const Args& a, int B, cudaStream_t stream) {
   using G = Geo<T, DH>;
@@ -723,7 +1431,9 @@ int dispatch_dh(bool dq, int Dh, const Args& a, int B, cudaStream_t stream) {
   switch (Dh) {
     case 16: return launch<T, 16>(dq, a, B, stream);
     case 32: return launch<T, 32>(dq, a, B, stream);
-    case 64: return launch<T, 64>(dq, a, B, stream);
+    case 64:  // bf16 at Dh 64 takes the tensor-core kernels
+      if constexpr (std::is_same<T, bf16>::value) return (int)cudaErrorInvalidValue;
+      else return launch<T, 64>(dq, a, B, stream);
     case 128: return launch<T, 128>(dq, a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -769,7 +1479,8 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* g,
 // outputs; a null seg_ids selects the unpacked variant (lo and hi are then
 // ignored). kvl is int32 [B]; lo/hi are int32 [B, ceil(T / 64)]
 // (`packed_block_bounds` at 64/64). Each returns cudaGetLastError() after its
-// launch (0 on success).
+// launch (0 on success); bf16 at Dh 64 is refused (cudaErrorInvalidValue):
+// it takes the tensor-core entry points below.
 extern "C" int flash_bwd_dq_stream(const void* q, const void* k, const void* v,
                                    const void* g, const void* o, const long long* strides,
                                    const void* key_valid, const void* seg_ids,
@@ -790,4 +1501,38 @@ extern "C" int flash_bwd_dkv_stream(const void* q, const void* k, const void* v,
                                     void* stream) {
   return run(false, q, k, v, g, o, strides, key_valid, seg_ids, kvl, lo, hi, lse, dk, dv,
              B, T_len, H, Dh, is_bf16, sm_bf16, scale, stream);
+}
+
+// The tensor-core path (bf16, Dh 64). `strides` holds 9 element strides:
+// (batch, token, head) of q, g, o for the prep and of k, v, g for the two
+// kernels. The prep writes q_s [B, T, H, 64] bf16, rows [B, H, Tp] {lse,
+// delta} float32 and info [B, Tp] {key flag, segment} int32, Tp = T rounded
+// up to 64; the kernels read them (qs contiguous) with kvl and, packed, lo/hi
+// as above. Each returns cudaGetLastError() after its launch (0 on success),
+// or cudaErrorInvalidValue for a view no tensor map can describe.
+extern "C" int flash_bwd_stream_prep(const void* q, const void* g, const void* o,
+                                     const long long* strides, const void* lse,
+                                     const void* key_valid, const void* seg_ids, void* qs,
+                                     void* rows, void* info, int B, int T_len, int H, int Dh,
+                                     float scale, void* stream) {
+  return run_prep(q, g, o, strides, lse, key_valid, seg_ids, qs, rows, info, B, T_len, H, Dh,
+                  scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_bwd_dq_stream_tc(const void* qs, const void* k, const void* v,
+                                      const void* g, const long long* strides, const void* rows,
+                                      const void* info, const void* kvl, const void* lo,
+                                      const void* hi, void* dq, int B, int T_len, int H,
+                                      int sm_bf16, float scale, void* stream) {
+  return run_tc(true, qs, k, v, g, strides, rows, info, kvl, lo, hi, dq, nullptr, B, T_len, H,
+                sm_bf16, scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_bwd_dkv_stream_tc(const void* qs, const void* k, const void* v,
+                                       const void* g, const long long* strides, const void* rows,
+                                       const void* info, const void* kvl, const void* lo,
+                                       const void* hi, void* dk, void* dv, int B, int T_len,
+                                       int H, int sm_bf16, float scale, void* stream) {
+  return run_tc(false, qs, k, v, g, strides, rows, info, kvl, lo, hi, dk, dv, B, T_len, H,
+                sm_bf16, scale, static_cast<cudaStream_t>(stream));
 }

@@ -83,6 +83,7 @@ class MMCT(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
+        self.dropout_generator: torch.Generator | None = None
         d = cfg.d_model
         self.input_projection = nn.Linear(cfg.concat_dim, d)
         self.input_norm = nn.LayerNorm(d, eps=LN_EPS)
@@ -97,7 +98,9 @@ class MMCT(nn.Module):
 
     def set_dropout_generator(self, generator: torch.Generator | None) -> None:
         """Draw every dropout mask from ``generator`` (a torch.Generator on
-        the model's device)."""
+        the model's device), kept as ``dropout_generator``: the train step
+        re-seeds it from (seed, step) before each step."""
+        self.dropout_generator = generator
         for m in self.modules():
             if isinstance(m, Dropout):
                 m.generator = generator

@@ -72,6 +72,9 @@ SIGNATURES = {
             [_P] * 14 + [_I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
             _I,
         ),
+        "flash_bwd_stream_prep": ([_P] * 10 + [_I] * 4 + [ctypes.c_float, _P], _I),
+        "flash_bwd_dq_stream_tc": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _P], _I),
+        "flash_bwd_dkv_stream_tc": ([_P] * 12 + [_I] * 4 + [ctypes.c_float, _P], _I),
     },
     "flash_fwd_nt": {
         "flash_fwd_nt": (

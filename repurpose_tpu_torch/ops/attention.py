@@ -12,7 +12,9 @@ Counterpart of ``repurpose_tpu/ops/attention.py``:
   backward (the VJP of ``mha_torch``), both through the autograd Function of
   ops/flash_attention.py, for every T: the JAX "T >= 512 on TPU" switch and
   its odd-T fallbacks are TPU tiling artefacts, and the Hopper kernels mask
-  their own ragged edge.
+  their own ragged edge. A head width without a kernel instance runs
+  zero-padded to the next one (``kernel_head_dim`` in ops/flash_attention.py),
+  where the JAX package sends untileable shapes to ``mha_xla``.
 
 Masking follows torch's ``src_key_padding_mask``: padded keys are excluded
 from every query's softmax; padded query rows hold finite values that no

@@ -27,7 +27,9 @@ the TPU kernels ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (+
 (``_bwd_dq_stream_kernel``, ``_bwd_dq_packed_stream_kernel``,
 ``_bwd_dq_hbm_kernel``, ``_bwd_dkv_stream_kernel``) with the two kernels of
 ``csrc/flash_bwd_stream.cu``, which sweep 64-row tiles and, packed, only the
-tiles of each tile's own videos. dq rows and dk/dv rows at or past
+tiles of each tile's own videos; in bf16 at Dh 64 these are wgmma kernels
+fed by TMA, after ``flash_bwd_stream_prep`` has computed q_s and delta once
+per backward. dq rows and dk/dv rows at or past
 ``_kv_len`` are 0. The upstream gradient must be 0 on query rows
 at or past ``_kv_len``, which is what the model gives (the loss masks those
 rows and masked keys carry no softmax mass): there the TPU forward leaves
@@ -37,7 +39,10 @@ contract do the two backwards agree on every row.
 ``FlashAttention`` (``flash_attention``) is the autograd Function of the
 model's attention: the kernel forward, then the kernel backward or, with
 ``backward="xla"``, the plain recompute backward (the VJP of ``mha_torch``,
-the JAX ``backward="xla"`` escape hatch).
+the JAX ``backward="xla"`` escape hatch). On the card it zero-pads a head
+width without a kernel instance to the next one (``kernel_head_dim``) and
+keeps the head's own scale 1/sqrt(Dh), which every wrapper takes as
+``scale``; the zero columns add nothing to q_s k^T, p v or rowsum(g o).
 
 Long sequences (T > ``STREAM_MAX_T``, the long-video buckets of
 ``configs/longvideo.yaml``) go to ``flash_forward_stream``, the counterpart of
@@ -53,6 +58,8 @@ launches the kernel or raises: there is no fallback.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -72,6 +79,25 @@ HEAD_DIMS = (16, 32, 64, 128)
 _SM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def kernel_head_dim(device: torch.device | str, head_dim: int) -> int:
+    """The width ``FlashAttention`` runs a head of ``head_dim`` at: on the
+    card the narrowest kernel instance in ``HEAD_DIMS`` that holds it (the
+    head is zero-padded to it), on the CPU ``head_dim`` itself (the plain
+    versions take every width). Raises past the widest instance."""
+    if torch.device(device).type != "cuda" or head_dim in HEAD_DIMS:
+        return head_dim
+    for width in HEAD_DIMS:
+        if width > head_dim:
+            return width
+    raise ValueError(f"head dim {head_dim} is wider than every kernel instance {HEAD_DIMS}")
+
+
+def _scale(q: torch.Tensor, scale: float | None) -> float:
+    """1/sqrt(Dh) of q, unless the caller gives the scale (a zero-padded head
+    keeps its own)."""
+    return 1.0 / (q.shape[-1] ** 0.5) if scale is None else scale
+
+
 def _kv_len(key_valid: torch.Tensor) -> torch.Tensor:
     """[B, 1] int32: last valid key index + 1 per batch row (0 if none)."""
     t = key_valid.shape[1]
@@ -82,15 +108,15 @@ def _kv_len(key_valid: torch.Tensor) -> torch.Tensor:
 
 def flash_forward_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
-    seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32",
+    seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32", *,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel: the TPU kernel's arithmetic over
     the whole key axis at once (the kernel's online softmax reaches the same
     values up to rounding)."""
     b, t, h, dh = q.shape
     sm_dtype = _SM_DTYPES[softmax_dtype]
-    scale = 1.0 / (dh ** 0.5)
-    qs = (q.float() * scale).to(q.dtype)
+    qs = (q.float() * _scale(q, scale)).to(q.dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
     ok = key_valid[:, None, None, :]
     if seg_ids is not None:
@@ -148,7 +174,8 @@ def _on_cuda(q, softmax_dtype: str, name: str) -> bool:
 
 def flash_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
-    seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32",
+    seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32", *,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """q/k/v ``[B, T, H, Dh]`` -> (out ``[B, T, H, Dh]``, lse ``[B, H, T, 1]``).
 
@@ -156,18 +183,19 @@ def flash_forward(
     streaming one (``flash_forward_stream``), unpacked and packed. q/k/v may
     be strided views (e.g. the column slices of a fused QKV projection) as
     long as the head-dim axis is contiguous and rows start on 16-byte
-    boundaries."""
+    boundaries. ``scale`` replaces 1/sqrt(Dh) (a zero-padded head's own)."""
     if q.shape[1] > STREAM_MAX_T:
-        return flash_forward_stream(q, k, v, key_valid, seg_ids, softmax_dtype)
-    return flash_fwd_dense(q, k, v, key_valid, seg_ids, softmax_dtype)
+        return flash_forward_stream(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale)
+    return flash_fwd_dense(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale)
 
 
-def flash_fwd_dense(q, k, v, key_valid, seg_ids=None, softmax_dtype: str = "float32"):
+def flash_fwd_dense(q, k, v, key_valid, seg_ids=None, softmax_dtype: str = "float32", *,
+                    scale: float | None = None):
     """The dense forward at any T: the kernel of csrc/flash_fwd.cu on CUDA
     tensors (counted in ``flash_forward.launches``), its plain version on CPU
     ones. ``flash_forward`` takes it up to ``STREAM_MAX_T``."""
     if not _on_cuda(q, softmax_dtype, "flash_forward"):
-        return flash_forward_reference(q, k, v, key_valid, seg_ids, softmax_dtype)
+        return flash_forward_reference(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale)
     _check_cuda_inputs(q, k, v, key_valid, seg_ids)
     from repurpose_tpu_torch import native
 
@@ -187,7 +215,7 @@ def flash_fwd_dense(q, k, v, key_valid, seg_ids=None, softmax_dtype: str = "floa
         key_valid.data_ptr(), None if seg_ids is None else seg_ids.data_ptr(),
         out.data_ptr(), lse.data_ptr(),
         b, t, h, dh, int(q.dtype == torch.bfloat16),
-        int(softmax_dtype == "bfloat16"), 1.0 / (dh ** 0.5), stream,
+        int(softmax_dtype == "bfloat16"), _scale(q, scale), stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
@@ -268,7 +296,8 @@ def _stream_keys(b_idx, k, v, key_valid, seg_ids, tp):
 def flash_forward_stream_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
     seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32",
-    k_block: int = STREAM_TILE, q_chunk: int = 4096, k_chunk: int = 8192,
+    k_block: int = STREAM_TILE, q_chunk: int = 4096, k_chunk: int = 8192, *,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the streaming kernel: the online-softmax
     recurrence of the TPU stream kernels (fa:623-654) over ``k_block``-key
@@ -292,7 +321,7 @@ def flash_forward_stream_reference(
     sequential sweep would have."""
     b, t, h, dh = q.shape
     sm_dtype = _SM_DTYPES[softmax_dtype]
-    scale = 1.0 / (dh ** 0.5)
+    scale = _scale(q, scale)
     dev = q.device
     q_block = STREAM_TILE  # the kernel's query tile: what packed bounds are taken over
     tp = -(-t // k_block) * k_block
@@ -349,7 +378,8 @@ def flash_forward_stream_reference(
 
 def flash_forward_stream(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
-    seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32",
+    seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32", *,
+    scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The streaming forward, same contract as ``flash_forward``: the kernel
     of csrc/flash_fwd_stream.cu on CUDA tensors (counted in
@@ -357,7 +387,8 @@ def flash_forward_stream(
     CPU ones. The wrapper computes kvl and, packed, the tile bounds once
     (the TPU kernels' scalar-prefetch operands) and hands them to the kernel."""
     if not _on_cuda(q, softmax_dtype, "flash_forward_stream"):
-        return flash_forward_stream_reference(q, k, v, key_valid, seg_ids, softmax_dtype)
+        return flash_forward_stream_reference(q, k, v, key_valid, seg_ids, softmax_dtype,
+                                              scale=scale)
     _check_cuda_inputs(q, k, v, key_valid, seg_ids)
     from repurpose_tpu_torch import native
 
@@ -381,7 +412,7 @@ def flash_forward_stream(
         kvl.data_ptr(), None if lo is None else lo.data_ptr(),
         None if hi is None else hi.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, t, h, dh, int(q.dtype == torch.bfloat16),
-        int(softmax_dtype == "bfloat16"), 1.0 / (dh ** 0.5),
+        int(softmax_dtype == "bfloat16"), _scale(q, scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -393,12 +424,11 @@ def flash_forward_stream(
 flash_forward_stream.launches = 0  # kernel launches; the plain CPU path does not count
 
 
-def _bwd_terms(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype):
+def _bwd_terms(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype, scale):
     """(q_s, p, ds) of the plain backward: the TPU kernels' rounding points
     over the whole key axis at once."""
     sm_dtype = _SM_DTYPES[softmax_dtype]
-    scale = 1.0 / (q.shape[-1] ** 0.5)
-    qs = (q.float() * scale).to(q.dtype)
+    qs = (q.float() * _scale(q, scale)).to(q.dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
     ok = key_valid[:, None, None, :]
     if seg_ids is not None:
@@ -420,18 +450,18 @@ def _zero_past_kv_len(x: torch.Tensor, key_valid: torch.Tensor) -> torch.Tensor:
 
 
 def flash_bwd_dq_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
-                           softmax_dtype: str = "float32") -> torch.Tensor:
+                           softmax_dtype: str = "float32", *,
+                           scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch version of the dq kernel."""
-    _, _, ds = _bwd_terms(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
-    scale = 1.0 / (q.shape[-1] ** 0.5)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float()) * scale
+    _, _, ds = _bwd_terms(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float()) * _scale(q, scale)
     return _zero_past_kv_len(dq.to(q.dtype), key_valid)
 
 
 def flash_bwd_dkv_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
-                            softmax_dtype: str = "float32"):
+                            softmax_dtype: str = "float32", *, scale: float | None = None):
     """Plain PyTorch version of the dk/dv kernel: (dk, dv)."""
-    qs, p, ds = _bwd_terms(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    qs, p, ds = _bwd_terms(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype, scale)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qs.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(g.dtype).float(), g.float())
     return (_zero_past_kv_len(dk.to(k.dtype), key_valid),
@@ -439,21 +469,16 @@ def flash_bwd_dkv_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
 
 
 def flash_backward_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
-                             softmax_dtype: str = "float32"):
+                             softmax_dtype: str = "float32", *, scale: float | None = None):
     """Plain PyTorch version of both backward kernels: (dq, dk, dv)."""
-    dq = flash_bwd_dq_reference(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
-    dk, dv = flash_bwd_dkv_reference(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    dq = flash_bwd_dq_reference(*args, scale=scale)
+    dk, dv = flash_bwd_dkv_reference(*args, scale=scale)
     return dq, dk, dv
 
 
-def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype, outs):
-    """Checks the inputs and launches kernel ``name`` of csrc/flash_bwd.cu
-    or, for a ``*_stream`` name, of csrc/flash_bwd_stream.cu, into the
-    preallocated ``outs``. A stream kernel also gets kvl and, packed, the
-    64/64 tile bounds, computed here once (the TPU kernels' scalar-prefetch
-    operands)."""
-    import ctypes
-
+def _check_bwd_inputs(q, k, v, key_valid, o, lse, g, seg_ids) -> None:
+    """Raises on inputs no backward kernel takes."""
     _check_cuda_inputs(q, k, v, key_valid, seg_ids)
     for x_name, x in (("o", o), ("g", g)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
@@ -468,8 +493,36 @@ def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype
     if (lse.dtype != torch.float32 or lse.shape != (b, h, t, 1)
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"lse must be contiguous float32 [{b}, {h}, {t}, 1] on {q.device}")
+
+
+def _stream_sweep(key_valid, seg_ids):
+    """kvl int32 [B] and, packed, the 64/64 tile bounds lo / hi (else None),
+    contiguous: the stream kernels' sweeps (the TPU kernels' scalar-prefetch
+    operands), made once per backward by the prep on the tensor-core path
+    and once per launch on the others."""
+    kvl = _kv_len(key_valid)[:, 0].contiguous()
+    if seg_ids is None:
+        return kvl, None, None
+    lo, hi = packed_block_bounds(seg_ids.contiguous(), STREAM_TILE, STREAM_TILE)
+    return kvl, lo.contiguous(), hi.contiguous()
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype, scale,
+                outs):
+    """Checks the inputs and launches kernel ``name`` of csrc/flash_bwd.cu
+    or, for a ``*_stream`` name, of csrc/flash_bwd_stream.cu, into the
+    preallocated ``outs``. A stream kernel also gets kvl and, packed, the
+    64/64 tile bounds (``_stream_sweep``)."""
+    import ctypes
+
+    _check_bwd_inputs(q, k, v, key_valid, o, lse, g, seg_ids)
     from repurpose_tpu_torch import native
 
+    b, t, h, dh = q.shape
     stream_kernel = name.endswith("_stream")
     lib = native.load("flash_bwd_stream" if stream_kernel else "flash_bwd")
     key_valid = key_valid.contiguous()
@@ -480,44 +533,39 @@ def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype
     )
     sweep = ()
     if stream_kernel:
-        kvl = _kv_len(key_valid)[:, 0].contiguous()
-        lo = hi = None
-        if seg_ids is not None:
-            lo, hi = (x.contiguous() for x in packed_block_bounds(seg_ids, STREAM_TILE,
-                                                                   STREAM_TILE))
-        sweep = (kvl.data_ptr(), None if lo is None else lo.data_ptr(),
-                 None if hi is None else hi.data_ptr())
+        sweep = tuple(_ptr(x) for x in _stream_sweep(key_valid, seg_ids))
     err = getattr(lib, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), o.data_ptr(), strides,
         key_valid.data_ptr(), None if seg_ids is None else seg_ids.data_ptr(), *sweep,
         lse.data_ptr(), *(x.data_ptr() for x in outs),
         b, t, h, dh, int(q.dtype == torch.bfloat16), int(softmax_dtype == "bfloat16"),
-        1.0 / (dh ** 0.5), torch.cuda.current_stream(q.device).cuda_stream,
+        _scale(q, scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids=None,
-                 softmax_dtype: str = "float32") -> torch.Tensor:
+                 softmax_dtype: str = "float32", *, scale: float | None = None) -> torch.Tensor:
     """dq ``[B, T, H, Dh]`` in q's dtype (contiguous)."""
+    args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dq"):
-        return flash_bwd_dq_reference(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+        return flash_bwd_dq_reference(*args, scale=scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_bwd_dq", q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype, (dq,))
+    _bwd_launch("flash_bwd_dq", *args, scale, (dq,))
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, key_valid, o, lse, g, seg_ids=None,
-                  softmax_dtype: str = "float32"):
+                  softmax_dtype: str = "float32", *, scale: float | None = None):
     """(dk, dv), each ``[B, T, H, Dh]`` in the input dtype (contiguous)."""
+    args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dkv"):
-        return flash_bwd_dkv_reference(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+        return flash_bwd_dkv_reference(*args, scale=scale)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_bwd_dkv", q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype,
-                (dk, dv))
+    _bwd_launch("flash_bwd_dkv", *args, scale, (dk, dv))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -543,10 +591,9 @@ def _stream_probs(qs, gf, delta, lse, kc, vc, ok, active, sm_dtype):
     return p, ds
 
 
-def _stream_rows(b_idx, r0, r1, q, o, lse, g):
+def _stream_rows(b_idx, r0, r1, q, o, lse, g, scale):
     """float32 ``[H, R, *]`` operands of query rows r0..r1 of batch row
     ``b_idx``: q scaled and rounded to its dtype, g, delta = rowsum(g o), lse."""
-    scale = 1.0 / (q.shape[-1] ** 0.5)
     qs = (q[b_idx, r0:r1].float() * scale).to(q.dtype).float().permute(1, 0, 2)
     gf = g[b_idx, r0:r1].float().permute(1, 0, 2)
     delta = (gf * o[b_idx, r0:r1].float().permute(1, 0, 2)).sum(-1, keepdim=True)
@@ -555,7 +602,8 @@ def _stream_rows(b_idx, r0, r1, q, o, lse, g):
 
 def flash_bwd_dq_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
                                   softmax_dtype: str = "float32", q_chunk: int = 4096,
-                                  k_chunk: int = 4096) -> torch.Tensor:
+                                  k_chunk: int = 4096, *,
+                                  scale: float | None = None) -> torch.Tensor:
     """Plain PyTorch version of the streaming dq kernel: the TPU kernels
     ``_bwd_dq_stream_kernel``, ``_bwd_dq_packed_stream_kernel`` and
     ``_bwd_dq_hbm_kernel`` (fa:859-1103) at 64-key tiles. dq accumulates in
@@ -568,6 +616,7 @@ def flash_bwd_dq_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
     T = 32768, 8 heads)."""
     b, t, h, dh = q.shape
     sm_dtype = _SM_DTYPES[softmax_dtype]
+    scale = _scale(q, scale)
     tile = STREAM_TILE
     tp = -(-t // tile) * tile
     q_chunk = max(tile, q_chunk // tile * tile)
@@ -584,7 +633,7 @@ def flash_bwd_dq_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
             live = row_lo < row_hi
             if not bool(live.any()):
                 continue
-            qs, gf, delta, lse_r = _stream_rows(bi, r0, r1, q, o, lse, g)
+            qs, gf, delta, lse_r = _stream_rows(bi, r0, r1, q, o, lse, g, scale)
             acc = torch.zeros((h, r1 - r0, dh), dtype=torch.float32, device=q.device)
             kt0, kt1 = int(row_lo[live].min()), int(row_hi[live].max())
             for c0 in range(kt0, kt1, tiles_per_chunk):
@@ -599,14 +648,14 @@ def flash_bwd_dq_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
                                       ok, active, sm_dtype)
                 acc += torch.matmul(ds.to(k.dtype).float(), k_b[:, j0:j1])
                 del ds
-            dq_rows = (acc * (1.0 / dh ** 0.5)).permute(1, 0, 2).to(q.dtype)
+            dq_rows = (acc * scale).permute(1, 0, 2).to(q.dtype)
             dq[bi, r0:r1][live] = dq_rows[live]
     return dq
 
 
 def flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
                                    softmax_dtype: str = "float32", q_chunk: int = 4096,
-                                   k_chunk: int = 4096):
+                                   k_chunk: int = 4096, *, scale: float | None = None):
     """Plain PyTorch version of the streaming dk/dv kernel: the TPU kernel
     ``_bwd_dkv_stream_kernel`` (fa:1200-1282) at 64-row tiles, (dk, dv).
     Each 64-key tile accumulates in float32 over the query tiles that meet
@@ -619,6 +668,7 @@ def flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
     ``k_chunk`` keys and ``q_chunk`` query rows at a time."""
     b, t, h, dh = q.shape
     sm_dtype = _SM_DTYPES[softmax_dtype]
+    scale = _scale(q, scale)
     tile = STREAM_TILE
     tp = -(-t // tile) * tile
     q_chunk = max(tile, q_chunk // tile * tile)
@@ -647,7 +697,7 @@ def flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
                 ok = ok_key[None, j0:j1]
                 if seg_k is not None:
                     ok = ok & (seg_ids[bi, r0:r1, None] == seg_k[None, j0:j1])
-                qs, gf, delta, lse_r = _stream_rows(bi, r0, r1, q, o, lse, g)
+                qs, gf, delta, lse_r = _stream_rows(bi, r0, r1, q, o, lse, g, scale)
                 p, ds = _stream_probs(qs, gf, delta, lse_r, k_b[:, j0:j1], v_b[:, j0:j1],
                                       ok, active, sm_dtype)
                 acc_v += torch.matmul(p.to(g.dtype).float().transpose(1, 2), gf)
@@ -659,86 +709,225 @@ def flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
     return dk, dv
 
 
+def stream_tc(q: torch.Tensor) -> bool:
+    """Whether the streaming backward takes its tensor-core kernels (after
+    ``flash_bwd_stream_prep``): bf16 at Dh 64, the model's shape. float32
+    (which would lose its parity on TF32 tensor cores) and bf16 at Dh 16, 32
+    and 128 keep the first kernels of csrc/flash_bwd_stream.cu."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] == 64
+
+
+class StreamPrep(NamedTuple):
+    """Everything the tensor-core stream kernels read besides k, v and g,
+    made once per backward by ``flash_bwd_stream_prep``; Tp = T rounded up
+    to 64."""
+
+    qs: torch.Tensor  # [B, T, H, Dh] q's dtype: round(float(q) * scale)
+    rows: torch.Tensor  # [B, H, Tp, 2] float32: (lse, delta = rowsum(g o))
+    info: torch.Tensor  # [B, Tp, 2] int32: (key flag 1 / 0 / -1 past T, segment)
+    kvl: torch.Tensor  # [B] int32 (``_stream_sweep``)
+    lo: torch.Tensor | None  # [B, ceil(T / 64)] int32 packed tile bounds, else None
+    hi: torch.Tensor | None
+
+
+def flash_bwd_stream_prep_reference(q, k, v, key_valid, o, lse, g, seg_ids=None, *,
+                                    scale: float | None = None) -> StreamPrep:
+    """Plain PyTorch version of the prep kernel: ``StreamPrep`` with rows
+    past T holding (``SKIP_LSE``, 0) and (-1, 0), the segment 0 unpacked."""
+    b, t, h, dh = q.shape
+    tp = -(-t // STREAM_TILE) * STREAM_TILE
+    qs = (q.float() * _scale(q, scale)).to(q.dtype)
+    rows = torch.zeros((b, h, tp, 2), dtype=torch.float32, device=q.device)
+    rows[..., 0] = SKIP_LSE
+    rows[:, :, :t, 0] = lse[..., 0]
+    rows[:, :, :t, 1] = (g.float() * o.float()).sum(-1).permute(0, 2, 1)
+    info = torch.zeros((b, tp, 2), dtype=torch.int32, device=q.device)
+    info[..., 0] = -1
+    info[:, :t, 0] = key_valid.to(torch.int32)
+    if seg_ids is not None:
+        info[:, :t, 1] = seg_ids
+    return StreamPrep(qs, rows, info, *_stream_sweep(key_valid, seg_ids))
+
+
+def flash_bwd_stream_prep(q, k, v, key_valid, o, lse, g, seg_ids=None, *,
+                          scale: float | None = None) -> StreamPrep:
+    """What the tensor-core stream kernels read besides k, v and g, made
+    once per backward: q_s, rows and info by the kernel
+    ``flash_bwd_stream_prep`` of csrc/flash_bwd_stream.cu on CUDA tensors
+    (counted in ``flash_bwd_stream_prep.launches``), with the sweep
+    (``_stream_sweep``); ``flash_bwd_stream_prep_reference`` on CPU ones.
+    Checks the backward's inputs."""
+    if not _on_cuda(q, "float32", "flash_bwd_stream_prep"):
+        return flash_bwd_stream_prep_reference(q, k, v, key_valid, o, lse, g, seg_ids,
+                                               scale=scale)
+    import ctypes
+
+    _check_bwd_inputs(q, k, v, key_valid, o, lse, g, seg_ids)
+    if not stream_tc(q):
+        raise ValueError(f"the stream prep takes bf16 at Dh 64, not {q.dtype} at "
+                         f"Dh {q.shape[-1]}")
+    from repurpose_tpu_torch import native
+
+    lib = native.load("flash_bwd_stream")
+    b, t, h, dh = q.shape
+    tp = -(-t // STREAM_TILE) * STREAM_TILE
+    qs = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
+    rows = torch.empty((b, h, tp, 2), dtype=torch.float32, device=q.device)
+    info = torch.empty((b, tp, 2), dtype=torch.int32, device=q.device)
+    key_valid = key_valid.contiguous()
+    if seg_ids is not None:
+        seg_ids = seg_ids.contiguous()
+    strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, g, o) for i in range(3)))
+    err = lib.flash_bwd_stream_prep(
+        q.data_ptr(), g.data_ptr(), o.data_ptr(), strides, lse.data_ptr(),
+        key_valid.data_ptr(), _ptr(seg_ids), qs.data_ptr(), rows.data_ptr(), info.data_ptr(),
+        b, t, h, dh, _scale(q, scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_stream_prep kernel launch failed: CUDA error {err}")
+    flash_bwd_stream_prep.launches += 1
+    return StreamPrep(qs, rows, info, *_stream_sweep(key_valid, seg_ids))
+
+
+def _stream_tc_launch(name: str, q, k, v, g, softmax_dtype, scale, prep: StreamPrep, outs):
+    """Launches tensor-core stream kernel ``name`` of csrc/flash_bwd_stream.cu
+    on ``prep`` (the outputs of ``flash_bwd_stream_prep`` for these inputs,
+    which checked them) into the preallocated ``outs``."""
+    import ctypes
+
+    from repurpose_tpu_torch import native
+
+    b, t, h, dh = q.shape
+    tp = -(-t // STREAM_TILE) * STREAM_TILE
+    qs, rows, info, kvl, lo, hi = prep
+    if (qs.shape != q.shape or qs.dtype != q.dtype or not qs.is_contiguous()
+            or rows.shape != (b, h, tp, 2) or rows.dtype != torch.float32
+            or info.shape != (b, tp, 2) or info.dtype != torch.int32 or kvl.shape != (b,)
+            or (lo is None) != (hi is None)
+            or not all(x.is_contiguous() and x.device == q.device
+                       for x in prep if x is not None)):
+        raise ValueError("prep: not the outputs of flash_bwd_stream_prep for these inputs")
+    lib = native.load("flash_bwd_stream")
+    strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (k, v, g) for i in range(3)))
+    err = getattr(lib, name)(
+        qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), strides, rows.data_ptr(),
+        info.data_ptr(), kvl.data_ptr(), _ptr(lo), _ptr(hi), *(x.data_ptr() for x in outs),
+        b, t, h, int(softmax_dtype == "bfloat16"), _scale(q, scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def flash_bwd_dq_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
-                        softmax_dtype: str = "float32") -> torch.Tensor:
-    """dq of the streaming backward, ``[B, T, H, Dh]`` in q's dtype: the
-    kernel ``flash_bwd_dq_stream`` of csrc/flash_bwd_stream.cu on CUDA
-    tensors (counted in ``flash_bwd_dq_stream.launches``),
-    ``flash_bwd_dq_stream_reference`` on CPU ones."""
+                        softmax_dtype: str = "float32", prep: StreamPrep | None = None, *,
+                        scale: float | None = None) -> torch.Tensor:
+    """dq of the streaming backward, ``[B, T, H, Dh]`` in q's dtype: on CUDA
+    tensors a kernel of csrc/flash_bwd_stream.cu (counted in
+    ``flash_bwd_dq_stream.launches``), the tensor-core one on ``prep`` (the
+    outputs of ``flash_bwd_stream_prep``, run here when not given) where
+    ``stream_tc(q)``; ``flash_bwd_dq_stream_reference`` on CPU ones."""
+    args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dq_stream"):
-        return flash_bwd_dq_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids,
-                                             softmax_dtype)
+        return flash_bwd_dq_stream_reference(*args, scale=scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_bwd_dq_stream", q, k, v, key_valid, o, lse, g, seg_ids,
-                softmax_dtype, (dq,))
+    if stream_tc(q):
+        if prep is None:
+            prep = flash_bwd_stream_prep(*args[:-1], scale=scale)
+        _stream_tc_launch("flash_bwd_dq_stream_tc", q, k, v, g, softmax_dtype, scale, prep,
+                          (dq,))
+    else:
+        _bwd_launch("flash_bwd_dq_stream", *args, scale, (dq,))
     flash_bwd_dq_stream.launches += 1
     return dq
 
 
 def flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
-                         softmax_dtype: str = "float32"):
+                         softmax_dtype: str = "float32", prep: StreamPrep | None = None, *,
+                         scale: float | None = None):
     """(dk, dv) of the streaming backward, each ``[B, T, H, Dh]`` in the
-    input dtype: the kernel ``flash_bwd_dkv_stream`` of
-    csrc/flash_bwd_stream.cu on CUDA tensors (counted in
-    ``flash_bwd_dkv_stream.launches``), ``flash_bwd_dkv_stream_reference``
-    on CPU ones."""
+    input dtype: on CUDA tensors a kernel of csrc/flash_bwd_stream.cu
+    (counted in ``flash_bwd_dkv_stream.launches``), the tensor-core one on
+    ``prep`` as for ``flash_bwd_dq_stream``;
+    ``flash_bwd_dkv_stream_reference`` on CPU ones."""
+    args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dkv_stream"):
-        return flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids,
-                                              softmax_dtype)
+        return flash_bwd_dkv_stream_reference(*args, scale=scale)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_bwd_dkv_stream", q, k, v, key_valid, o, lse, g, seg_ids,
-                softmax_dtype, (dk, dv))
+    if stream_tc(q):
+        if prep is None:
+            prep = flash_bwd_stream_prep(*args[:-1], scale=scale)
+        _stream_tc_launch("flash_bwd_dkv_stream_tc", q, k, v, g, softmax_dtype, scale, prep,
+                          (dk, dv))
+    else:
+        _bwd_launch("flash_bwd_dkv_stream", *args, scale, (dk, dv))
     flash_bwd_dkv_stream.launches += 1
     return dk, dv
 
 
 flash_bwd_dq_stream.launches = 0  # kernel launches; the plain CPU path does not count
 flash_bwd_dkv_stream.launches = 0
+flash_bwd_stream_prep.launches = 0
 
 
 def flash_backward(q, k, v, key_valid, o, lse, g, seg_ids=None,
-                   softmax_dtype: str = "float32"):
+                   softmax_dtype: str = "float32", *, scale: float | None = None):
     """(dq, dk, dv) of ``out = flash_forward(q, k, v, key_valid, seg_ids)[0]``
     for the upstream gradient ``g``, given the forward's ``o`` and ``lse``:
     the dense kernels up to ``STREAM_MAX_T``, the streaming ones past it, as
     on the TPU (fa:1340-1341, 1461-1468). q/k/v may be strided views as for
     ``flash_forward``; ``g`` and ``o`` need a contiguous head-dim axis and
     16-byte rows."""
+    args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if q.shape[1] > STREAM_MAX_T:
-        dq = flash_bwd_dq_stream(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
-        dk, dv = flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+        prep = None
+        if q.device.type == "cuda" and stream_tc(q):  # once for both kernels
+            prep = flash_bwd_stream_prep(*args[:-1], scale=scale)
+        dq = flash_bwd_dq_stream(*args, prep, scale=scale)
+        dk, dv = flash_bwd_dkv_stream(*args, prep, scale=scale)
         return dq, dk, dv
-    dq = flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
-    dk, dv = flash_bwd_dkv(q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    dq = flash_bwd_dq(*args, scale=scale)
+    dk, dv = flash_bwd_dkv(*args, scale=scale)
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """Attention with the kernel forward and, for ``backward="pallas"``, the
     kernel backward; ``backward="xla"`` recomputes the plain attention and
-    takes its VJP instead. Returns out ``[B, T, H, Dh]``."""
+    takes its VJP instead. Returns out ``[B, T, H, Dh]``. A head width
+    without a kernel instance runs zero-padded to ``kernel_head_dim`` with
+    its own scale 1/sqrt(Dh); out and the gradients are cut back to Dh."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, seg_ids, softmax_dtype, backward):
-        out, lse = flash_forward(q, k, v, key_valid, seg_ids, softmax_dtype)
+        dh = q.shape[-1]
+        width = kernel_head_dim(q.device, dh)
+        if width != dh:
+            q, k, v = (torch.nn.functional.pad(x, (0, width - dh)) for x in (q, k, v))
+        scale = 1.0 / (dh ** 0.5)
+        out, lse = flash_forward(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale)
         ctx.save_for_backward(q, k, v, out, lse, key_valid, seg_ids)
-        ctx.softmax_dtype = softmax_dtype
+        ctx.softmax_dtype, ctx.head_dim, ctx.scale = softmax_dtype, dh, scale
         ctx.recompute = backward == "xla"
-        return out
+        return out if width == dh else out[..., :dh].contiguous()
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse, key_valid, seg_ids = ctx.saved_tensors
+        dh, width = ctx.head_dim, q.shape[-1]
         if ctx.recompute:
             with torch.enable_grad():
-                qkv = [x.detach().requires_grad_() for x in (q, k, v)]
+                qkv = [x[..., :dh].detach().requires_grad_() for x in (q, k, v)]
                 ref = mha_torch(*qkv, key_valid, seg_ids)
                 dq, dk, dv = torch.autograd.grad(ref, qkv, g)
-        else:
-            dq, dk, dv = flash_backward(q, k, v, key_valid, out, lse, g.contiguous(),
-                                        seg_ids, ctx.softmax_dtype)
-        return dq, dk, dv, None, None, None, None
+            return dq, dk, dv, None, None, None, None
+        g = torch.nn.functional.pad(g, (0, width - dh)) if width != dh else g.contiguous()
+        grads = flash_backward(q, k, v, key_valid, out, lse, g, seg_ids, ctx.softmax_dtype,
+                               scale=ctx.scale)
+        if width != dh:
+            grads = tuple(x[..., :dh] for x in grads)
+        return *grads, None, None, None, None
 
 
 def flash_attention(q, k, v, key_valid, seg_ids=None, softmax_dtype: str = "float32",

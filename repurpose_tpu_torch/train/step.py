@@ -79,6 +79,13 @@ def loss_fn(model, train_cfg: TrainConfig, batch: Batch, norm_override=None):
     return total, aux
 
 
+def dropout_seed(seed: int, step: int) -> int:
+    """Seed of step ``step``'s dropout masks: a hash of (seed, step), as the
+    JAX step folds the step into its key (``fold_in(rng, state.step)``), so
+    a resumed run draws the masks an uninterrupted one would."""
+    return int(np.random.SeedSequence([seed % 2**32, step]).generate_state(1, np.uint64)[0])
+
+
 def kernel_layer_names(model) -> list[str]:
     """Names of the matrix parameters (the JAX package's ``kernel`` leaves:
     every Linear weight and the packed QKV projection), in the order of the
@@ -134,6 +141,9 @@ def make_train_step(
     def train_step(state: TrainState, batch: Batch, per_layer_grad_norms: bool = False):
         model, opt = state.model, state.optimizer
         model.train()
+        gen = getattr(model, "dropout_generator", None)
+        if gen is not None:
+            gen.manual_seed(dropout_seed(train_cfg.seed, state.step))
         lr = schedule(state.step) if schedule is not None else None
         if lr is not None:
             for group in opt.param_groups:

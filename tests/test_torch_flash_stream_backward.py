@@ -37,8 +37,11 @@ from repurpose_tpu_torch.ops.flash_attention import (
     flash_bwd_dq_reference,
     flash_bwd_dq_stream,
     flash_bwd_dq_stream_reference,
+    flash_bwd_stream_prep,
+    flash_bwd_stream_prep_reference,
     flash_forward_stream_reference,
     packed_block_bounds,
+    stream_tc,
 )
 
 F32_REL = 1e-5
@@ -251,3 +254,57 @@ def test_flash_backward_takes_the_stream_plain_versions_past_stream_max_t(monkey
     want = (flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args))
     assert all(torch.equal(a, b) for a, b in zip(flash_backward(*args), want))
     assert [f.launches for f in counters] == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_stream_prep_reference_is_the_tpu_kernels_arithmetic(dtype, packed):
+    """The prep's plain version (what the tensor-core stream kernels read
+    instead of q and o) against the TPU stream kernel's own expressions:
+    q_s = (q.astype(f32) * scale).astype(q.dtype) (fa:1253) exactly, delta =
+    sum(g * o) over Dh in float32 (fa:1271) to 1e-6 x max |delta|; lse, the
+    key flags (1 valid, 0 masked, -1 past T) and segments padded to a
+    multiple of 64 rows."""
+    t, dh = 200, 16
+    valid, seg = _layout(t, packed)
+    q, k, v, g = _inputs(6, t, 2, dh, valid, seg)
+    td, jd = getattr(torch, dtype), getattr(jnp, dtype)
+    as_t = lambda x: torch.from_numpy(x).to(td)  # noqa: E731
+    o = _inputs(7, t, 2, dh, valid, seg)[0]
+    lse = np.random.default_rng(8).normal(0, 1, (3, 2, t, 1)).astype(np.float32)
+    sg = None if seg is None else torch.from_numpy(seg)
+    prep = flash_bwd_stream_prep_reference(
+        as_t(q), as_t(k), as_t(v), torch.from_numpy(valid), as_t(o), torch.from_numpy(lse),
+        as_t(g), sg)
+    qs, rows, info = prep.qs, prep.rows, prep.info
+    assert qs.dtype == td and rows.shape == (3, 2, 256, 2) and info.shape == (3, 256, 2)
+    kvl = valid.shape[1] - np.argmax(valid[:, ::-1], axis=1) * valid.any(1)
+    np.testing.assert_array_equal(prep.kvl.numpy(), np.where(valid.any(1), kvl, 0))
+    assert (prep.lo is None) == (seg is None) and (prep.hi is None) == (seg is None)
+    want_qs = (jnp.asarray(q, jd).astype(jnp.float32) * (1.0 / dh ** 0.5)).astype(jd)
+    np.testing.assert_array_equal(qs.float().numpy(), np.asarray(want_qs, np.float32))
+    gf, of = (jnp.asarray(x, jd).astype(jnp.float32) for x in (g, o))
+    want_delta = np.asarray(jnp.sum(gf * of, axis=-1)).transpose(0, 2, 1)  # [B, H, T]
+    _assert_rel(rows[:, :, :t, 1].numpy(), want_delta, 1e-6, "delta")
+    np.testing.assert_array_equal(rows[:, :, :t, 0].numpy(), lse[..., 0])
+    assert bool((rows[:, :, t:, 0] == port_fa.SKIP_LSE).all() and (rows[:, :, t:, 1] == 0).all())
+    np.testing.assert_array_equal(info[:, :t, 0].numpy(), valid.astype(np.int32))
+    assert bool((info[:, t:, 0] == -1).all() and (info[:, t:, 1] == 0).all())
+    want_seg = np.zeros((3, t), np.int32) if seg is None else seg
+    np.testing.assert_array_equal(info[:, :t, 1].numpy(), want_seg)
+    before = flash_bwd_stream_prep.launches
+    args = (as_t(q), as_t(k), as_t(v), torch.from_numpy(valid), as_t(o),
+            torch.from_numpy(lse), as_t(g), sg)
+    got = flash_bwd_stream_prep(*args)  # CPU tensors: the plain version, no launch
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, prep))
+    assert flash_bwd_stream_prep.launches == before
+
+
+@pytest.mark.parametrize("dtype,dh,tc", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 16, False), (torch.bfloat16, 32, False),
+    (torch.bfloat16, 128, False), (torch.float32, 64, False),
+])
+def test_the_tensor_core_stream_kernels_take_bf16_at_dh_64(dtype, dh, tc):
+    """The tensor-core design covers the model's shape; float32 (which must
+    keep float32 parity) and the other head widths keep the first kernels."""
+    assert stream_tc(torch.zeros(1, 4, 2, dh, dtype=dtype)) is tc
