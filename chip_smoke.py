@@ -13,9 +13,10 @@ verdict line):
    for sm_90a;
 2. forward kernel vs plain: the flash forward against its plain PyTorch
    version at [8, 2048, 8, 64] bf16 (unpacked and packed, bf16 and float32
-   softmax interior) and T = 1000 in float32, with times of the kernel, the
-   plain version, ``scaled_dot_product_attention`` (yardstick only) and the
-   card's bound for the same work;
+   softmax interior) and T = 1000 in float32, with times of the kernel and
+   ``scaled_dot_product_attention`` (yardstick only) per launch of a chain of
+   back-to-back launches, the plain version's, and the card's bound for the
+   same work;
 3. backward kernels vs plain: dq and dk/dv against their plain versions at
    the training shapes ([6, 2048, 8, 64] bf16, unpacked and packed, both
    interiors; [6, 1000, 8, 64] float32), timed likewise, with SDPA's
@@ -34,14 +35,18 @@ verdict line):
    plain-attention model, parameter by parameter;
 7. long videos (``configs/longvideo.yaml``, buckets 2048..32768 at batch 1):
    a. the streaming forward kernel against its plain version at [1, 4096] and
-      [1, 32768] unpacked, packed rows of [1, 8192] and [1, 32768], bf16 and
-      float32, timed with the plain version, SDPA and (packed 32768) the dense
-      kernel's packed variant;
+      [1, 32768] unpacked, packed rows of [1, 8192], [1, 16384] and
+      [1, 32768], bf16 (the tensor-core kernel) and float32 (the first
+      design); two launches give equal bits; the kernel, SDPA and (packed
+      32768) the dense kernel's packed variant each timed over >= 5 chains
+      of back-to-back launches (median, min, max per launch) with each
+      time's ratio to SDPA in this run, the plain version over single calls;
    b. the flagship serves request A (one video per bucket) unpacked and
       packed, bit-identical, and request B (12 videos) in shared packed rows;
       the [1, 32768] forward against the plain-stream model; exactly 16
-      launches of the streaming kernel per forward past T = 2048; the
-      latency of each request and a profile of the 32768 batch;
+      launches of the streaming kernel per forward past T = 2048, every one
+      the tensor-core kernel; the latency of each request and a profile of
+      the 32768 batch;
    c. the inference CLI's ``run`` with ``--synthetic 4``, unpacked and packed;
 8. long-video training (``configs/longvideo.yaml``, remat on, batch 1):
    a. the streaming backward kernels (the prep, dq, dk/dv) against their
@@ -58,24 +63,30 @@ verdict line):
       rows of 32768 and of 8192), each with the val probe, a checkpoint and
       the tIoU evaluation, and exactly 32 / 16 / 16 / 16 launches of
       ``flash_fwd_stream`` / ``flash_bwd_dq_stream`` / ``flash_bwd_dkv_stream``
-      / ``flash_bwd_stream_prep`` per step (forward and remat recompute;
-      backward) and no dense backward launch; then step time, videos/s and
+      / ``flash_bwd_stream_prep`` per step (forward and remat recompute, the
+      forwards all tensor-core; backward) and no dense backward launch; then
+      step time, videos/s and
       peak memory per bucket,
       the [1, 16384] step without remat (a higher peak) and a profile of the
       [1, 32768] step;
    c. every parameter gradient of a [1, 8192] step, unpacked and packed, bf16
-      and float32, against the plain-stream model; remat on vs off with
-      dropout on, bit-identical;
+      and float32, against the plain-stream model (the streaming forward:
+      the tensor-core kernel in bf16, the first design in float32); remat on
+      vs off with dropout on, bit-identical;
 9. the bench tools (``repurpose_tpu_torch.tools``):
    a. the no-transpose forward ``mha_nt`` against its plain version at the
-      tool's [8, 2048, 8 * 64] bf16 (keys >= 1800 masked) at each
-      heads-per-block the kernel has, and at [2, 1000, 8 * 64] float32 with
-      key holes and a fully masked row, every row compared; timed with the
-      plain version, ``flash_forward`` and SDPA on the same inputs;
+      tool's [8, 2048, 8 * 64] bf16 (keys >= 1800 masked; the tensor-core
+      kernel) at each heads-per-block the kernel has, and at [2, 1000, 8 * 64]
+      float32 (the first design) with key holes and a fully masked row, every
+      row compared, two launches equal; the kernel, ``flash_forward`` and
+      SDPA on the same inputs timed over >= 5 chains, the plain version over
+      single calls;
    b. ``int8_core`` and ``int8_matmul`` against their plain versions, bit for
       bit, at the tool's three shapes and a ragged one, timed with the plain
       versions, ``torch._int_mm`` (core) and bf16 ``torch.matmul``;
-   c. each tool's ``main([])`` on the card, with its launches;
+   c. each tool's ``main([])`` on the card, with its launches (every
+      ``mha_nt`` launch the tensor-core kernel), then ``mha_nt`` on float32
+      inputs of the tool's shape (the first design);
 10. a JSON line listing every ported kernel, then the verdict line
    ``{"ok": true, "device": {...}}``.
 
@@ -224,6 +235,11 @@ def spread_ms(fn, reps: int, warmup: int = 2, chain: int = 1) -> dict:
                 chain=chain)
 
 
+def _triple(t: dict) -> str:
+    """[median, min, max] of a ``spread_ms`` result, as JSON."""
+    return json.dumps([round(t[x], 4) for x in ("ms", "min_ms", "max_ms")])
+
+
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median over ``reps`` single calls, each timed with CUDA events."""
     return spread_ms(fn, reps, warmup)["ms"]
@@ -231,16 +247,21 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def _counted_wrappers() -> dict:
     """Every kernel wrapper by kernel name; each counts its launches in
-    ``.launches``."""
+    ``.launches``. ``flash_fwd_stream`` and ``flash_fwd_nt`` count every
+    launch of their wrapper; ``flash_fwd_stream_tc`` and ``flash_fwd_nt_tc``
+    the part of them that took the tensor-core kernel (bf16 at Dh 64), so
+    the first design's launches are the difference."""
     from repurpose_tpu_torch.ops import flash_attention as fa
     from repurpose_tpu_torch.tools import bench_attention_fwd, bench_int8_matmul
 
     return {"flash_fwd": fa.flash_forward, "flash_fwd_stream": fa.flash_forward_stream,
+            "flash_fwd_stream_tc": fa.flash_fwd_stream_tc,
             "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
             "flash_bwd_dq_stream": fa.flash_bwd_dq_stream,
             "flash_bwd_dkv_stream": fa.flash_bwd_dkv_stream,
             "flash_bwd_stream_prep": fa.flash_bwd_stream_prep,
             "flash_fwd_nt": bench_attention_fwd.mha_nt,
+            "flash_fwd_nt_tc": bench_attention_fwd.flash_fwd_nt_tc,
             "int8_matmul": bench_int8_matmul.int8_matmul,
             "int8_core": bench_int8_matmul.int8_core}
 
@@ -387,17 +408,19 @@ def _hold_forward(name: str, out, lse, ref_out, ref_lse, kv, seg, dtype: str):
     return err, lse_err, atol, live
 
 
-def _sdpa_ms(q, k, v, kv, seg, reps: int) -> float:
+def _sdpa_spread(q, k, v, kv, seg, reps: int, chain: int = 1) -> dict:
     """Yardstick only: one PyTorch call computing the same attention,
-    ``scaled_dot_product_attention`` on the same boolean mask."""
+    ``scaled_dot_product_attention`` on the same boolean mask, timed as
+    ``spread_ms`` times with ``chain``."""
     import torch.nn.functional as F
 
     allowed = kv[:, None, None, :]
     if seg is not None:
         allowed = allowed & (seg[:, None, :, None] == seg[:, None, None, :])
     qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-    return median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed),
-                     reps=reps)
+    return spread_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=allowed),
+                     reps=reps, chain=chain)
+
 
 
 def _sdpa_bwd_ms(q, k, v, kv, seg, g, reps: int, chain: int = 1):
@@ -425,6 +448,9 @@ def _sdpa_bwd_ms(q, k, v, kv, seg, g, reps: int, chain: int = 1):
 
 
 def phase_kernel_vs_plain() -> list[dict]:
+    """2: the dense forward against its plain version; the kernel and SDPA
+    timed per launch of a chain (``spread_ms``), the plain version over
+    single calls."""
     import torch
 
     from repurpose_tpu_torch.ops.flash_attention import flash_forward, flash_forward_reference
@@ -451,17 +477,19 @@ def phase_kernel_vs_plain() -> list[dict]:
         err, lse_err, atol, _ = _hold_forward(var["name"], out, lse, ref_out, ref_lse, kv,
                                               seg, var["dtype"])
 
-        ms = median_ms(lambda: flash_forward(q, k, v, kv, seg_ids=seg,
-                                             softmax_dtype=var["sm"]), reps=20, warmup=3)
+        kernel = spread_ms(lambda: flash_forward(q, k, v, kv, seg_ids=seg,
+                                                 softmax_dtype=var["sm"]), reps=5, chain=8)
         plain_ms = median_ms(lambda: flash_forward_reference(q, k, v, kv, seg, var["sm"]),
                              reps=3, warmup=1)
-        library_ms = _sdpa_ms(q, k, v, kv, seg, reps=10)
+        library = _sdpa_spread(q, k, v, kv, seg, reps=5, chain=8)
         bound_ms, bound_by, flops, bytes_ = _bound(q, kv, seg)
         row = dict(name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
                    softmax_dtype=var["sm"], packed=var["packed"], max_abs_err=err,
-                   lse_max_abs_err=lse_err, out_atol=atol, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   flops=flops, bytes=bytes_)
+                   lse_max_abs_err=lse_err, out_atol=atol, ms=kernel["ms"],
+                   min_ms=kernel["min_ms"], max_ms=kernel["max_ms"], chain=8,
+                   plain_ms=plain_ms, library_ms=library["ms"],
+                   ratio_to_library=kernel["ms"] / library["ms"], bound_ms=bound_ms,
+                   bound_by=bound_by, flops=flops, bytes=bytes_)
         print(f"[kernel] {json.dumps(row)}")
         rows.append(row)
         del q, k, v, kv, seg, out, lse, ref_out, ref_lse
@@ -516,9 +544,11 @@ def _hold_backward(label: str, got: dict, want: dict, rel: float, past) -> dict:
 
 
 def phase_backward_vs_plain() -> list[dict]:
-    """The dq and dk/dv kernels against their plain versions at the training
-    shapes, on o / lse from the kernel forward and an upstream gradient that
-    is random before each row's last valid key and 0 past it (the model's)."""
+    """3: the dq and dk/dv kernels against their plain versions at the
+    training shapes, on o / lse from the kernel forward and an upstream
+    gradient that is random before each row's last valid key and 0 past it
+    (the model's); each kernel and SDPA's backward timed per launch of a
+    chain (``spread_ms``), the plain versions over single calls."""
     import torch
 
     from repurpose_tpu_torch.ops.flash_attention import (
@@ -560,7 +590,7 @@ def phase_backward_vs_plain() -> list[dict]:
         errs = _hold_backward(var["name"], got, want,
                               BWD_REL.get((var["dtype"], sm), BWD_REL_BF16), past)
 
-        library_ms, library_note = _sdpa_bwd_ms(q, k, v, kv, seg, g, reps=10)
+        library_ms, library_note = _sdpa_bwd_ms(q, k, v, kv, seg, g, reps=5, chain=8)
         check(library_ms is not None, f"{var['name']}: SDPA's backward failed: {library_note}")
         row = dict(name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
                    softmax_dtype=sm, packed=var["packed"], library_ms=library_ms)
@@ -571,9 +601,10 @@ def phase_backward_vs_plain() -> list[dict]:
             bound_ms, bound_by, flops, bytes_ = _bwd_bound(q, kv, seg, products, outputs)
             row[kname] = dict(
                 max_abs_err=max(errs[x] for x in keys),
-                ms=median_ms(lambda: fn(*args), reps=20, warmup=3),
+                **spread_ms(lambda: fn(*args), reps=5, chain=8),
                 plain_ms=median_ms(lambda: ref_fn(*args), reps=3, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
+        row["pair_ratio_to_library"] = (row["dq"]["ms"] + row["dkv"]["ms"]) / library_ms
         print(f"[backward] {json.dumps(row)}")
         rows.append(row)
         del q, k, v, kv, seg, o, lse, g, got, want, args
@@ -993,15 +1024,21 @@ def _long_attention_inputs(var: dict, gen):
 
 def phase_long_kernel_vs_plain() -> list[dict]:
     """7a: the streaming kernel against its plain version at the long-video
-    shapes, timed with the plain version, SDPA on the same boolean mask
-    (yardstick only) and, at the packed 32768 row, the dense kernel's packed
-    variant, which sweeps every key tile up to kvl."""
+    shapes (bf16 rows: the tensor-core kernel, which each call must have
+    launched; the float32 row: the first design), two launches equal bit
+    for bit. The kernel, SDPA on the same boolean mask (yardstick only) and,
+    at the packed 32768 row, the dense kernel's packed variant, which sweeps
+    every key tile up to kvl, are each timed over >= 5 chains of
+    back-to-back launches (median, min and max per launch), with each
+    time's ratio to SDPA in this run; the plain version over single calls."""
     import torch
 
     from repurpose_tpu_torch.ops.flash_attention import (
         flash_forward_stream,
         flash_forward_stream_reference,
         flash_fwd_dense,
+        flash_fwd_stream_tc,
+        stream_tc,
     )
 
     variants = [
@@ -1010,6 +1047,8 @@ def phase_long_kernel_vs_plain() -> list[dict]:
         dict(name="unpacked_T32768", shape=(1, 32768, 8, 64), dtype="bfloat16",
              sm="bfloat16", packed=False),
         dict(name="packed_T8192", shape=(1, 8192, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=True),
+        dict(name="packed_T16384", shape=(1, 16384, 8, 64), dtype="bfloat16",
              sm="bfloat16", packed=True),
         dict(name="packed_T32768", shape=(1, 32768, 8, 64), dtype="bfloat16",
              sm="bfloat16", packed=True),
@@ -1021,35 +1060,57 @@ def phase_long_kernel_vs_plain() -> list[dict]:
     for var in variants:
         q, k, v, kv, seg = _long_attention_inputs(var, gen)
         sm = var["sm"]
+        tc_before = flash_fwd_stream_tc.launches
         out, lse = flash_forward_stream(q, k, v, kv, seg, sm)
+        again = flash_forward_stream(q, k, v, kv, seg, sm)
         torch.cuda.synchronize()
+        tc = stream_tc(q)
+        check(flash_fwd_stream_tc.launches - tc_before == (2 if tc else 0),
+              f"long {var['name']}: the tensor-core kernel was launched "
+              f"{flash_fwd_stream_tc.launches - tc_before} times of 2 (want {2 if tc else 0})")
+        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+              f"long {var['name']}: two launches of the streaming kernel differ")
+        del again
         ref_out, ref_lse = flash_forward_stream_reference(q, k, v, kv, seg, sm)
         err, lse_err, atol, live = _hold_forward(f"long {var['name']}", out, lse, ref_out,
                                                  ref_lse, kv, seg, var["dtype"])
         del ref_out, ref_lse
 
-        ms = median_ms(lambda: flash_forward_stream(q, k, v, kv, seg, sm), reps=10)
+        chain = 2 if q.shape[1] >= 16384 else 8  # back-to-back calls per timing
+        kernel = spread_ms(lambda: flash_forward_stream(q, k, v, kv, seg, sm), reps=5,
+                           chain=chain)
+        library = _sdpa_spread(q, k, v, kv, seg, reps=5, chain=chain)
         plain_ms = median_ms(lambda: flash_forward_stream_reference(q, k, v, kv, seg, sm),
                              reps=3, warmup=1)
-        library_ms = _sdpa_ms(q, k, v, kv, seg, reps=5)
         bound_ms, bound_by, flops, bytes_ = _bound(q, kv, seg)
         row = dict(name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
-                   softmax_dtype=sm, packed=var["packed"], max_abs_err=err,
-                   lse_max_abs_err=lse_err, out_atol=atol, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   flops=flops, bytes=bytes_)
+                   softmax_dtype=sm, packed=var["packed"],
+                   kernel="flash_fwd_stream_tc" if tc else "flash_fwd_stream",
+                   max_abs_err=err, lse_max_abs_err=lse_err, out_atol=atol,
+                   ms=kernel["ms"], min_ms=kernel["min_ms"], max_ms=kernel["max_ms"],
+                   chain=chain, plain_ms=plain_ms, library_ms=library["ms"],
+                   library_min_ms=library["min_ms"], library_max_ms=library["max_ms"],
+                   ratio_to_library=kernel["ms"] / library["ms"], bound_ms=bound_ms,
+                   bound_by=bound_by, ratio_to_bound=kernel["ms"] / bound_ms, flops=flops,
+                   bytes=bytes_, deterministic=True)
         if var["packed"] and q.shape[1] == 32768:
             # the dense kernel on the same inputs: what the bounded sweep saves
             dense_out, _ = flash_fwd_dense(q, k, v, kv, seg, sm)
-            row["flash_fwd_packed_ms"] = median_ms(
-                lambda: flash_fwd_dense(q, k, v, kv, seg, sm), reps=5)
+            dense = spread_ms(lambda: flash_fwd_dense(q, k, v, kv, seg, sm), reps=5,
+                              chain=chain)
+            row["flash_fwd_packed_ms"] = dense["ms"]
+            row["flash_fwd_packed_min_max_ms"] = [dense["min_ms"], dense["max_ms"]]
             row["flash_fwd_packed_max_abs_diff"] = float(
                 (dense_out[live].float() - out[live].float()).abs().max())
-            check(row["flash_fwd_packed_ms"] > ms,
-                  f"packed 32768: the bounded sweep ({ms:.3f} ms) is not faster than "
-                  f"flash_fwd's packed variant ({row['flash_fwd_packed_ms']:.3f} ms)")
+            check(dense["ms"] > kernel["ms"],
+                  f"packed 32768: the bounded sweep ({kernel['ms']:.3f} ms) is not faster "
+                  f"than flash_fwd's packed variant ({dense['ms']:.3f} ms)")
             del dense_out
         print(f"[long-kernel] {json.dumps(row)}")
+        print(f"[long-forward-time] {var['name']} ({row['kernel']}): ms per call of {chain} "
+              f"chained, [median, min, max] {_triple(kernel)}; SDPA {_triple(library)}; "
+              f"kernel / SDPA {row['ratio_to_library']:.3f}; kernel / bound "
+              f"{row['ratio_to_bound']:.2f}")
         rows.append(row)
         del q, k, v, kv, seg, out, lse
         torch.cuda.empty_cache()
@@ -1094,18 +1155,20 @@ def phase_long_video_serving(card: str) -> dict:
     weights = build_model(model_cfg, "cpu", seed=SEED).state_dict()
     pipe = InferencePipeline(model_cfg, weights, test_cfg, raw_outputs=True, device="cuda")
 
-    forwards = []  # (T, dense launches, stream launches) per forward
+    # (T, dense launches, stream launches, tensor-core stream launches) per forward
+    forwards = []
+    names = ("flash_fwd", "flash_fwd_stream", "flash_fwd_stream_tc")
 
     def counts():
-        return tuple(read_launches("flash_fwd", "flash_fwd_stream").values())
+        return tuple(read_launches(*names).values())
 
     def before(module, args):
         forwards.append(counts())
 
     def after(module, args, output):
-        d0, s0 = forwards.pop()
-        d1, s1 = counts()
-        forwards.append((int(args[0].shape[1]), d1 - d0, s1 - s0))
+        was = forwards.pop()
+        forwards.append((int(args[0].shape[1]),
+                         *(now - then for now, then in zip(counts(), was))))
 
     pipe.model.register_forward_pre_hook(before)
     pipe.model.register_forward_hook(after)
@@ -1130,16 +1193,17 @@ def phase_long_video_serving(card: str) -> dict:
         served[f"B {b_buckets[0]} unpacked"] = (t1 - t0) * 1e3
         served[f"B {b_buckets[0]} packed"] = (t2 - t1) * 1e3
         b_results[b_buckets[0]] = (un, pk)
-    launches = read_launches("flash_fwd", "flash_fwd_stream")
-    for t, dense, stream in forwards:
-        want = (0, layers) if t > fa.STREAM_MAX_T else (layers, 0)
-        check((dense, stream) == want, f"a forward at T = {t} launched flash_fwd {dense} and "
-                                       f"flash_fwd_stream {stream} times (want {want})")
+    launches = read_launches(*names)
+    for t, *launched in forwards:
+        # past STREAM_MAX_T every streaming launch takes the tensor-core kernel
+        want = [0, layers, layers] if t > fa.STREAM_MAX_T else [layers, 0, 0]
+        check(launched == want, f"a forward at T = {t} launched flash_fwd / flash_fwd_stream / "
+                                f"flash_fwd_stream_tc {launched} times (want {want})")
     n_served = len(forwards)
     by_t = {t: sum(1 for f in forwards if f[0] == t) for t in sorted({f[0] for f in forwards})}
     print(f"[long-serve] launches {json.dumps(launches)} over {len(forwards)} forwards "
           f"(by T: {json.dumps(by_t)}): {layers} per forward, flash_fwd_stream past "
-          f"T = {fa.STREAM_MAX_T}, flash_fwd at 2048")
+          f"T = {fa.STREAM_MAX_T}, every one the tensor-core kernel, flash_fwd at 2048")
     for name, ms in served.items():
         print(f"[long-serve] {card}: request {name}: {ms:.1f} ms on the host clock")
 
@@ -1200,8 +1264,8 @@ def phase_long_video_serving(card: str) -> dict:
         plain_s = time.perf_counter() - t0
         d = (out.cls_logits - ref.cls_logits)[..., 0][mask].abs()
         fwd_ms = median_ms(lambda: pipe.model(*args, mask), reps=3, warmup=1)
-    check(all(f[1:] == (0, layers) for f in forwards[n_served:]),
-          "a T = 32768 forward did not launch flash_fwd_stream 16 times")
+    check(all(f[1:] == (0, layers, layers) for f in forwards[n_served:]),
+          "a T = 32768 forward did not launch flash_fwd_stream_tc 16 times")
     p_max, p_mean = float(d.max()), float(d.mean())
     check(p_max <= BF16_LOGIT_MAX and p_mean <= BF16_LOGIT_MEAN,
           f"T = 32768: kernel vs plain-stream model: max {p_max:.4g} mean {p_mean:.4g}")
@@ -1236,8 +1300,10 @@ def phase_long_cli(card: str) -> dict:
         lines = [x for x in buf.getvalue().splitlines() if "precision@tIoU" in x]
         check(len(lines) == 6 and len(means) == 6, f"CLI {extra}: printed {lines}")
         name = "packed" if extra else "unpacked"
-        launches[name] = read_launches("flash_fwd", "flash_fwd_stream")
+        launches[name] = read_launches("flash_fwd", "flash_fwd_stream", "flash_fwd_stream_tc")
         check(launches[name]["flash_fwd_stream"] > 0, f"CLI {extra}: no streaming launch")
+        check(launches[name]["flash_fwd_stream_tc"] == launches[name]["flash_fwd_stream"],
+              f"CLI {extra}: a streaming launch took the first design: {launches[name]}")
         print(f"[long-cli] {card}: --synthetic 4 {' '.join(extra)}: {wall_s:.1f} s, launches "
               f"{json.dumps(launches[name])}; " + "; ".join(lines))
     return launches
@@ -1498,7 +1564,8 @@ def _hold_long_run(label: str, card: str, summary: dict, seen, workdir: str, ste
                    layers: int, wall_s: float) -> dict:
     """Holds one long-video training run: ``steps`` steps, each past T = 2048
     launching exactly flash_fwd_stream 2 x ``layers`` (forward and remat
-    recompute) and each streaming backward kernel (the prep, dq, dk/dv)
+    recompute), every one the tensor-core kernel, and each streaming backward
+    kernel (the prep, dq, dk/dv)
     ``layers`` times, nothing else; each forward without gradients ``layers`` launches of its forward
     kernel; finite losses, the val probe, the tIoU evaluation and a
     checkpoint. Returns the launches summed over the run."""
@@ -1509,13 +1576,15 @@ def _hold_long_run(label: str, card: str, summary: dict, seen, workdir: str, ste
 
     check(summary["step"] == steps == len(seen.steps) and steps > 0,
           f"{label}: {summary['step']} steps, {len(seen.steps)} seen, plan {steps}")
-    step_want = {"flash_fwd_stream": 2 * layers, "flash_bwd_dq_stream": layers,
-                 "flash_bwd_dkv_stream": layers, "flash_bwd_stream_prep": layers}
+    step_want = {"flash_fwd_stream": 2 * layers, "flash_fwd_stream_tc": 2 * layers,
+                 "flash_bwd_dq_stream": layers, "flash_bwd_dkv_stream": layers,
+                 "flash_bwd_stream_prep": layers}
     for t, launched in seen.steps:
         check(t > fa.STREAM_MAX_T and launched == step_want,
               f"{label}: a step at T = {t} launched {launched} (want {step_want})")
     for t, launched in seen.forwards:
-        want = {"flash_fwd_stream" if t > fa.STREAM_MAX_T else "flash_fwd": layers}
+        want = ({"flash_fwd_stream": layers, "flash_fwd_stream_tc": layers}
+                if t > fa.STREAM_MAX_T else {"flash_fwd": layers})
         check(launched == want, f"{label}: a forward at T = {t} launched {launched}")
     total = dict.fromkeys(_counted_wrappers(), 0)
     for _, launched in seen.steps + seen.forwards:
@@ -1695,13 +1764,15 @@ def _plain_stream_trainable(softmax_dtype: str):
                                                                       seg_ids)
 
 
-def phase_long_gradients(card: str) -> None:
+def phase_long_gradients(card: str) -> dict:
     """8c: every parameter gradient of one [1, 8192] step of the flagship on
     the long-video config (remat on) with the kernels against the same model
     whose attention is the plain-stream Function, unpacked and packed, in
     the production setting (bf16, bf16 interior) and in float32; then the
     kernel model with remat on against off, dropout 0.1 on: masks, loss and
-    gradients bit-identical, and the dropout generator in the same state."""
+    gradients bit-identical, and the dropout generator in the same state.
+    The kernel steps' streaming forwards take the tensor-core kernel in bf16
+    and the first design in float32; returns their launches by dtype."""
     import numpy as np
     import torch
 
@@ -1722,7 +1793,9 @@ def phase_long_gradients(card: str) -> None:
         "packed": pack_batch(videos, rows, 8192, batch_size=1),
     }
     f32 = dataclasses.replace(cfg.model, compute_dtype="float32", attn_softmax_dtype="float32")
+    launches = {}
     for dtype, model_cfg in (("bfloat16", cfg.model), ("float32", f32)):
+        reset_launches()
         for name, batch in batches.items():
             b = batch_to_device(batch, "cuda")
             kernel = _step_grads(model_cfg, train_cfg, b, "auto")
@@ -1732,6 +1805,13 @@ def phase_long_gradients(card: str) -> None:
                         "model", kernel, plain, GRAD_REL_BOUND[dtype], layers)
             del kernel, plain
             torch.cuda.empty_cache()
+        launches[dtype] = read_launches("flash_fwd_stream", "flash_fwd_stream_tc")
+        # two steps of 2 x layers forwards (forward and remat recompute)
+        want = 4 * layers
+        check(launches[dtype] == {"flash_fwd_stream": want,
+                                  "flash_fwd_stream_tc": want if dtype == "bfloat16" else 0},
+              f"{dtype} [1, 8192] steps launched {launches[dtype]} (want {want} streaming "
+              "forwards, all tensor-core in bf16, none in float32)")
 
     b = batch_to_device(batches["unpacked"], "cuda")
     runs = []
@@ -1755,7 +1835,9 @@ def phase_long_gradients(card: str) -> None:
           f"{'equal' if torch.equal(gen_on, gen_off) else 'differs'}")
     print(f"[grad] {card}: unpacked [1, 8192], dropout {cfg.model.dropout}: remat on vs off "
           f"bit-identical: loss {float(loss_on):.6f}, {len(same)}/{len(grads_off)} parameter "
-          "gradients, the dropout generator's final state")
+          "gradients, the dropout generator's final state; streaming forward launches of "
+          f"the kernel steps {json.dumps(launches)}")
+    return launches
 
 
 # -- phase 9: the bench tools ---------------------------------------------------
@@ -1785,9 +1867,14 @@ def _nt_bound(q, kv):
 
 def phase_nt_vs_plain() -> list[dict]:
     """9a: ``mha_nt`` against ``mha_nt_reference`` on every row under ``TOL``
-    (rows past the last valid key and fully masked rows included), timed with
-    the plain version, the port's ``flash_forward`` on [B, T, H, Dh] views of
-    the same tensors and SDPA (yardstick only, on the same boolean mask)."""
+    (rows past the last valid key and fully masked rows included; bf16 rows:
+    the tensor-core kernel, which each call must have launched; the float32
+    row: the first design), two launches equal bit for bit. The kernel, the
+    port's ``flash_forward`` on [B, T, H, Dh] views of the same tensors and
+    SDPA (yardstick only, on the same boolean mask) are each timed over >= 5
+    chains of back-to-back launches (median, min and max per launch), with
+    each time's ratio to SDPA in this run; the plain version over single
+    calls."""
     import torch
 
     from repurpose_tpu_torch.ops.flash_attention import flash_forward
@@ -1811,8 +1898,16 @@ def phase_nt_vs_plain() -> list[dict]:
             kv[0, 900:] = False  # a ragged row with interior holes,
             kv[0, torch.randint(0, 900, (100,), generator=gen, device="cuda")] = False
             kv[1] = False  # and a row with no valid key
+        tc_before = baf.flash_fwd_nt_tc.launches
         out = baf.mha_nt(q, k, v, kv, heads=h, heads_per_block=var["hpb"])
+        again = baf.mha_nt(q, k, v, kv, heads=h, heads_per_block=var["hpb"])
         torch.cuda.synchronize()
+        tc = baf.nt_tc(q, h)
+        check(baf.flash_fwd_nt_tc.launches - tc_before == (2 if tc else 0),
+              f"mha_nt {var['name']}: the tensor-core kernel was launched "
+              f"{baf.flash_fwd_nt_tc.launches - tc_before} times of 2")
+        check(torch.equal(out, again), f"mha_nt {var['name']}: two launches differ")
+        del again
         ref = baf.mha_nt_reference(q, k, v, kv, h)
         got, want = out.float(), ref.float()
         err = float((got - want).abs().max())
@@ -1825,16 +1920,27 @@ def phase_nt_vs_plain() -> list[dict]:
 
         views = [z.view(b, t, h, dh) for z in (q, k, v)]
         bound_ms, bound_by, flops, bytes_ = _nt_bound(q, kv)
+        chain = 20
+        kernel = spread_ms(lambda: baf.mha_nt(q, k, v, kv, heads=h, heads_per_block=var["hpb"]),
+                           reps=5, chain=chain)
+        dense = spread_ms(lambda: flash_forward(*views, kv), reps=5, chain=chain)
+        library = _sdpa_spread(*views, kv, None, reps=5, chain=chain)
         row = dict(
             name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
-            heads_per_block=var["hpb"], max_abs_err=err, out_atol=atol,
-            ms=median_ms(lambda: baf.mha_nt(q, k, v, kv, heads=h, heads_per_block=var["hpb"]),
-                         reps=20, warmup=3),
+            heads_per_block=var["hpb"], kernel="flash_fwd_nt_tc" if tc else "flash_fwd_nt",
+            max_abs_err=err, out_atol=atol, ms=kernel["ms"], min_ms=kernel["min_ms"],
+            max_ms=kernel["max_ms"], chain=chain,
             plain_ms=median_ms(lambda: baf.mha_nt_reference(q, k, v, kv, h), reps=3, warmup=1),
-            flash_forward_ms=median_ms(lambda: flash_forward(*views, kv), reps=20, warmup=3),
-            library_ms=_sdpa_ms(*views, kv, None, reps=10),
-            bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
+            flash_forward_ms=dense["ms"],
+            flash_forward_min_max_ms=[dense["min_ms"], dense["max_ms"]],
+            library_ms=library["ms"], library_min_ms=library["min_ms"],
+            library_max_ms=library["max_ms"], ratio_to_library=kernel["ms"] / library["ms"],
+            bound_ms=bound_ms, bound_by=bound_by, ratio_to_bound=kernel["ms"] / bound_ms,
+            flops=flops, bytes=bytes_, deterministic=True)
         print(f"[nt-kernel] {json.dumps(row)}")
+        print(f"[nt-time] {var['name']} ({row['kernel']}): ms per call of {chain} chained, "
+              f"[median, min, max] {_triple(kernel)}; flash_forward {_triple(dense)}; "
+              f"SDPA {_triple(library)}; kernel / SDPA {row['ratio_to_library']:.3f}")
         rows.append(row)
         del q, k, v, kv, out, ref, got, want, views
         torch.cuda.empty_cache()
@@ -1860,9 +1966,10 @@ def _int8_bounds(m: int, k: int, n: int, x_bytes: int) -> dict:
 def phase_int8_vs_plain() -> list[dict]:
     """9b: ``int8_core`` and ``int8_matmul`` against their plain versions,
     bit for bit, at the tool's shapes and a ragged one, bf16 x with an
-    all-zero row; timed with the plain versions, ``torch._int_mm`` (the
-    core kernel's yardstick, never on the port's path) and the bf16
-    ``torch.matmul`` incumbent."""
+    all-zero row; the kernels, ``torch._int_mm`` (the core kernel's
+    yardstick, never on the port's path) and the bf16 ``torch.matmul``
+    incumbent timed per launch of a chain (``spread_ms``), the plain
+    versions over single calls."""
     import torch
 
     from repurpose_tpu_torch.tools import bench_int8_matmul as bim
@@ -1882,18 +1989,20 @@ def phase_int8_vs_plain() -> list[dict]:
             diff = int((got != want).sum())
             check(diff == 0, f"{label} [{m}x{k}x{n}]: {diff} elements differ from the plain version")
         bounds = _int8_bounds(m, k, n, x.element_size())
+        chain = 20
         row = dict(
             shape=[m, k, n], max_abs_err=0.0,
-            fused=dict(ms=median_ms(lambda: bim.int8_matmul(x, wq, ws), reps=20, warmup=3),
+            fused=dict(**spread_ms(lambda: bim.int8_matmul(x, wq, ws), reps=5, chain=chain),
                        plain_ms=median_ms(lambda: bim.int8_matmul_reference(x, wq, ws),
                                           reps=3, warmup=1),
                        library_ms=None, **bounds["fused"]),
-            core=dict(ms=median_ms(lambda: bim.int8_core(xq, wq), reps=20, warmup=3),
+            core=dict(**spread_ms(lambda: bim.int8_core(xq, wq), reps=5, chain=chain),
                       plain_ms=median_ms(lambda: bim.int8_core_reference(xq, wq),
                                          reps=3, warmup=1),
-                      library_ms=median_ms(lambda: torch._int_mm(xq, wq), reps=20, warmup=3),
+                      library_ms=spread_ms(lambda: torch._int_mm(xq, wq), reps=5,
+                                           chain=chain)["ms"],
                       **bounds["core"]),
-            bf16_matmul_ms=median_ms(lambda: torch.matmul(x, w), reps=20, warmup=3))
+            bf16_matmul_ms=spread_ms(lambda: torch.matmul(x, w), reps=5, chain=chain)["ms"])
         print(f"[int8-kernel] {json.dumps(row)}")
         rows.append(row)
         del x, w, wq, ws, xq, fused, core, want_fused, want_core
@@ -1903,14 +2012,18 @@ def phase_int8_vs_plain() -> list[dict]:
 
 def phase_bench_tools(card: str) -> dict:
     """9c: each tool's ``main([])`` on the card, its lines printed and its
-    kernels' launches read."""
+    kernels' launches read (every ``mha_nt`` launch of the attention tool,
+    bf16 at Dh 64, the tensor-core kernel); then the attention tool's
+    ``mha_nt`` on float32 inputs of its shape, the path that still takes the
+    first design."""
     import contextlib
     import io
 
     from repurpose_tpu_torch.tools import bench_attention_fwd, bench_int8_matmul
 
     launches = {}
-    for tool, kernels, n_lines in ((bench_attention_fwd, ("flash_fwd_nt", "flash_fwd"), 8),
+    for tool, kernels, n_lines in ((bench_attention_fwd,
+                                    ("flash_fwd_nt", "flash_fwd_nt_tc", "flash_fwd"), 8),
                                    (bench_int8_matmul, ("int8_matmul", "int8_core"),
                                     1 + 2 * len(bench_int8_matmul.SHAPES))):
         name = tool.__name__.rsplit(".", 1)[-1]
@@ -1930,6 +2043,27 @@ def phase_bench_tools(card: str) -> dict:
             print(f"[bench-tools] {name}: {line}")
         print(f"[bench-tools] {name}: main([]) {wall_s:.1f} s, launches "
               f"{json.dumps(launches[name])}")
+    nt = launches["bench_attention_fwd"]
+    check(nt["flash_fwd_nt_tc"] == nt["flash_fwd_nt"],
+          f"bench_attention_fwd: an mha_nt launch took the first design: {nt}")
+
+    import torch
+
+    baf = bench_attention_fwd
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    q, k, v = (torch.randn((baf.B, baf.T, baf.H * baf.DH), generator=gen, device="cuda")
+               for _ in range(3))
+    kv = torch.ones((baf.B, baf.T), dtype=torch.bool, device="cuda")
+    kv[:, baf.KEYS_VALID:] = False
+    reset_launches()
+    out = baf.mha_nt(q, k, v, kv, heads=baf.H)
+    torch.cuda.synchronize()
+    launches["mha_nt_float32"] = read_launches("flash_fwd_nt", "flash_fwd_nt_tc")
+    check(out.shape == q.shape and bool(torch.isfinite(out).all())
+          and launches["mha_nt_float32"] == {"flash_fwd_nt": 1, "flash_fwd_nt_tc": 0},
+          f"mha_nt float32 at the tool's shape: launches {launches['mha_nt_float32']}")
+    print(f"[bench-tools] mha_nt float32 at the tool's shape: launches "
+          f"{json.dumps(launches['mha_nt_float32'])} (the first design), finite out")
     return launches
 
 
@@ -1965,7 +2099,7 @@ def main() -> int:
         long_trained = phase_long_training(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    phase_long_gradients(card)
+    long_grads = phase_long_gradients(card)
     nt_variants = phase_nt_vs_plain()
     int8_variants = phase_int8_vs_plain()
     bench = phase_bench_tools(card)
@@ -2003,23 +2137,40 @@ def main() -> int:
             variants=[dict(name=v["name"], **v[key], library_ms=v["library_ms"])
                       for v in bwd_variants],
         ))
-    long_head = next(r for r in long_variants if r["name"] == "unpacked_T32768")
+    fa_line = "repurpose_tpu/ops/flash_attention.py:"
+
+    def timed(row):  # a row's kernel times and yardsticks, for a kernels entry
+        return {x: row[x] for x in ("max_abs_err", "ms", "min_ms", "max_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}
+
+    # the streaming forward: the tensor-core kernel (bf16 at Dh 64, every
+    # long-video path) and the first design (float32 and the other Dh)
+    tc_rows = [r for r in long_variants if r["kernel"] == "flash_fwd_stream_tc"]
+    first_rows = [r for r in long_variants if r["kernel"] == "flash_fwd_stream"]
+    long_head = next(r for r in tc_rows if r["name"] == "unpacked_T32768")
+    kernels.append(dict(
+        name="flash_fwd_stream_tc", route="cuda", source=source + "flash_fwd_stream.cu",
+        also_source=source + "flash_fwd_tc.cuh", replaces=f"{fa_line}592",
+        also_replaces=[f"{fa_line}512", f"{fa_line}657"],
+        launches=long_served["launches"]["flash_fwd_stream_tc"],
+        launches_by_path=dict(
+            long_video_serving=long_served["launches"]["flash_fwd_stream_tc"],
+            long_video_cli={k: v["flash_fwd_stream_tc"] for k, v in long_cli.items()},
+            long_video_training=long_train["flash_fwd_stream_tc"],
+            long_video_gradients_bf16=long_grads["bfloat16"]["flash_fwd_stream_tc"]),
+        **timed(long_head), variant=long_head["name"], variants=tc_rows,
+    ))
+    first_head = first_rows[0]
     kernels.append(dict(
         name="flash_fwd_stream", route="cuda", source=source + "flash_fwd_stream.cu",
-        replaces="repurpose_tpu/ops/flash_attention.py:592",
-        also_replaces=["repurpose_tpu/ops/flash_attention.py:512",
-                       "repurpose_tpu/ops/flash_attention.py:657"],
-        launches=long_served["launches"]["flash_fwd_stream"],
-        launches_by_path=dict(long_video_serving=long_served["launches"],
-                              long_video_cli=long_cli,
-                              long_video_training=long_train["flash_fwd_stream"]),
-        max_abs_err=long_head["max_abs_err"], ms=long_head["ms"],
-        plain_ms=long_head["plain_ms"], bound_ms=long_head["bound_ms"],
-        bound_by=long_head["bound_by"], library_ms=long_head["library_ms"],
-        variant=long_head["name"], variants=long_variants,
+        replaces=f"{fa_line}592", also_replaces=[f"{fa_line}512", f"{fa_line}657"],
+        design="first: float32, and bf16 at Dh 16, 32 and 128",
+        launches=long_grads["float32"]["flash_fwd_stream"],
+        launches_by_path=dict(
+            long_video_gradients_float32=long_grads["float32"]["flash_fwd_stream"]),
+        **timed(first_head), variant=first_head["name"], variants=first_rows,
     ))
     long_bwd_head = next(r for r in long_bwd_variants if r["name"] == "unpacked_T32768")
-    fa_line = "repurpose_tpu/ops/flash_attention.py:"
     for name, key, replaces, also in (
         ("flash_bwd_dq_stream", "dq", 859, [914, 992]),
         ("flash_bwd_dkv_stream", "dkv", 1200, []),
@@ -2050,15 +2201,28 @@ def main() -> int:
         variants=[dict(name=v["name"], **v["prep"]) for v in long_bwd_variants
                   if "prep" in v],
     ))
-    nt_head = next(r for r in nt_variants if r["name"] == "tool_bf16_hpb2")
+    # the no-transpose forward: the tensor-core kernel (bf16 at Dh 64, the
+    # tool's shape) and the first design (float32 and the other Dh)
+    nt_tc_rows = [r for r in nt_variants if r["kernel"] == "flash_fwd_nt_tc"]
+    nt_first_rows = [r for r in nt_variants if r["kernel"] == "flash_fwd_nt"]
+    nt_head = next(r for r in nt_tc_rows if r["name"] == "tool_bf16_hpb2")
+    kernels.append(dict(
+        name="flash_fwd_nt_tc", route="cuda", source=source + "flash_fwd_nt.cu",
+        also_source=source + "flash_fwd_tc.cuh", replaces="tools/bench_attention_fwd.py:73",
+        launches=bench["bench_attention_fwd"]["flash_fwd_nt_tc"],
+        launches_by_path=dict(bench_attention_fwd=bench["bench_attention_fwd"]["flash_fwd_nt_tc"]),
+        **timed(nt_head), flash_forward_ms=nt_head["flash_forward_ms"], variant=nt_head["name"],
+        variants=nt_tc_rows,
+    ))
+    nt_first = nt_first_rows[0]
     kernels.append(dict(
         name="flash_fwd_nt", route="cuda", source=source + "flash_fwd_nt.cu",
         replaces="tools/bench_attention_fwd.py:73",
-        launches=bench["bench_attention_fwd"]["flash_fwd_nt"],
-        launches_by_path=dict(bench_attention_fwd=bench["bench_attention_fwd"]["flash_fwd_nt"]),
-        max_abs_err=nt_head["max_abs_err"], ms=nt_head["ms"], plain_ms=nt_head["plain_ms"],
-        bound_ms=nt_head["bound_ms"], bound_by=nt_head["bound_by"],
-        library_ms=nt_head["library_ms"], variant=nt_head["name"], variants=nt_variants,
+        design="first: float32, and bf16 at Dh 16, 32 and 128",
+        launches=bench["mha_nt_float32"]["flash_fwd_nt"],
+        launches_by_path=dict(
+            bench_attention_fwd_float32=bench["mha_nt_float32"]["flash_fwd_nt"]),
+        **timed(nt_first), variant=nt_first["name"], variants=nt_first_rows,
     ))
     int8_head = next(r for r in int8_variants if r["shape"] == [16384, 512, 512])
     for name, key, line in (("int8_matmul", "fused", 67), ("int8_core", "core", 102)):

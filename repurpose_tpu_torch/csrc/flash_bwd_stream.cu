@@ -126,7 +126,6 @@
 // 2**31 (lse at b*H*T, the batch strides, b*T*H*Dh) is 64-bit. Dh is 16, 32,
 // 64 or 128; T is any length >= 1 (the ragged edge is masked).
 
-#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -134,6 +133,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -740,164 +741,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_stream_kernel(Args a) {
 
 // ---- the tensor-core path: bf16 at Dh 64 ------------------------------------------
 
-// Hopper primitives: shared-memory addresses, mbarriers, TMA and bulk copies,
-// wgmma m64n64k16 (bf16 in, float32 accumulators in registers).
+// Hopper primitives (mbarriers, TMA, wgmma, tensor maps): hopper.cuh.
+using namespace hopper;
 
-#define WG_D32(d)                                                                            \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),             \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),          \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-#define WG_D32_LIST                                                                          \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
-  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// Spins until the phase of parity `parity` of `bar` has completed. The loop
-// lives inside one asm statement, so the compiler sees no divergent branch
-// before the wgmma that follow (it would serialise them); it traps (the
-// launch then fails) after 2**28 polls instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "add.u32 n, n, 1;\n"
-      "setp.gt.u32 p, n, 268435456;\n"
-      "@p trap;\n"
-      "bra WAIT;\n"
-      "DONE:\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// 64 rows t0.. of head h, batch row b, of a [B, T, H, 64] view into a
-// 128-byte-swizzled [64, 64] tile; completes on `bar`.
-__device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                              int h, int t0, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(0), "r"(h), "r"(t0), "r"(b)
-      : "memory");
-}
-
-// `bytes` contiguous bytes (16-byte aligned, a multiple of 16); completes on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Pins registers an asynchronous wgmma reads or writes at this point.
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(a[i / 4][i % 4])::"memory");
-}
-
-// Descriptor of a 128-byte-swizzled bf16 tile with 128-byte rows (as TMA
-// writes it), 8-row groups 1024 bytes apart. K-major use (Dh the reduction
-// axis): lbo is unused, a k16 slice starts 32 bytes further. MN-major use
-// (rows the reduction axis, the transposed B operand): groups of 8 reduction
-// rows are `sbo` = 1024 apart, a k16 slice starts 2048 bytes further, and
-// the 64 columns are one swizzle span (lbo unused). Checked on the card.
-constexpr unsigned SW_GROUP = 1024;
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile, unsigned lbo, unsigned sbo) {
-  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(1) << 62;
-}
-constexpr uint64_t K_STEP = 32 >> 4;    // descriptor step of a k16 slice, K-major
-constexpr uint64_t MN_STEP = 2048 >> 4;  // and MN-major
-
-// d += A . B^T over one k16 slice, A [64, 16] and B [64, 16] K-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32_LIST
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_D32(d)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d += A . B over one k16 slice, A [64, 16] bf16 in registers (the m16n8k16
-// A layout per warp) and B [16, 64] MN-major in shared memory.
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32_LIST
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// Two floats as a bf16 pair (lo in the low half): rounded to nearest even,
-// or, with EXACT (both already hold bf16 values), their upper halves by one
-// byte permute.
-template <bool EXACT>
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  if constexpr (EXACT) {
-    return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-  } else {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-}
-
-// Accumulator layout of m64nN: thread (warp w, lane l) holds rows
-// r = 16w + l/4 and r + 8, columns c = 8n + 2(l%4) and c + 1 of block n:
-// d[4n + 0, 1] = (r, c / c + 1), d[4n + 2, 3] = (r + 8, c / c + 1). The A
-// operand of a k16 slice kk holds the blocks 2kk and 2kk + 1 the same way,
-// so a 64 x 64 accumulator becomes four bf16 slices in place.
-template <bool EXACT>
-__device__ __forceinline__ void acc_to_a(const float (&d)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_bf16<EXACT>(d[8 * kk + 0], d[8 * kk + 1]);
-    a[kk][1] = pack_bf16<EXACT>(d[8 * kk + 2], d[8 * kk + 3]);
-    a[kk][2] = pack_bf16<EXACT>(d[8 * kk + 4], d[8 * kk + 5]);
-    a[kk][3] = pack_bf16<EXACT>(d[8 * kk + 6], d[8 * kk + 7]);
-  }
-}
-
-constexpr int TC_DH = 64;                      // head width of the tensor-core path
 constexpr int TC_STAGES = 3;                   // ring depth
 constexpr int TC_CONSUMERS = 128;              // one warpgroup
 constexpr int TC_THREADS = TC_CONSUMERS + 32;  // and one producer warp
@@ -1301,46 +1147,6 @@ __global__ void __launch_bounds__(PREP_THREADS) flash_bwd_stream_prep_kernel(Pre
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time (nothing links against libcuda)
-// with cudaGetDriverEntryPointByVersion, which CUDA 12.5 introduced.
-#if CUDART_VERSION < 12050
-#error "flash_bwd_stream.cu needs the CUDA 12.5 toolkit or newer"
-#endif
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A tensor map over a [B, T, H, 64] bf16 view (element strides of batch,
-// token and head; contiguous head dim): boxes of 64 rows of one head, with
-// the 128-byte swizzle the wgmma descriptors expect; rows past T read as 0.
-int encode_rows(CUtensorMap* map, const void* base, int B, int T_len, int H, const Strides& s) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  cuuint64_t dims[4] = {TC_DH, (cuuint64_t)H, (cuuint64_t)T_len, (cuuint64_t)B};
-  cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.t * 2, (cuuint64_t)s.b * 2};
-  cuuint32_t box[4] = {TC_DH, 1, BQ, 1};
-  cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 int run_prep(const void* q, const void* g, const void* o, const long long* strides,
              const void* lse, const void* key_valid, const void* seg_ids, void* qs, void* rows,
              void* info, int B, int T_len, int H, int Dh, float scale, cudaStream_t stream) {
@@ -1384,7 +1190,7 @@ int run_tc(bool dq, const void* qs, const void* k, const void* v, const void* g,
     const Strides s = i == 0 ? qs_strides
                              : Strides{strides[3 * (i - 1)], strides[3 * (i - 1) + 1],
                                        strides[3 * (i - 1) + 2]};
-    const int err = encode_rows(maps[i], bases[i], B, T_len, H, s);
+    const int err = encode_rows(maps[i], bases[i], B, T_len, H, s.b, s.t, s.h);
     if (err != 0) return err;
   }
   a.rows = static_cast<const float2*>(rows);

@@ -2,39 +2,52 @@
 // layout, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_fwd_kernel_nt` of tools/bench_attention_fwd.py
-// (line 73, `mha_pallas_nt`). It is an experiment beside csrc/flash_fwd.cu,
-// not a variant of it: one block computes G = heads_per_block heads of a
-// 64-row query tile, so each K/V tile ([keys, G * Dh], contiguous columns of
-// the flat rows) is read once for all G heads, and nothing is transposed.
+// (line 73, `mha_pallas_nt`; pallas_call line 119). It is an experiment
+// beside csrc/flash_fwd.cu, not a variant of it: one block computes G =
+// heads_per_block heads of a 64-row query tile, so each K/V tile is read
+// once for all G heads, and nothing is transposed. Two kernels, by dtype and
+// head width: bf16 at Dh 64 (the tool's shape) takes `flash_fwd_nt_tc_kernel`,
+// the tensor-core design of flash_fwd_tc.cuh; float32 (float32 parity) and
+// bf16 at Dh 16, 32 and 128 keep the first design, `flash_fwd_nt_kernel`,
+// which has no bf16 Dh 64 instance.
 //
-// What it computes, per batch row b, head h and EVERY query row i < T:
+// What both compute, per batch row b, head h and EVERY query row i < T:
 //   q_s   = round_to_input_dtype(float(q) * scale)          scale = 1/sqrt(Dh)
 //   s_j   = dot(q_s, k_j) in float32 + (key_valid[j] ? 0 : -1e9)   (added)
 //   e_j   = exp(s_j - max_j s_j) in float32
 //   out_i = (sum_j round_to_v_dtype(e_j) v_j) / (sum_j e_j)   float32 sums
 // No LSE, no prefix skip: rows past the last valid key are computed, and a
 // row whose keys are all masked averages v over every key (its scores all
-// round to -1e9 in float32). This kernel runs the online softmax over key
-// tiles: it rounds e_j against the running max where the plain version
+// round to -1e9 in float32). Both kernels run the online softmax over key
+// tiles: they round e_j against the running max where the plain version
 // uses the final max (bf16 outputs agree to ~1e-2 of max |out|, float32 to
 // ~1e-6). Keys past kvl (last valid key + 1) add exactly 0 once a valid key
-// has been seen, so the sweep stops at kvl; with no valid key it covers all T.
+// has been seen, so the sweep stops at kvl; with no valid key it covers all
+// T. Every block finds kvl itself (one pass over its row's key_valid).
 //
 // What bounds it. At the tool's shape ([8, 2048, 8 * 64] bf16, 1800 valid
 // keys) the two products are 4 * B * H * T * 1800 * Dh = 60.4 GFLOP, ~61 us
 // at 989 TFLOP/s, against ~67 MB of q/k/v/out (~20 us at 3.35 TB/s): bound
 // by operations.
 //
-// What the design does about it, and what it leaves. Four warps of 16 query
-// rows; per 64-key tile (32 in float32, for shared memory) K and V of the
-// whole head group land in shared memory once, then for each head in turn
-// the warp takes Q_s K^T, its online-softmax step and P V, with a running
-// max / denominator per (row, head) and a float32 accumulator per (row,
-// head) in shared memory. bf16 products run on the tensor cores through
-// `nvcuda::wmma` (16x16x16, float32 accumulate) as in flash_fwd.cu; float32
-// takes scalar FMAs. The head group costs shared memory: G * Dh <= 256, so
-// one block per SM at G * Dh = 256 (~196 KB bf16, ~217 KB float32). Not
-// done: wgmma, TMA, a K/V ring.
+// The tensor-core design (bf16, Dh 64): flash_fwd_tc.cuh's mainloop with
+// the float32 interior and no LSE. A block is G consumer warpgroups, one
+// per head, over one ring of [64 keys, 64] K and V tiles per head that a
+// producer warp fills by TMA from the flat rows viewed as [B, T, H, 64]
+// (3 stages, 2 at G = 4). What G costs is occupancy: G = 1 runs three blocks
+// (12 consumer warps) an SM, G = 2 and 4 one block each (shared memory),
+// G = 4 at <= 96 registers (a few spills). The tool's hpb 2 runs at about
+// SDPA's time (PERF.md).
+//
+// The first design: four warps of 16 query rows; per 64-key tile (32 in
+// float32, for shared memory) K and V of the whole head group land in
+// shared memory once, then for each head in turn the warp takes Q_s K^T,
+// its online-softmax step and P V, with a running max / denominator per
+// (row, head) and a float32 accumulator per (row, head) in shared memory.
+// bf16 products run on the tensor cores through `nvcuda::wmma` (16x16x16,
+// float32 accumulate) as in flash_fwd.cu; float32 takes scalar FMAs. The
+// head group costs shared memory: G * Dh <= 256, so one block per SM at
+// G * Dh = 256 (~217 KB float32).
 //
 // Layout: q/k/v [B, T, D] read through (batch, token) strides with a
 // contiguous feature axis and rows on 16-byte boundaries; out [B, T, D]
@@ -47,6 +60,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "flash_fwd_tc.cuh"
 
 namespace {
 
@@ -352,8 +367,9 @@ int dispatch_dh(int Dh, int G, const void* q, const void* k, const void* v, Stri
       return dispatch_g<T, 16>(G, q, k, v, st, key_valid, out, B, T_len, H, scale, stream);
     case 32:
       return dispatch_g<T, 32>(G, q, k, v, st, key_valid, out, B, T_len, H, scale, stream);
-    case 64:
-      return dispatch_g<T, 64>(G, q, k, v, st, key_valid, out, B, T_len, H, scale, stream);
+    case 64:  // bf16 at Dh 64 takes flash_fwd_nt_tc_kernel
+      if constexpr (std::is_same<T, bf16>::value) return (int)cudaErrorInvalidValue;
+      else return dispatch_g<T, 64>(G, q, k, v, st, key_valid, out, B, T_len, H, scale, stream);
     case 128:
       return dispatch_g<T, 128>(G, q, k, v, st, key_valid, out, B, T_len, H, scale, stream);
     default:
@@ -361,12 +377,21 @@ int dispatch_dh(int Dh, int G, const void* q, const void* k, const void* v, Stri
   }
 }
 
+// The tensor-core design (bf16, Dh 64): flash_fwd_tc.cuh, one consumer
+// warpgroup per head of the block.
+template <int G>
+__global__ void __launch_bounds__(fwd_tc::Cfg<G>::THREADS, fwd_tc::Cfg<G>::MIN_BLOCKS)
+    flash_fwd_nt_tc_kernel(const __grid_constant__ fwd_tc::Params p) {
+  fwd_tc::run_block<G, false, false, true>(p);
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes (repurpose_tpu_torch/native.py). Strides
 // are in elements; heads_per_block (G) must divide H; is_bf16 selects bf16
 // (1) or float32 (0) q/k/v/out. Returns cudaGetLastError() after the launch
-// (0 on success).
+// (0 on success); bf16 at Dh 64 is refused (cudaErrorInvalidValue): it takes
+// flash_fwd_nt_tc below.
 extern "C" int flash_fwd_nt(const void* q, const void* k, const void* v, long long qb,
                             long long qt, long long kb, long long kt, long long vb,
                             long long vt, const void* key_valid, void* out, int B, int T_len,
@@ -381,4 +406,36 @@ extern "C" int flash_fwd_nt(const void* q, const void* k, const void* v, long lo
                              scale, s);
   return dispatch_dh<float>(Dh, heads_per_block, q, k, v, st, key_valid, out, B, T_len, H,
                             scale, s);
+}
+
+// The tensor-core entry point (bf16, Dh 64), arguments as above. Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a view no tensor map can describe.
+extern "C" int flash_fwd_nt_tc(const void* q, const void* k, const void* v, long long qb,
+                               long long qt, long long kb, long long kt, long long vb,
+                               long long vt, const void* key_valid, void* out, int B, int T_len,
+                               int H, int heads_per_block, float scale, void* stream) {
+  if (B <= 0 || T_len <= 0 || H <= 0) return 0;
+  if (heads_per_block <= 0 || H % heads_per_block) return (int)cudaErrorInvalidValue;
+  // the flat [B, T, H * 64] rows as [B, T, H, 64] views
+  const long long strides[9] = {qb, qt, fwd_tc::DH, kb, kt, fwd_tc::DH, vb, vt, fwd_tc::DH};
+  fwd_tc::Params p;
+  const int err = fwd_tc::encode_qkv(p, q, k, v, strides, B, T_len, H);
+  if (err != 0) return err;
+  p.key_valid = static_cast<const uint8_t*>(key_valid);
+  p.seg_ids = nullptr;
+  p.kvl = nullptr;
+  p.tile_lo = p.tile_hi = nullptr;
+  p.out = static_cast<bf16*>(out);
+  p.lse = nullptr;
+  p.T = T_len;
+  p.H = H;
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (heads_per_block) {
+    case 1: return fwd_tc::launch<1>(&flash_fwd_nt_tc_kernel<1>, p, B, s);
+    case 2: return fwd_tc::launch<2>(&flash_fwd_nt_tc_kernel<2>, p, B, s);
+    case 4: return fwd_tc::launch<4>(&flash_fwd_nt_tc_kernel<4>, p, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -3,8 +3,9 @@
 Each source is compiled on first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, loaded with ``ctypes``: no PyTorch
 headers, so a build takes seconds. Libraries land in ``build/`` beside this
-file (git-ignored), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused. ``build_all`` starts one
+file (git-ignored), named by a hash of the source, the ``csrc/*.cuh`` headers
+it includes (directly or through another header) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. ``build_all`` starts one
 ``nvcc`` per source, all at once, and waits for them.
 
 Nothing here runs at import: the CPU tests import every module on a machine
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -50,6 +52,7 @@ SIGNATURES = {
              _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
             _I,
         ),
+        "flash_fwd_stream_tc": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _P], _I),
     },
     "flash_bwd": {
         "flash_bwd_dq": (
@@ -82,6 +85,11 @@ SIGNATURES = {
              _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
             _I,
         ),
+        "flash_fwd_nt_tc": (
+            [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P,
+             _I, _I, _I, _I, ctypes.c_float, _P],
+            _I,
+        ),
     },
     "int8_matmul": {
         "int8_core": ([_P, _P, _P, _I, _I, _I, _P], _I),
@@ -100,10 +108,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes with
+    ``#include "..."``, directly or through another header, in the order
+    first met."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD / f"{name}-{key}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:

@@ -51,7 +51,8 @@ the three long-T TPU forwards (``_flash_fwd_stream_kernel``,
 kernel replaces: ``csrc/flash_fwd_stream.cu``. It runs the TPU stream
 kernels' online-softmax recurrence over 64-key tiles and, packed, sweeps
 only the key tiles ``[lo, hi)`` of each query tile's own videos
-(``packed_block_bounds``).
+(``packed_block_bounds``); in bf16 at Dh 64 (``stream_tc``) that is a wgmma
+kernel fed by TMA, ``flash_fwd_stream_tc``.
 
 On a CPU tensor each wrapper computes its plain version. On a CUDA tensor it
 launches the kernel or raises: there is no fallback.
@@ -376,23 +377,61 @@ def flash_forward_stream_reference(
     return out, lse
 
 
+def stream_tc(q: torch.Tensor) -> bool:
+    """Whether the streaming kernels on CUDA tensors take their tensor-core
+    design: bf16 at Dh 64, the model's shape, under either softmax interior
+    (``flash_fwd_stream_tc``; the backward's after ``flash_bwd_stream_prep``).
+    float32 (which would lose its parity on TF32 tensor cores) and bf16 at
+    Dh 16, 32 and 128 keep the first kernels of csrc/flash_fwd_stream.cu and
+    csrc/flash_bwd_stream.cu."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] == 64
+
+
+def flash_fwd_stream_tc(q, k, v, key_valid, seg_ids, kvl, lo, hi, out, lse,
+                        softmax_dtype: str, scale: float) -> None:
+    """Launches the tensor-core streaming forward (``flash_fwd_stream_tc_kernel``
+    of csrc/flash_fwd_stream.cu, bf16 at Dh 64) on the checked inputs of
+    ``flash_forward_stream`` and its sweep (``kvl`` [B], packed ``lo`` / ``hi``)
+    into ``out`` / ``lse``; counted in ``flash_fwd_stream_tc.launches`` (the
+    caller counts it in ``flash_forward_stream.launches`` too)."""
+    import ctypes
+
+    from repurpose_tpu_torch import native
+
+    b, t, h, dh = q.shape
+    strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v) for i in range(3)))
+    err = native.load("flash_fwd_stream").flash_fwd_stream_tc(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, key_valid.data_ptr(), _ptr(seg_ids),
+        kvl.data_ptr(), _ptr(lo), _ptr(hi), out.data_ptr(), lse.data_ptr(), b, t, h,
+        int(softmax_dtype == "bfloat16"), scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_stream_tc kernel launch failed: CUDA error {err}")
+    flash_fwd_stream_tc.launches += 1
+
+
+flash_fwd_stream_tc.launches = 0  # kernel launches; the plain CPU path does not count
+
+
 def flash_forward_stream(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
     seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32", *,
     scale: float | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The streaming forward, same contract as ``flash_forward``: the kernel
+    """The streaming forward, same contract as ``flash_forward``: a kernel
     of csrc/flash_fwd_stream.cu on CUDA tensors (counted in
-    ``flash_forward_stream.launches``), ``flash_forward_stream_reference`` on
-    CPU ones. The wrapper computes kvl and, packed, the tile bounds once
-    (the TPU kernels' scalar-prefetch operands) and hands them to the kernel."""
+    ``flash_forward_stream.launches``), the tensor-core one
+    (``flash_fwd_stream_tc``) where ``stream_tc(q)``;
+    ``flash_forward_stream_reference`` on CPU ones. The wrapper computes kvl
+    and, packed, the tile bounds once (the TPU kernels' scalar-prefetch
+    operands) and hands them to the kernel."""
     if not _on_cuda(q, softmax_dtype, "flash_forward_stream"):
         return flash_forward_stream_reference(q, k, v, key_valid, seg_ids, softmax_dtype,
                                               scale=scale)
     _check_cuda_inputs(q, k, v, key_valid, seg_ids)
     from repurpose_tpu_torch import native
 
-    lib = native.load("flash_fwd_stream")
     b, t, h, dh = q.shape
     key_valid = key_valid.contiguous()
     kvl = _kv_len(key_valid)[:, 0].contiguous()
@@ -403,20 +442,22 @@ def flash_forward_stream(
                                                                STREAM_TILE))
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t, 1), dtype=torch.float32, device=q.device)
-    err = lib.flash_fwd_stream(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        key_valid.data_ptr(), None if seg_ids is None else seg_ids.data_ptr(),
-        kvl.data_ptr(), None if lo is None else lo.data_ptr(),
-        None if hi is None else hi.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, t, h, dh, int(q.dtype == torch.bfloat16),
-        int(softmax_dtype == "bfloat16"), _scale(q, scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd_stream kernel launch failed: CUDA error {err}")
+    if stream_tc(q):
+        flash_fwd_stream_tc(q, k, v, key_valid, seg_ids, kvl, lo, hi, out, lse, softmax_dtype,
+                            _scale(q, scale))
+    else:
+        err = native.load("flash_fwd_stream").flash_fwd_stream(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            key_valid.data_ptr(), _ptr(seg_ids), kvl.data_ptr(), _ptr(lo), _ptr(hi),
+            out.data_ptr(), lse.data_ptr(), b, t, h, dh, int(q.dtype == torch.bfloat16),
+            int(softmax_dtype == "bfloat16"), _scale(q, scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"flash_fwd_stream kernel launch failed: CUDA error {err}")
     flash_forward_stream.launches += 1
     return out, lse
 
@@ -707,14 +748,6 @@ def flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
             dk[bi, j0:j0 + rows] = acc_k[:, :rows].permute(1, 0, 2).to(k.dtype)
             dv[bi, j0:j0 + rows] = acc_v[:, :rows].permute(1, 0, 2).to(v.dtype)
     return dk, dv
-
-
-def stream_tc(q: torch.Tensor) -> bool:
-    """Whether the streaming backward takes its tensor-core kernels (after
-    ``flash_bwd_stream_prep``): bf16 at Dh 64, the model's shape. float32
-    (which would lose its parity on TF32 tensor cores) and bf16 at Dh 16, 32
-    and 128 keep the first kernels of csrc/flash_bwd_stream.cu."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] == 64
 
 
 class StreamPrep(NamedTuple):

@@ -8,8 +8,10 @@ It sets the port's flash forward (``flash_forward``, csrc/flash_fwd.cu,
 ``[B, T, D]`` layout, ``mha_nt`` (csrc/flash_fwd_nt.cu, replacing the TPU
 kernel ``_fwd_kernel_nt``): one block computes ``heads_per_block`` heads of a
 64-row query tile, so each K/V tile is read once for all of them and nothing
-is transposed. Printed, in the TPU tool's order, each time the median of
-three runs of ``N_CHAIN`` back-to-back calls:
+is transposed. In bf16 at Dh 64 (the tool's shape) that is the wgmma kernel
+fed by TMA, ``flash_fwd_nt_tc``, one warpgroup per head of the block.
+Printed, in the TPU tool's order, each time the median of three runs of
+``N_CHAIN`` back-to-back calls:
 
 - the card (name, power limit);
 - ``nt-vs-current``: max |mha_nt - flash_forward| on query rows before the
@@ -95,11 +97,42 @@ def _check_inputs(q, k, v, key_valid, heads: int, heads_per_block: int) -> None:
         raise ValueError("key_valid is on another device than q")
 
 
+def nt_tc(q: torch.Tensor, heads: int) -> bool:
+    """Whether ``mha_nt`` on CUDA tensors takes the tensor-core kernel
+    (``flash_fwd_nt_tc``): bf16 at Dh 64. float32 (float32 parity) and the
+    other head widths keep the first kernel of csrc/flash_fwd_nt.cu."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] // heads == 64
+
+
+def flash_fwd_nt_tc(q, k, v, key_valid, out, heads: int, heads_per_block: int) -> None:
+    """Launches ``flash_fwd_nt_tc_kernel`` of csrc/flash_fwd_nt.cu (bf16 at
+    Dh 64) on the checked inputs of ``mha_nt`` into ``out``; counted in
+    ``flash_fwd_nt_tc.launches`` (the caller counts it in ``mha_nt.launches``
+    too)."""
+    from repurpose_tpu_torch import native
+
+    b, t, d = q.shape
+    err = native.load("flash_fwd_nt").flash_fwd_nt_tc(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        key_valid.data_ptr(), out.data_ptr(), b, t, heads, heads_per_block,
+        1.0 / ((d // heads) ** 0.5),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_nt_tc kernel launch failed: CUDA error {err}")
+    flash_fwd_nt_tc.launches += 1
+
+
+flash_fwd_nt_tc.launches = 0  # kernel launches; the plain CPU path does not count
+
+
 def mha_nt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
            heads: int, heads_per_block: int = 2) -> torch.Tensor:
     """The no-transpose attention forward: q/k/v ``[B, T, D]`` (D = heads *
-    Dh) -> ``[B, T, D]`` in q's dtype, any T. The kernel of
+    Dh) -> ``[B, T, D]`` in q's dtype, any T. A kernel of
     csrc/flash_fwd_nt.cu on CUDA tensors (counted in ``mha_nt.launches``),
+    the tensor-core one (``flash_fwd_nt_tc``) where ``nt_tc``;
     ``mha_nt_reference`` on CPU ones. ``heads_per_block`` is the TPU tool's
     ``d_block // dh``: how many heads one block computes; a value the
     kernel does not instantiate raises, on either device. On the card q/k/v
@@ -126,15 +159,18 @@ def mha_nt(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.T
     out = torch.empty((b, t, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    err = native.load("flash_fwd_nt").flash_fwd_nt(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        key_valid.data_ptr(), out.data_ptr(), b, t, heads, dh, heads_per_block,
-        int(q.dtype == torch.bfloat16), 1.0 / (dh ** 0.5),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd_nt kernel launch failed: CUDA error {err}")
+    if nt_tc(q, heads):
+        flash_fwd_nt_tc(q, k, v, key_valid, out, heads, heads_per_block)
+    else:
+        err = native.load("flash_fwd_nt").flash_fwd_nt(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            key_valid.data_ptr(), out.data_ptr(), b, t, heads, dh, heads_per_block,
+            int(q.dtype == torch.bfloat16), 1.0 / (dh ** 0.5),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"flash_fwd_nt kernel launch failed: CUDA error {err}")
     mha_nt.launches += 1
     return out
 

@@ -152,3 +152,38 @@ def test_wrappers_raise_on_unsupported_inputs(cuda):
         bim.int8_core(x, wq)  # not int8
     with pytest.raises(ValueError):
         bim.int8_core(bim.quantize_rows(x)[0], wq[:32])  # inner sizes differ
+
+
+@pytest.mark.parametrize("t", [1000, 2048])
+@pytest.mark.parametrize("hpb", baf.NT_HEADS_PER_BLOCK)
+def test_tensor_core_nt_kernel_matches_plain(cuda, t, hpb):
+    """bf16 at Dh 64 takes ``flash_fwd_nt_tc`` (one launch per call), at the
+    tool's shape (T = 2048, keys >= 1800 masked) and a ragged T = 1000 with a
+    row of no valid key; two launches give the same bits."""
+    q, k, v, kv = _nt_inputs(50 + t + hpb, 4, t, 8, 64, torch.bfloat16, cuda)
+    if t == 2048:
+        kv[0, baf.KEYS_VALID:] = False
+    before = baf.flash_fwd_nt_tc.launches
+    _check_nt(q, k, v, kv, 8, hpb)
+    again = baf.mha_nt(q, k, v, kv, heads=8, heads_per_block=hpb)
+    first = baf.mha_nt(q, k, v, kv, heads=8, heads_per_block=hpb)
+    torch.cuda.synchronize()
+    assert baf.flash_fwd_nt_tc.launches == before + 3
+    assert torch.equal(again, first)
+
+
+def test_tensor_core_nt_kernel_reads_strided_views_in_place(cuda):
+    """Column slices of one [B, T, 3 D] tensor against contiguous copies, bit
+    for bit, at each heads-per-block."""
+    b, t, h, dh = 4, 1000, 8, 64
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    qkv = torch.randn((b, t, 3 * h * dh), generator=gen, device=cuda).to(torch.bfloat16)
+    q, k, v = qkv.split(h * dh, dim=-1)
+    kv = torch.ones((b, t), dtype=torch.bool, device=cuda)
+    kv[1, 700:] = False
+    kv[2] = False
+    for hpb in baf.NT_HEADS_PER_BLOCK:
+        got = baf.mha_nt(q, k, v, kv, heads=h, heads_per_block=hpb)
+        want = baf.mha_nt(q.contiguous(), k.contiguous(), v.contiguous(), kv, heads=h,
+                          heads_per_block=hpb)
+        torch.testing.assert_close(got, want, atol=0.0, rtol=0.0)

@@ -200,3 +200,30 @@ def test_int8_tool_main_on_cpu(monkeypatch, capsys):
     for head, err in zip(lines[1::2], lines[2::2]):
         assert head.startswith("[") and "int8-core" in head and "int8-fused" in head
         assert float(err.rsplit(":", 1)[1]) < 0.05
+
+
+@pytest.mark.parametrize("dtype,dh,tc", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 32, False), (torch.bfloat16, 128, False),
+    (torch.float32, 64, False),
+])
+def test_the_tensor_core_nt_kernel_takes_bf16_at_dh_64(dtype, dh, tc):
+    """On CUDA tensors ``mha_nt`` launches the tensor-core kernel
+    (``flash_fwd_nt_tc``) for bf16 at Dh 64, at every heads-per-block;
+    float32 and the other head widths keep the first kernel."""
+    assert port_attn.nt_tc(torch.zeros(1, 4, 8 * dh, dtype=dtype), 8) is tc
+
+
+def test_mha_nt_on_cpu_tensors_at_the_tensor_core_shape_is_the_plain_version():
+    """bf16 at Dh 64 on CPU tensors: ``mha_nt`` is ``mha_nt_reference`` bit for
+    bit at each heads-per-block and counts no launch of either kernel."""
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (2, 130, 4 * 64)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    kv = torch.ones((2, 130), dtype=torch.bool)
+    kv[0, 100:] = False
+    kv[1] = False
+    before = (port_attn.mha_nt.launches, port_attn.flash_fwd_nt_tc.launches)
+    want = port_attn.mha_nt_reference(q, k, v, kv, 4)
+    for hpb in port_attn.NT_HEADS_PER_BLOCK:
+        assert torch.equal(port_attn.mha_nt(q, k, v, kv, heads=4, heads_per_block=hpb), want)
+    assert (port_attn.mha_nt.launches, port_attn.flash_fwd_nt_tc.launches) == before

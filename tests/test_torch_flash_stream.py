@@ -15,6 +15,8 @@ operations where PyTorch rounds each one: out within 2**-6 of max|out|, lse
 within 3e-3 (measured values are printed).
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -269,3 +271,49 @@ def test_packed_block_bounds_at_ragged_t(t):
     np.testing.assert_array_equal(lo[some], b_lo[some])
     np.testing.assert_array_equal(hi[some], b_hi[some])
     assert (lo[~some] == hi[~some]).all()
+
+
+@pytest.mark.parametrize("dtype,dh,tc", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 16, False), (torch.bfloat16, 32, False),
+    (torch.bfloat16, 128, False), (torch.float32, 64, False), (torch.float32, 32, False),
+])
+def test_the_tensor_core_stream_forward_takes_bf16_at_dh_64(dtype, dh, tc):
+    """On CUDA tensors ``flash_forward_stream`` launches the tensor-core
+    kernel (``flash_fwd_stream_tc``) for bf16 at Dh 64, under either softmax
+    interior, by the rule it shares with the streaming backward; float32 and
+    the other head widths keep the first kernel."""
+    assert port_fa.stream_tc(torch.zeros(1, 4, 2, dh, dtype=dtype)) is tc
+
+
+@pytest.mark.parametrize("softmax_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("packed", [False, True])
+def test_cpu_tensors_take_the_stream_plain_version_at_the_tensor_core_shape(packed,
+                                                                          softmax_dtype):
+    """bf16 at Dh 64 on CPU tensors: ``flash_forward_stream`` is
+    ``flash_forward_stream_reference`` bit for bit and counts no launch of
+    either kernel."""
+    t = 256
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _qkv(16, 3, t, 2, 64))
+    valid, seg = _layout(t, packed)
+    args = (q, k, v, torch.from_numpy(valid), None if seg is None else torch.from_numpy(seg),
+            softmax_dtype)
+    before = (flash_forward_stream.launches, port_fa.flash_fwd_stream_tc.launches)
+    got = flash_forward_stream(*args)
+    want = flash_forward_stream_reference(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (flash_forward_stream.launches, port_fa.flash_fwd_stream_tc.launches) == before
+
+
+def test_the_tensor_core_forward_steps_the_plain_versions_key_tile():
+    """The online-softmax step decides where m' is rounded, so the kernel's
+    key tile (``BK`` of csrc/flash_fwd_tc.cuh, one TMA box of ``ROWS`` rows)
+    must be the plain version's ``k_block`` default, ``STREAM_TILE``, which
+    the tests above hold against the Pallas kernels."""
+    import re
+
+    csrc = Path(port_fa.__file__).resolve().parent.parent / "csrc"
+    rows = re.search(r"constexpr int ROWS = (\d+);", (csrc / "hopper.cuh").read_text())
+    header = (csrc / "flash_fwd_tc.cuh").read_text()
+    assert re.search(r"constexpr int BK = ROWS;", header)
+    assert re.search(r"constexpr int BQ = ROWS;", header)
+    assert int(rows.group(1)) == port_fa.STREAM_TILE == 64

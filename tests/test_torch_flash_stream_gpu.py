@@ -160,3 +160,77 @@ def test_stream_wrapper_raises_on_unsupported_inputs(cuda):
     with pytest.raises(ValueError):
         wide = torch.zeros(4, 2100, 2, 48, dtype=torch.bfloat16, device=cuda)
         flash_forward_stream(wide, wide, wide, kv)
+
+
+def _tc_layout(t, layout):
+    """key_valid / seg_ids of the tensor-core tests.
+    - "edges": kvl = 0, kvl inside a tile (64 n + 37) and kvl = T;
+    - "two_rows": B = 2 with different kvl, the second with key holes;
+    - "packed": row 0 a one-step video, then videos starting mid-tile (at
+      1 and 100) head to tail; row 1 padding, a video from 77 (mid-tile), a
+      gap of padding, a second video and a one-step video at T - 10."""
+    if layout == "edges":
+        valid = np.zeros((3, t), bool)
+        valid[1, : 64 * (t // 128) + 37] = True
+        valid[2] = True
+        return valid, None
+    if layout == "two_rows":
+        valid = np.zeros((2, t), bool)
+        valid[0, : t // 2 + 5] = True
+        valid[1, : int(0.9 * t)] = True
+        valid[1, 100:170] = False
+        valid[1, np.random.default_rng(t).integers(0, int(0.9 * t), size=t // 20)] = False
+        valid[1, int(0.9 * t) - 1] = True
+        return valid, None
+    valid = np.zeros((2, t), bool)
+    seg = np.full((2, t), -1, np.int32)
+    for vid, (a, b) in enumerate([(0, 1), (1, 100), (100, t // 2), (t // 2, t - 3)]):
+        valid[0, a:b] = True
+        seg[0, a:b] = vid
+    for vid, (a, b) in enumerate([(77, t // 3), (t // 3 + 50, t // 2), (t - 10, t - 9)]):
+        valid[1, a:b] = True
+        seg[1, a:b] = vid
+    return valid, seg
+
+
+@pytest.mark.parametrize("sm", ["bfloat16", "float32"])
+@pytest.mark.parametrize("layout", ["edges", "two_rows", "packed"])
+@pytest.mark.parametrize("t", [2049, 4133, 8192])
+def test_tensor_core_stream_kernel_matches_plain(cuda, t, layout, sm):
+    """bf16 at Dh 64 takes ``flash_fwd_stream_tc`` (each call one launch of
+    it): out and lse against the plain version under the bf16 tolerance on
+    live rows, 0 / SKIP_LSE past kvl; a second launch gives the same bits."""
+    valid, seg = _tc_layout(t, layout)
+    rng = np.random.default_rng(t + len(layout))
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (valid.shape[0], t, 4, 64)).astype(np.float32))
+               .to(torch.bfloat16).to(cuda) for _ in range(3))
+    kv = torch.from_numpy(valid).to(cuda)
+    sg = None if seg is None else torch.from_numpy(seg).to(cuda)
+    before = fa.flash_fwd_stream_tc.launches
+    _check(q, k, v, kv, sg, sm)
+    again = flash_forward_stream(q, k, v, kv, sg, sm)
+    first = flash_forward_stream(q, k, v, kv, sg, sm)
+    torch.cuda.synchronize()
+    assert fa.flash_fwd_stream_tc.launches == before + 3
+    assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+
+def test_tensor_core_stream_kernel_reads_qkv_column_views_in_place(cuda):
+    """The QKV projection's column slices against contiguous copies, bit for
+    bit, unpacked and packed, both interiors."""
+    b, t, h, dh = 2, 4133, 8, 64
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(rng.normal(0, 1, (b, t, 3 * h * dh)).astype(np.float32))
+    qkv = qkv.to(torch.bfloat16).to(cuda)
+    q, k, v = (z.view(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
+    valid, seg = _tc_layout(t, "packed")
+    kv = torch.from_numpy(valid).to(cuda)
+    before = fa.flash_fwd_stream_tc.launches
+    for sg in (None, torch.from_numpy(seg).to(cuda)):
+        for sm in ("bfloat16", "float32"):
+            got = flash_forward_stream(q, k, v, kv, sg, sm)
+            want = flash_forward_stream(q.contiguous(), k.contiguous(), v.contiguous(), kv, sg,
+                                        sm)
+            for a, b_ in zip(got, want):
+                torch.testing.assert_close(a, b_, atol=0.0, rtol=0.0)
+    assert fa.flash_fwd_stream_tc.launches == before + 8
