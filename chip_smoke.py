@@ -19,8 +19,13 @@ verdict line):
    same work;
 3. backward kernels vs plain: dq and dk/dv against their plain versions at
    the training shapes ([6, 2048, 8, 64] bf16, unpacked and packed, both
-   interiors; [6, 1000, 8, 64] float32), timed likewise, with SDPA's
-   backward as the yardstick;
+   interiors: the tensor-core pair on one ``flash_bwd_stream_prep``, held
+   against its plain version too; a packed bf16 row with padding inside kvl,
+   where the select form of the dense kernels and the stream kernels' bias
+   form differ; [6, 1000, 8, 64] float32: the first design), two launches
+   equal bit for bit; the prep, dq and dk/dv timed likewise, with SDPA's
+   backward as the yardstick, and one backward's device time split by
+   kernel against the host clock;
 4. serving: the flagship MMCT (d_model 512, 16 layers, 8 heads, bf16,
    random weights from a numpy seed) serves requests of synthetic videos
    through ``InferencePipeline.score_videos``, unpacked and packed; 16 flash
@@ -29,10 +34,12 @@ verdict line):
    0.1) trains one epoch of synthetic videos through the CLI's ``run``:
    finite losses, the val probe, a checkpoint that ``resume()`` restores,
    the tIoU evaluation, and exactly 16 launches of each kernel per forward
-   or step; then the step time, videos/s and a profiler breakdown of one
-   step;
+   or step (the forward; the prep, dq and dk/dv, every backward launch the
+   tensor-core pair's); then the step time, videos/s and a profiler
+   breakdown of one step with the host time of the backward prep's sweep;
 6. gradients: one packed [6, 2048] step of the kernel model against the
-   plain-attention model, parameter by parameter;
+   plain-attention model, parameter by parameter (bf16: the tensor-core
+   backward pair; float32 on two rows: the first design);
 7. long videos (``configs/longvideo.yaml``, buckets 2048..32768 at batch 1):
    a. the streaming forward kernel against its plain version at [1, 4096] and
       [1, 32768] unpacked, packed rows of [1, 8192], [1, 16384] and
@@ -56,8 +63,8 @@ verdict line):
       timed over >= 5 chains of back-to-back launches (median, min, max per
       launch) with the plain versions, SDPA's backward timed the same way and
       each time's ratio to it in this run, and (packed
-      32768) the dense backward kernels, which must give the same gradients
-      and be slower, as must SDPA;
+      32768) the dense backward pair on the same prep, which must give the
+      same gradients bit for bit, and SDPA, which must be slower;
    b. the flagship trains through the CLI's ``run`` (``--synthetic 7``,
       unpacked: buckets 4096..32768) and ``Trainer`` (12 videos packed into
       rows of 32768 and of 8192), each with the val probe, a checkpoint and
@@ -247,16 +254,18 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def _counted_wrappers() -> dict:
     """Every kernel wrapper by kernel name; each counts its launches in
-    ``.launches``. ``flash_fwd_stream`` and ``flash_fwd_nt`` count every
-    launch of their wrapper; ``flash_fwd_stream_tc`` and ``flash_fwd_nt_tc``
-    the part of them that took the tensor-core kernel (bf16 at Dh 64), so
-    the first design's launches are the difference."""
+    ``.launches``. ``flash_fwd_stream``, ``flash_fwd_nt``, ``flash_bwd_dq``
+    and ``flash_bwd_dkv`` count every launch of their wrapper;
+    ``flash_fwd_stream_tc``, ``flash_fwd_nt_tc``, ``flash_bwd_dq_tc`` and
+    ``flash_bwd_dkv_tc`` the part of them that took the tensor-core kernel
+    (bf16 at Dh 64), so the first design's launches are the difference."""
     from repurpose_tpu_torch.ops import flash_attention as fa
     from repurpose_tpu_torch.tools import bench_attention_fwd, bench_int8_matmul
 
     return {"flash_fwd": fa.flash_forward, "flash_fwd_stream": fa.flash_forward_stream,
             "flash_fwd_stream_tc": fa.flash_fwd_stream_tc,
             "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "flash_bwd_dq_tc": fa.flash_bwd_dq_tc, "flash_bwd_dkv_tc": fa.flash_bwd_dkv_tc,
             "flash_bwd_dq_stream": fa.flash_bwd_dq_stream,
             "flash_bwd_dkv_stream": fa.flash_bwd_dkv_stream,
             "flash_bwd_stream_prep": fa.flash_bwd_stream_prep,
@@ -330,6 +339,36 @@ def _packed_layout(b: int, t: int, durs: list[int]):
     return batch.mask, batch.seg_ids, sum(len(r) for r in rows)
 
 
+def packed_attention_layout(b: int, t: int, padding_inside: bool = False,
+                            split_ids: bool = False):
+    """key_valid / seg_ids (numpy) of the packed rows of phases 2 and 3: the
+    port's packing of synthetic videos of 200-1800 s into ``b`` rows of
+    ``t``. With ``padding_inside``, a stretch of padding tokens inside each
+    row's first video: masked keys with a segment of their own, which holds
+    no valid key, and the video's tail after them takes another new segment
+    (every run its own id, as packing gives them). With ``split_ids``, the
+    stretch lies on padding's segment -1 and the tail keeps the video's id,
+    which is then split into two runs."""
+    import numpy as np
+
+    durs = [int(d) for d in np.random.default_rng(SEED + 1).integers(200, 1801, size=24)]
+    mask, seg, _ = _packed_layout(b, t, durs)
+    if padding_inside or split_ids:
+        for r in range(b):
+            if seg[r, 0] < 0:  # an empty row
+                continue
+            end = int(np.argmax(seg[r] != seg[r, 0])) or t  # the first video's end
+            a0, a1 = end // 3, end // 3 + max(1, end // 6)
+            top = int(seg[r].max())
+            mask[r, a0:a1] = False
+            if split_ids:
+                seg[r, a0:a1] = -1
+            else:
+                seg[r, a0:a1] = top + 1
+                seg[r, a1:end] = top + 2
+    return mask, seg
+
+
 def _attention_inputs(variant: dict, gen):
     import numpy as np
     import torch
@@ -340,9 +379,8 @@ def _attention_inputs(variant: dict, gen):
     qkv = torch.randn((b, t, 3 * h * dh), generator=gen, device="cuda").to(dtype)
     q, k, v = (z.view(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
     if variant["packed"]:
-        # synthetic videos of 200-1800 s
-        durs = [int(d) for d in np.random.default_rng(SEED + 1).integers(200, 1801, size=24)]
-        mask, seg, _ = _packed_layout(b, t, durs)
+        mask, seg = packed_attention_layout(b, t, variant.get("padding_inside", False),
+                                            variant.get("split_ids", False))
         seg = torch.from_numpy(seg).cuda()
     else:
         # lengths spread over 40-100 % of T, plus one all-padding row
@@ -543,21 +581,63 @@ def _hold_backward(label: str, got: dict, want: dict, rel: float, past) -> dict:
     return errs
 
 
+def _backward_device_split(args, sm: str, calls: int = 8) -> dict:
+    """Where one ``flash_backward`` call's time goes on the tensor-core path:
+    device time per call by kernel (the prep, dq, dk/dv, and the small
+    launches of the sweep, ``_stream_sweep``), from torch.profiler over
+    ``calls`` back-to-back calls, against the host clock per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repurpose_tpu_torch.ops.flash_attention import flash_backward
+
+    flash_backward(*args, sm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            flash_backward(*args, sm)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    split = dict(prep=0.0, dq=0.0, dkv=0.0, sweep_and_other=0.0)
+    for e in prof.key_averages():
+        if e.device_type.name != "CUDA":
+            continue
+        key = ("prep" if "stream_prep_kernel" in e.key else "dq" if "dq_tc_kernel" in e.key
+               else "dkv" if "dkv_tc_kernel" in e.key else "sweep_and_other")
+        split[key] += e.self_device_time_total / 1e3 / calls
+    return dict(host_ms_per_call=wall_ms, device_ms_per_call=split,
+                device_busy_ms_per_call=sum(split.values()))
+
+
 def phase_backward_vs_plain() -> list[dict]:
     """3: the dq and dk/dv kernels against their plain versions at the
     training shapes, on o / lse from the kernel forward and an upstream
     gradient that is random before each row's last valid key and 0 past it
-    (the model's); each kernel and SDPA's backward timed per launch of a
-    chain (``spread_ms``), the plain versions over single calls."""
+    (the model's). The bf16 rows take the tensor-core pair on one
+    ``flash_bwd_stream_prep`` (held against its plain version); two launches
+    must give equal bits; one packed row has padding inside kvl (its own
+    segment, no valid key, random g), where the select form the dense
+    kernels keep and the stream kernels' bias form differ. Each kernel (the
+    prep, dq, dk/dv) and SDPA's backward timed per launch of a chain
+    (``spread_ms``), the plain versions over single calls; the float32 row
+    times the first design."""
     import torch
 
     from repurpose_tpu_torch.ops.flash_attention import (
         _kv_len,
         flash_bwd_dkv,
         flash_bwd_dkv_reference,
+        flash_bwd_dkv_stream_reference,
+        flash_bwd_dkv_tc,
         flash_bwd_dq,
         flash_bwd_dq_reference,
+        flash_bwd_dq_stream_reference,
+        flash_bwd_dq_tc,
+        flash_bwd_stream_prep,
+        flash_bwd_stream_prep_reference,
         flash_forward,
+        stream_tc,
     )
 
     variants = [
@@ -569,6 +649,15 @@ def phase_backward_vs_plain() -> list[dict]:
              dtype="bfloat16", sm="float32", packed=True),
         dict(name="unpacked_bf16_softmax_f32", shape=(6, 2048, 8, 64),
              dtype="bfloat16", sm="float32", packed=False),
+        # padding inside kvl: the select and the bias form differ there under
+        # the float32 interior (the bf16 one rounds lse so that both give 0)
+        dict(name="packed_padding_inside_bf16_softmax_f32", shape=(6, 2048, 8, 64),
+             dtype="bfloat16", sm="float32", packed=True, padding_inside=True),
+        # a video's id split into two runs by masked keys on segment -1: the
+        # dense sweep spans every position of each id, the stream one (each
+        # run) would miss pairs
+        dict(name="packed_split_ids_bf16_softmax_bf16", shape=(6, 2048, 8, 64),
+             dtype="bfloat16", sm="bfloat16", packed=True, split_ids=True),
         dict(name="unpacked_f32_T1000", shape=(6, 1000, 8, 64),
              dtype="float32", sm="float32", packed=False),
     ]
@@ -582,18 +671,58 @@ def phase_backward_vs_plain() -> list[dict]:
         g = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
         g = g.masked_fill(past[:, :, None, None], 0.0)
         args = (q, k, v, kv, o, lse, g, seg, sm)
+        tc = stream_tc(q)
+        tc_before = (flash_bwd_dq_tc.launches, flash_bwd_dkv_tc.launches)
         got = dict(dq=flash_bwd_dq(*args))
         got["dk"], got["dv"] = flash_bwd_dkv(*args)
+        again = (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
         torch.cuda.synchronize()
+        tc_launched = (flash_bwd_dq_tc.launches - tc_before[0],
+                       flash_bwd_dkv_tc.launches - tc_before[1])
+        check(tc_launched == ((2, 2) if tc else (0, 0)),
+              f"{var['name']}: the tensor-core pair launched {tc_launched} times of "
+              f"{(2, 2) if tc else (0, 0)}")
+        check(all(torch.equal(got[n], x) for n, x in zip(("dq", "dk", "dv"), again)),
+              f"{var['name']}: two launches of the backward kernels differ")
+        del again
         want = dict(dq=flash_bwd_dq_reference(*args))
         want["dk"], want["dv"] = flash_bwd_dkv_reference(*args)
-        errs = _hold_backward(var["name"], got, want,
-                              BWD_REL.get((var["dtype"], sm), BWD_REL_BF16), past)
-
+        rel = BWD_REL.get((var["dtype"], sm), BWD_REL_BF16)
+        errs = _hold_backward(var["name"], got, want, rel, past)
         library_ms, library_note = _sdpa_bwd_ms(q, k, v, kv, seg, g, reps=5, chain=8)
         check(library_ms is not None, f"{var['name']}: SDPA's backward failed: {library_note}")
         row = dict(name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
-                   softmax_dtype=sm, packed=var["packed"], library_ms=library_ms)
+                   softmax_dtype=sm, packed=var["packed"],
+                   kernels="flash_bwd_{dq,dkv}_tc" if tc else "flash_bwd_{dq,dkv} (first design)",
+                   tolerance=f"{rel} x max |plain|", deterministic=True, library_ms=library_ms)
+        if var.get("padding_inside"):
+            # the bias form on the same inputs: far from the kernels' gradients
+            bias = dict(dq=flash_bwd_dq_stream_reference(*args))
+            bias["dk"], bias["dv"] = flash_bwd_dkv_stream_reference(*args)
+            row["bias_form_rel_diff"] = {
+                n: float((bias[n].float() - got[n].float()).abs().max())
+                / float(want[n].float().abs().max()) for n in got}
+            check(max(row["bias_form_rel_diff"].values()) > BWD_REL_BF16,
+                  f"{var['name']}: the bias form is as close as the select form "
+                  f"{json.dumps(row['bias_form_rel_diff'])}: the row has no teeth")
+            del bias
+        del want
+        kw = {}
+        if tc:
+            prep = flash_bwd_stream_prep(*args[:-1], dense=True)
+            torch.cuda.synchronize()
+            delta_err = _hold_prep(var["name"], prep,
+                                   flash_bwd_stream_prep_reference(*args[:-1], dense=True))
+            bound_ms, bound_by, flops, bytes_ = _prep_bound(q, seg)
+            row["prep"] = dict(
+                max_abs_err=delta_err,
+                **spread_ms(lambda: flash_bwd_stream_prep(*args[:-1], dense=True), reps=10,
+                            chain=8),
+                plain_ms=median_ms(
+                    lambda: flash_bwd_stream_prep_reference(*args[:-1], dense=True),
+                    reps=3, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
+            kw = dict(prep=prep)
         for kname, fn, ref_fn, products, outputs, keys in (
             ("dq", flash_bwd_dq, flash_bwd_dq_reference, 3, 1, ("dq",)),
             ("dkv", flash_bwd_dkv, flash_bwd_dkv_reference, 4, 2, ("dk", "dv")),
@@ -601,13 +730,26 @@ def phase_backward_vs_plain() -> list[dict]:
             bound_ms, bound_by, flops, bytes_ = _bwd_bound(q, kv, seg, products, outputs)
             row[kname] = dict(
                 max_abs_err=max(errs[x] for x in keys),
-                **spread_ms(lambda: fn(*args), reps=5, chain=8),
+                **spread_ms(lambda: fn(*args, **kw), reps=10 if tc else 5, chain=8),
                 plain_ms=median_ms(lambda: ref_fn(*args), reps=3, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
-        row["pair_ratio_to_library"] = (row["dq"]["ms"] + row["dkv"]["ms"]) / library_ms
+        pair_ms = row["dq"]["ms"] + row["dkv"]["ms"] + row.get("prep", {}).get("ms", 0.0)
+        row["pair_ms"] = pair_ms
+        row["pair_ratio_to_library"] = pair_ms / library_ms
+        for key in ("prep", "dq", "dkv"):
+            if key in row:
+                row[key]["ratio_to_library"] = row[key]["ms"] / library_ms
+        if tc:
+            row["split"] = _backward_device_split(args[:-1], sm)
         print(f"[backward] {json.dumps(row)}")
+        summary = {key: [round(row[key][x], 4) for x in ("ms", "min_ms", "max_ms")]
+                   for key in ("prep", "dq", "dkv") if key in row}
+        print(f"[backward-time] {var['name']}: ms per call of 8 chained, [median, min, max] "
+              f"{json.dumps(summary)}; SDPA backward {library_ms:.4f} ms; (prep + dq + dk/dv) "
+              f"/ SDPA {row['pair_ratio_to_library']:.3f}"
+              + (f"; one flash_backward: {json.dumps(row['split'])}" if tc else ""))
         rows.append(row)
-        del q, k, v, kv, seg, o, lse, g, got, want, args
+        del q, k, v, kv, seg, o, lse, g, got, args, kw
         torch.cuda.empty_cache()
     return rows
 
@@ -799,7 +941,8 @@ def phase_training(card: str, workdir: str) -> dict:
     entry (``run(cfg, args)``) on synthetic videos: packed [6, 2048] batches,
     bf16, dropout 0.1, one epoch with the val probe, a checkpoint and the
     tIoU evaluation. Every MMCT forward launches the flash forward 16 times,
-    every training step the two backward kernels 16 times each."""
+    every training step the prep and the two backward kernels 16 times each,
+    every backward launch the tensor-core pair's."""
     import numpy as np
     import torch
 
@@ -830,18 +973,21 @@ def phase_training(card: str, workdir: str) -> dict:
     finally:
         hook.remove()
     wall_s = time.perf_counter() - t0
-    launches = read_launches("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    launches = read_launches("flash_fwd", "flash_bwd_stream_prep", "flash_bwd_dq",
+                             "flash_bwd_dkv", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
     layers = cfg.model.self_num_layers
     check(summary["step"] == steps == forwards["grad"] and steps > 0,
           f"{summary['step']} steps, {forwards['grad']} training forwards, plan {steps}")
     check(launches["flash_fwd"] == layers * forwards["all"],
           f"flash_fwd launched {launches['flash_fwd']} times for {forwards['all']} forwards")
-    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+    for name in ("flash_bwd_stream_prep", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tc",
+                 "flash_bwd_dkv_tc"):
         check(launches[name] == layers * steps,
               f"{name} launched {launches[name]} times for {steps} steps")
     print(f"[train] {card}: {steps} steps of packed [6, 2048] batches, {forwards['all']} "
           f"forwards (val probe and eval included), launches {json.dumps(launches)} = "
-          f"{layers} per forward / per step; run {wall_s:.1f} s on the host clock")
+          f"{layers} per forward / per step, every backward launch the tensor-core pair's; "
+          f"run {wall_s:.1f} s on the host clock")
 
     lines = [json.loads(line) for line in open(os.path.join(workdir, "metrics.jsonl"))]
     losses = [m["batch/loss"] for m in lines if "batch/loss" in m]
@@ -883,23 +1029,46 @@ def phase_training(card: str, workdir: str) -> dict:
                 videos_per_s=videos_per_s, **profile)
 
 
+SWEEP_LABEL = "flash_attention._stream_sweep"
+
+
 def _profile_step(trainer, card: str, batch=None, label: str = "one training step") -> dict:
     """Where one training step's time goes (on ``batch``, by default the
     first of epoch 2): device time by kernel against the host clock
-    (torch.profiler with CUDA activity)."""
+    (torch.profiler with CUDA activity), and the host time of the backward
+    prep's sweep (``_stream_sweep``: kvl and, packed, ``packed_block_bounds``,
+    small launches from the host), wrapped for the step in a labelled range
+    on the host clock."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repurpose_tpu_torch.ops import flash_attention as fa
 
     if batch is None:
         batch = next(iter(trainer.train_loader.epoch(2)))
     batch = trainer._device_batch(batch)
+    sweep = fa._stream_sweep
+    sweep_s = []
+
+    def timed_sweep(*args):
+        t1 = time.perf_counter()
+        with record_function(SWEEP_LABEL):
+            out = sweep(*args)
+        sweep_s.append(time.perf_counter() - t1)
+        return out
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_step(trainer.state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    fa._stream_sweep = timed_sweep
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fa._stream_sweep = sweep
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.key != SWEEP_LABEL]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     check(busy_ms > 0, "the profiler saw no device time")
     print(f"[profile] {card}: {label}: {wall_ms:.1f} ms on the host clock, "
@@ -907,7 +1076,11 @@ def _profile_step(trainer, card: str, batch=None, label: str = "one training ste
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
-    return dict(profile_wall_ms=wall_ms, profile_busy_ms=busy_ms)
+    sweep_ms = sum(sweep_s) * 1e3
+    print(f"[profile]   the backward prep's sweep (_stream_sweep): {len(sweep_s)} x, "
+          f"{sweep_ms:.2f} ms on the host clock in all (under the profiler)")
+    return dict(profile_wall_ms=wall_ms, profile_busy_ms=busy_ms,
+                profile_sweep_calls=len(sweep_s), profile_sweep_host_ms=sweep_ms)
 
 
 def _step_grads(cfg, train_cfg, batch, impl: str, attn=None) -> dict:
@@ -952,13 +1125,14 @@ def _hold_grads(label: str, kernel: dict, plain: dict, bound: float, layers: int
     return rels
 
 
-def phase_gradients(card: str) -> None:
+def phase_gradients(card: str) -> dict:
     """Every parameter gradient of one step of the kernel model (flash forward
     and backward kernels) against the same model with the plain attention
     (autograd through mha_torch), same weights, on a packed [6, 2048] batch:
-    in the production setting (bf16, bf16 interior), and in float32 on two of
-    its rows (the kernels' float32 path, where only summation order
-    differs)."""
+    in the production setting (bf16, bf16 interior: the tensor-core backward
+    pair), and in float32 on two of its rows (the kernels' float32 path, the
+    first design, where only summation order differs). Returns the backward
+    kernels' launches of each kernel step, by dtype."""
     from repurpose_tpu_torch.data.batching import Batch
     from repurpose_tpu_torch.data.loader import BatchLoader
     from repurpose_tpu_torch.train import __main__ as cli
@@ -972,13 +1146,24 @@ def phase_gradients(card: str) -> None:
     f32 = dataclasses.replace(cfg.model, compute_dtype="float32",
                               attn_softmax_dtype="float32")
     two_rows = Batch(*[None if x is None else x[:2] for x in batch])
+    names = ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+    launches = {}
     for dtype, model_cfg, b in (("bfloat16", cfg.model, batch), ("float32", f32, two_rows)):
+        reset_launches()
         kernel = _step_grads(model_cfg, cfg.train, b, "auto")
+        launches[dtype] = read_launches(*names)
+        layers = cfg.model.self_num_layers
+        tc = layers if dtype == "bfloat16" else 0
+        check(launches[dtype] == {"flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+                                  "flash_bwd_dq_tc": tc, "flash_bwd_dkv_tc": tc},
+              f"{dtype} kernel step launched {launches[dtype]}")
         plain = _step_grads(model_cfg, cfg.train, b, "xla")
         _hold_grads(f"{card}: {dtype}, kernel vs plain-attention model, one packed "
                     f"[{b.visual.shape[0]}, {b.visual.shape[1]}] step", kernel, plain,
                     GRAD_REL_BOUND[dtype], cfg.model.self_num_layers)
         del kernel, plain
+    print(f"[grad] {card}: backward launches of each kernel step {json.dumps(launches)}")
+    return launches
 
 
 # -- phase 7: long videos -------------------------------------------------------
@@ -1372,9 +1557,12 @@ def phase_long_backward_vs_plain() -> list[dict]:
     the plain versions, SDPA's backward on the same boolean mask (yardstick
     only, timed the same way) and each time's ratio to SDPA in this run;
     two launches of each kernel must
-    give equal bits. On the packed [1, 32768] row the dense backward kernels,
-    which sweep every key tile up to kvl, must give the same gradients and
-    be slower."""
+    give equal bits. On the packed [1, 32768] row the dense backward pair
+    (at bf16 Dh 64 the select-form instances of the same kernels, on its
+    own sweep, which spans the same tiles where every video is one run)
+    must give the same gradients bit for bit: no row
+    inside kvl there lacks a valid key of its own video, so the two mask
+    forms agree on every pair."""
     import torch
 
     from repurpose_tpu_torch.ops.flash_attention import (
@@ -1467,19 +1655,18 @@ def phase_long_backward_vs_plain() -> list[dict]:
                     row[key]["ratio_to_library"] = row[key]["ms"] / library_ms
             row["pair_ratio_to_library"] = pair_ms / library_ms
         if var["packed"] and q.shape[1] == 32768:
-            # the dense kernels on the same inputs: what the bounded sweeps save
-            dense = dict(dq=flash_bwd_dq(*args))
-            dense["dk"], dense["dv"] = flash_bwd_dkv(*args)
-            diff = _hold_backward(f"long {var['name']}: dense kernels vs stream", dense, got,
-                                  rel, past)
+            # the dense pair on the same inputs: one mainloop, the select form,
+            # on its own prep (the dense sweep: the same tiles on this layout)
+            dense_kw = dict(prep=flash_bwd_stream_prep(*args[:-1], dense=True))
+            dense = dict(dq=flash_bwd_dq(*args, **dense_kw))
+            dense["dk"], dense["dv"] = flash_bwd_dkv(*args, **dense_kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(dense[n], got[n]) for n in got),
+                  f"packed 32768: the dense pair's gradients differ from the stream pair's")
             row["dense"] = dict(
-                flash_bwd_dq_ms=median_ms(lambda: flash_bwd_dq(*args), reps=3),
-                flash_bwd_dkv_ms=median_ms(lambda: flash_bwd_dkv(*args), reps=3),
-                max_abs_diff=max(diff.values()))
-            check(row["dense"]["flash_bwd_dq_ms"] > row["dq"]["ms"]
-                  and row["dense"]["flash_bwd_dkv_ms"] > row["dkv"]["ms"],
-                  f"packed 32768: the bounded sweeps are not faster than the dense kernels "
-                  f"{json.dumps(row['dense'])}")
+                flash_bwd_dq_ms=median_ms(lambda: flash_bwd_dq(*args, **dense_kw), reps=3),
+                flash_bwd_dkv_ms=median_ms(lambda: flash_bwd_dkv(*args, **dense_kw), reps=3),
+                bit_equal=True)
             check(library_ms is not None and pair_ms < library_ms,
                   f"packed 32768: the stream backward ({pair_ms:.3f} ms) is not faster than "
                   f"SDPA's backward ({library_ms} ms)")
@@ -2089,7 +2276,7 @@ def main() -> int:
         trained = phase_training(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    phase_gradients(card)
+    grad_launches = phase_gradients(card)
     long_variants = phase_long_kernel_vs_plain()
     long_served = phase_long_video_serving(card)
     long_cli = phase_long_cli(card)
@@ -2122,22 +2309,45 @@ def main() -> int:
         bound_ms=head["bound_ms"], bound_by=head["bound_by"],
         library_ms=head["library_ms"], variant=head["name"], variants=variants,
     )]
-    for name, key, line in (("flash_bwd_dq", "dq", 783), ("flash_bwd_dkv", "dkv", 1109)):
+    fa_line = "repurpose_tpu/ops/flash_attention.py:"
+    # the dense backward: the tensor-core pair (bf16 at Dh 64, the training
+    # path) and the first design (float32 and the other Dh)
+    bwd_tc_rows = [r for r in bwd_variants if "prep" in r]
+    bwd_first = next(r for r in bwd_variants if "prep" not in r)
+    for name, key, line, also in (("flash_bwd_dq", "dq", 783, []),
+                                  ("flash_bwd_dkv", "dkv", 1109, [1149])):
         r = bwd_head[key]
+        tc_name = name + "_tc"
+        check(long_train[tc_name] == long_train[name],  # every bf16 dense backward there
+              f"long-video training: {name} launched {long_train[name]} times, "
+              f"{tc_name} {long_train[tc_name]}")
+        kernels.append(dict(
+            name=tc_name, route="cuda", source=source + "flash_bwd.cu",
+            also_source=source + "flash_bwd_tc.cuh", replaces=f"{fa_line}{line}",
+            also_replaces=[f"{fa_line}{n}" for n in also],
+            launches=trained["launches"][tc_name],
+            launches_by_path=dict(training=trained["launches"][tc_name],
+                                  gradients_bf16=grad_launches["bfloat16"][tc_name],
+                                  long_video_training=long_train[tc_name]),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], min_ms=r["min_ms"], max_ms=r["max_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=bwd_head["library_ms"],
+            library_note="SDPA's whole backward (dq, dk and dv), against the pair",
+            pair_ratio_to_library=bwd_head["pair_ratio_to_library"], variant=bwd_head["name"],
+            variants=[dict(name=v["name"], **v[key], library_ms=v["library_ms"])
+                      for v in bwd_tc_rows],
+        ))
+        r = bwd_first[key]
+        first = grad_launches["float32"][name] - grad_launches["float32"][tc_name]
         kernels.append(dict(
             name=name, route="cuda", source=source + "flash_bwd.cu",
-            replaces=f"repurpose_tpu/ops/flash_attention.py:{line}",
-            launches=trained["launches"][name],
-            launches_by_path=dict(training=trained["launches"][name],
-                                  long_video_training=long_train[name]),
-            max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=bwd_head["library_ms"],
-            variant=bwd_head["name"],
-            variants=[dict(name=v["name"], **v[key], library_ms=v["library_ms"])
-                      for v in bwd_variants],
+            replaces=f"{fa_line}{line}", also_replaces=[f"{fa_line}{n}" for n in also],
+            design="first: float32, and bf16 at Dh 16, 32 and 128",
+            launches=first, launches_by_path=dict(gradients_float32=first),
+            max_abs_err=r["max_abs_err"], ms=r["ms"], min_ms=r["min_ms"], max_ms=r["max_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=bwd_first["library_ms"], variant=bwd_first["name"],
         ))
-    fa_line = "repurpose_tpu/ops/flash_attention.py:"
 
     def timed(row):  # a row's kernel times and yardsticks, for a kernels entry
         return {x: row[x] for x in ("max_abs_err", "ms", "min_ms", "max_ms", "plain_ms",
@@ -2176,8 +2386,10 @@ def main() -> int:
         ("flash_bwd_dkv_stream", "dkv", 1200, []),
     ):
         r = long_bwd_head[key]
-        kernels.append(dict(
-            name=name, route="cuda", source=source + "flash_bwd_stream.cu",
+        kernels.append(dict(  # bf16 Dh 64: the bias-form instances of the tensor-core pair
+            name=name, route="cuda", source=source + "flash_bwd.cu",
+            also_source=source + "flash_bwd_tc.cuh",
+            first_design_source=source + "flash_bwd_stream.cu",
             replaces=f"{fa_line}{replaces}", also_replaces=[f"{fa_line}{n}" for n in also],
             launches=long_train[name],
             launches_by_path=dict(long_video_training=long_train[name]),
@@ -2191,8 +2403,9 @@ def main() -> int:
     kernels.append(dict(
         name="flash_bwd_stream_prep", route="cuda", source=source + "flash_bwd_stream.cu",
         replaces=f"{fa_line}1271", also_replaces=[f"{fa_line}1253"],
-        launches=long_train["flash_bwd_stream_prep"],
-        launches_by_path=dict(long_video_training=long_train["flash_bwd_stream_prep"]),
+        launches=long_train["flash_bwd_stream_prep"] + trained["launches"]["flash_bwd_stream_prep"],
+        launches_by_path=dict(training=trained["launches"]["flash_bwd_stream_prep"],
+                              long_video_training=long_train["flash_bwd_stream_prep"]),
         max_abs_err=r["max_abs_err"], ms=r["ms"], min_ms=r["min_ms"], max_ms=r["max_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=None,

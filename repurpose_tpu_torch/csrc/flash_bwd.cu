@@ -1,11 +1,18 @@
-// Masked multi-head attention backward for Hopper (sm_90a): two kernels,
-// dq and dk/dv, each computing its own gradient with no atomics.
+// Masked multi-head attention backward for Hopper (sm_90a), T <= 2048 (the
+// training step): two kernels, dq and dk/dv, each computing its own gradient
+// with no atomics (deterministic).
 //
 // Replaces the TPU kernels of repurpose_tpu/ops/flash_attention.py:
-//   - `_bwd_dq_kernel` (line 783), unpacked and packed, by flash_bwd_dq_kernel;
-//   - `_bwd_dkv_kernel` + `_dkv_compute` (lines 1109, 1149), unpacked and
-//     packed, by flash_bwd_dkv_kernel.
-// A null `seg_ids` pointer selects the unpacked variant of each.
+//   - `_bwd_dq_kernel` (line 783; pallas_calls lines 1411, 1439), unpacked
+//     and packed, by flash_bwd_dq_tc_kernel (bf16 at Dh 64) and
+//     flash_bwd_dq_kernel (every other instance);
+//   - `_bwd_dkv_kernel` + `_dkv_compute` (lines 1109, 1149; pallas_calls
+//     lines 1528, 1599), unpacked and packed, by flash_bwd_dkv_tc_kernel and
+//     flash_bwd_dkv_kernel.
+// A null `seg_ids` (tensor-core: a null lo / hi) selects the unpacked
+// variant of each. The tensor-core pair's bias-form instances are the
+// long-T backward's bf16 Dh 64 kernels too (flash_bwd_stream.cu names the
+// TPU kernels they replace there).
 //
 // What they compute, with the saved forward out `o` and lse, the upstream
 // gradient `g`, scale = 1/sqrt(Dh), per batch row b and head h:
@@ -16,7 +23,7 @@
 //           masked entries are selected away, never multiplied by a mask,
 //           since exp of a masked score may overflow)
 //   dp_ij = dot(g_i, v_j) in float32
-//   d_i   = sum_d g_id * o_id in float32           (delta, in the kernel body)
+//   d_i   = sum_d g_id * o_id in float32           (delta)
 //   ds_ij = R(p_ij * R(dp_ij - d_i))
 //   dq_i  = scale * sum_j in(ds_ij) k_j            float32 sums
 //   dk_j  = sum_i in(ds_ij) q_s_i                  (no extra scale: q_s has it)
@@ -34,21 +41,34 @@
 // ~100 GFLOP together, ~0.1 ms at 989 TFLOP/s, against ~50 MB of traffic
 // (~15 us at 3.35 TB/s): they are bound by operations.
 //
-// What the design does about it, and what it leaves for later. The TPU kernels
-// hold a whole [Tq, T] (dq) or [T, Tk] (dk/dv) float32 slab in VMEM; a Hopper
-// block has 227 KB of shared memory, so here one block owns a 64-row query
-// tile (dq) or a 64-row key tile (dk/dv) of one head and sweeps the other axis
-// in 64-row tiles, accumulating in float32 registers (bf16: wmma 16x16x16 on
-// the tensor cores) or shared memory (float32: scalar FMAs, since TF32 would
-// lose float32 parity). The saved lse normalises every tile exactly, so no
-// online rescaling is needed. The two-kernel split keeps results
-// deterministic; it recomputes s and dp in both kernels. The bf16 dk/dv
-// kernel stages its register accumulators for the store in the query tile's
-// shared memory, which keeps it at two blocks per SM, and delta is summed by
-// two threads per row with every load in flight at once. Not done yet: wgmma,
-// TMA, a multi-stage K/V ring, one fused kernel with atomic dq, and skipping
-// tiles of a packed row that share no video (past T = 2048 the streaming
-// kernels of flash_bwd_stream.cu do: they sweep only each tile's own videos).
+// Two designs share the contract above.
+//
+// bf16 at Dh 64 (the model's shape) takes the tensor-core kernels,
+// flash_bwd_{dq,dkv}_tc_kernel: the select-form instances of the wgmma/TMA
+// mainloops of flash_bwd_tc.cuh (the design is there), whose bias-form
+// instances are the long-T backward. They read the outputs of
+// flash_bwd_stream_prep_kernel (q_s, {lse, delta}, {key flag, segment}),
+// made once per backward, and sweep 64-row tiles [0, ceil(kvl / 64)) and,
+// packed, only the tiles [lo, hi) that hold every position of each segment
+// id owning a row of the tile (`segment_tile_bounds` at 64/64, wherever the
+// id's positions lie): in the select form every pair left out has p = 0 and
+// so ds = 0, so the bounded sweep adds exactly what the full one would, for
+// any layout. Unpacked, the select and the bias form are the same function.
+//
+// Every other instance (float32, which must keep float32 parity and so
+// cannot use TF32 tensor cores, and bf16 at Dh 16, 32 and 128) keeps the
+// first design. The TPU kernels hold a whole [Tq, T] (dq) or [T, Tk] (dk/dv)
+// float32 slab in VMEM; a Hopper block has 227 KB of shared memory, so here
+// one block owns a 64-row query tile (dq) or a 64-row key tile (dk/dv) of
+// one head and sweeps the other axis in 64-row tiles up to kvl, accumulating
+// in float32 registers (bf16: wmma 16x16x16 on the tensor cores) or shared
+// memory (float32: scalar FMAs, since TF32 would lose float32 parity). The
+// saved lse normalises every tile exactly, so no online rescaling is needed.
+// The two-kernel split keeps results deterministic; it recomputes s and dp
+// in both kernels. The bf16 dk/dv kernel stages its register accumulators
+// for the store in the query tile's shared memory, which keeps it at two
+// blocks per SM, and delta is summed by two threads per row with every load
+// in flight at once. This design has no bf16 Dh 64 instance.
 //
 // Layout: q/k/v/g/o are read through (batch, token, head) strides with a
 // contiguous Dh axis and 16-byte row starts; lse is [B, H, T] float32;
@@ -62,6 +82,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "flash_bwd_tc.cuh"
 
 namespace {
 
@@ -581,7 +603,9 @@ int dispatch_dh(bool dq, int Dh, const Args& a, int B, cudaStream_t stream) {
   switch (Dh) {
     case 16: return launch<T, 16>(dq, a, B, stream);
     case 32: return launch<T, 32>(dq, a, B, stream);
-    case 64: return launch<T, 64>(dq, a, B, stream);
+    case 64:  // bf16 at Dh 64 takes the tensor-core kernels
+      if constexpr (std::is_same<T, bf16>::value) return (int)cudaErrorInvalidValue;
+      else return launch<T, 64>(dq, a, B, stream);
     case 128: return launch<T, 128>(dq, a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -614,13 +638,51 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* g,
   return is_bf16 ? dispatch_dh<bf16>(dq, Dh, a, B, s) : dispatch_dh<float>(dq, Dh, a, B, s);
 }
 
+// ---- the tensor-core kernels: bf16 at Dh 64 ------------------------------------------
+
+// The mainloops and their design: flash_bwd_tc.cuh. MASK: the select form
+// (the dense backward) or the bias form (the long-T backward).
+template <bool SM_BF16, bwd_tc::Mask MASK>
+__global__ void __launch_bounds__(bwd_tc::THREADS, bwd_tc::DQ_MIN_BLOCKS)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ bwd_tc::Args a) {
+  bwd_tc::dq_block<SM_BF16, MASK>(a);
+}
+
+template <bool SM_BF16, bwd_tc::Mask MASK>
+__global__ void __launch_bounds__(bwd_tc::THREADS, bwd_tc::DKV_MIN_BLOCKS)
+    flash_bwd_dkv_tc_kernel(const __grid_constant__ bwd_tc::Args a) {
+  bwd_tc::dkv_block<SM_BF16, MASK>(a);
+}
+
+int run_tc(bool dq, const void* qs, const void* k, const void* v, const void* g,
+           const long long* strides, const void* rows, const void* info, const void* kvl,
+           const void* lo, const void* hi, void* out0, void* out1, int B, int T_len, int H,
+           int sm_bf16, int select, float scale, cudaStream_t stream) {
+  using bwd_tc::BIAS;
+  using bwd_tc::SELECT;
+  if (B <= 0 || T_len <= 0 || H <= 0) return 0;
+  if (!kvl || (lo == nullptr) != (hi == nullptr)) return (int)cudaErrorInvalidValue;
+  bwd_tc::Args a;
+  const int err = bwd_tc::make_args(a, qs, k, v, g, strides, rows, info, kvl, lo, hi, out0,
+                                    out1, B, T_len, H, scale);
+  if (err != 0) return err;
+  void (*const kernels[2][2][2])(bwd_tc::Args) = {  // [dq][sm_bf16][select]
+      {{&flash_bwd_dkv_tc_kernel<false, BIAS>, &flash_bwd_dkv_tc_kernel<false, SELECT>},
+       {&flash_bwd_dkv_tc_kernel<true, BIAS>, &flash_bwd_dkv_tc_kernel<true, SELECT>}},
+      {{&flash_bwd_dq_tc_kernel<false, BIAS>, &flash_bwd_dq_tc_kernel<false, SELECT>},
+       {&flash_bwd_dq_tc_kernel<true, BIAS>, &flash_bwd_dq_tc_kernel<true, SELECT>}}};
+  return bwd_tc::launch(kernels[dq][sm_bf16 != 0][select != 0], dq, a, B, stream);
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes (repurpose_tpu_torch/native.py).
 // `strides` holds 15 element strides: (batch, token, head) of q, k, v, g, o in
 // that order. is_bf16 selects bf16 (1) or float32 (0) for q/k/v/g/o and the
 // outputs; a null seg_ids selects the unpacked variant. Each returns
-// cudaGetLastError() after its launch (0 on success).
+// cudaGetLastError() after its launch (0 on success); bf16 at Dh 64 is
+// refused (cudaErrorInvalidValue): it takes the tensor-core entry points
+// below.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                             const void* o, const long long* strides, const void* key_valid,
                             const void* seg_ids, const void* lse, void* dq, int B,
@@ -637,4 +699,34 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
                              int is_bf16, int sm_bf16, float scale, void* stream) {
   return run(false, q, k, v, g, o, strides, key_valid, seg_ids, lse, dk, dv, B, T_len, H,
              Dh, is_bf16, sm_bf16, scale, stream);
+}
+
+// The tensor-core entry points (bf16, Dh 64), the dense and the long-T
+// backward both, on the outputs of flash_bwd_stream_prep
+// (flash_bwd_stream.cu): qs [B, T, H, 64] bf16 contiguous, rows [B, H, Tp]
+// {lse, delta} float32 and info [B, Tp] {key flag, segment} int32, Tp = T
+// rounded up to 64. `strides` holds 9 element strides: (batch, token, head)
+// of k, v, g. kvl is int32 [B]; lo / hi are int32 [B, ceil(T / 64)], both
+// null unpacked: for the dense backward (select 1: the select form) each
+// query tile's span of every position of its segment ids
+// (`segment_tile_bounds` at 64/64), for the long-T one (select 0: the bias
+// form) `packed_block_bounds` at 64/64. Each returns cudaGetLastError()
+// after its launch (0 on success), or cudaErrorInvalidValue for a view no
+// tensor map can describe.
+extern "C" int flash_bwd_dq_tc(const void* qs, const void* k, const void* v, const void* g,
+                               const long long* strides, const void* rows, const void* info,
+                               const void* kvl, const void* lo, const void* hi, void* dq, int B,
+                               int T_len, int H, int sm_bf16, int select, float scale,
+                               void* stream) {
+  return run_tc(true, qs, k, v, g, strides, rows, info, kvl, lo, hi, dq, nullptr, B, T_len, H,
+                sm_bf16, select, scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_bwd_dkv_tc(const void* qs, const void* k, const void* v, const void* g,
+                                const long long* strides, const void* rows, const void* info,
+                                const void* kvl, const void* lo, const void* hi, void* dk,
+                                void* dv, int B, int T_len, int H, int sm_bf16, int select,
+                                float scale, void* stream) {
+  return run_tc(false, qs, k, v, g, strides, rows, info, kvl, lo, hi, dk, dv, B, T_len, H,
+                sm_bf16, select, scale, static_cast<cudaStream_t>(stream));
 }

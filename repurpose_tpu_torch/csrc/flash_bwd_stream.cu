@@ -62,8 +62,8 @@
 //
 // Two designs share the contract above.
 //
-// bf16 at Dh 64 (the model's shape) takes the tensor-core path,
-// flash_bwd_{dq,dkv}_stream_tc_kernel, after a small prep kernel:
+// bf16 at Dh 64 (the model's shape) takes the tensor-core path, after a
+// small prep kernel:
 //   - flash_bwd_stream_prep_kernel runs once per backward (the wrapper hands
 //     its outputs to both kernels): q_s [B, T, H, 64] bf16, the per-row
 //     stats {lse, delta} [B, H, Tp] float2 and the per-token info {key flag,
@@ -72,32 +72,15 @@
 //     per tile, the q scaling (fa:1253) and delta = rowsum(g o) (fa:1271):
 //     the dk/dv kernel used to rescale Q in shared memory and re-read o from
 //     device memory for every query tile of every key tile (~14 GB at
-//     [1, 32768, 8, 64]).
-//   - A block is one warpgroup of consumers (128 threads) and one producer
-//     warp. The producer feeds a 3-stage ring through TMA (4D tensor maps over
-//     the strided [B, T, H, Dh] views, 128-byte swizzle; rows past T arrive
-//     as zeros) and bulk copies (the padded stats / info tiles), completing
-//     on mbarriers; consumers release a stage with an arrive on its "empty"
-//     barrier. The tensor maps come from cuTensorMapEncodeTiled fetched with
-//     cudaGetDriverEntryPointByVersion, so nothing links against libcuda.
-//   - Products are wgmma m64n64k16 with float32 register accumulators. dq:
-//     S = Q_s K^T and dP = G V^T from shared memory (both K-major), p and ds
-//     formed in registers on the accumulator layout, then dq += dS K with dS
-//     as the register A operand and K as the transposed (MN-major) B operand
-//     of the same shared tile. dk/dv: S^T = K Q_s^T and dP^T = V G^T with
-//     keys as M, so that P^T and dS^T are already the A operands of
-//     dV += P^T G and dK += dS^T Q_s; lse and delta broadcast along columns.
-//     No score tile touches shared memory. Each product is waited for only
-//     where its result or its stage is next needed: dV runs while ds is
-//     formed, and dq / dK while the next tile's S and dP are issued. The
-//     kernels are templated on the softmax interior; under bf16 p and ds
-//     are already bf16 values and pack into A operands by a byte permute.
-//   - 64-row tiles, about 68 KB of shared memory; dq at <= 128 registers
-//     (three blocks an SM), dk/dv at <= 200 (two), static_asserts below.
-// What still bounds it: the elementwise work per (query, key) pair (the bias,
-// two bf16 roundings, expf and the ds roundings) costs more issue slots than
-// the three or four 64x64x64 products it feeds; at [1, 32768, 8, 64] dq and
-// dk/dv run at ~4x their bounds (PERF.md).
+//     [1, 32768, 8, 64]). The dense backward's tensor-core kernels read the
+//     same prep.
+//   - The two kernels are the bias-form instances of the tensor-core pair
+//     of flash_bwd.cu, flash_bwd_{dq,dkv}_tc_kernel, whose select-form
+//     instances are the dense backward; their wgmma/TMA mainloops and whole
+//     design are in flash_bwd_tc.cuh: a producer warp feeding a 3-stage TMA
+//     ring, wgmma m64n64k16 with register accumulators, p and ds formed in
+//     registers and fed back as the A operand. At [1, 32768, 8, 64] dq and
+//     dk/dv run at ~3.5x their bounds (PERF.md).
 //
 // Every other instance (float32, which must keep float32 parity and so
 // cannot use TF32 tensor cores, and bf16 at Dh 16, 32 and 128) keeps the
@@ -147,7 +130,6 @@ constexpr float MASK_BIAS = -1e9f;  // NEG_INF of repurpose_tpu/ops/attention.py
 constexpr float SKIP_LSE = 1e30f;
 constexpr int NO_SEG = INT_MIN;  // segment of a query row past T: matches no key
 constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a block may use
-constexpr size_t SM_SMEM = 233472;   // bytes of shared memory per SM
 
 using bf16 = __nv_bfloat16;
 
@@ -739,356 +721,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_stream_kernel(Args a) {
   store_rows<T, DH>(dv_bh, D, sAccV, j0, G::BK, T_len, kvl, 1.f);
 }
 
-// ---- the tensor-core path: bf16 at Dh 64 ------------------------------------------
-
-// Hopper primitives (mbarriers, TMA, wgmma, tensor maps): hopper.cuh.
-using namespace hopper;
-
-constexpr int TC_STAGES = 3;                   // ring depth
-constexpr int TC_CONSUMERS = 128;              // one warpgroup
-constexpr int TC_THREADS = TC_CONSUMERS + 32;  // and one producer warp
-constexpr unsigned TC_TILE = BQ * TC_DH * 2;   // bytes of a [64, 64] bf16 tile
-constexpr unsigned TC_META = BQ * 8;           // bytes of 64 float2 / int2
-
-// Shared memory of the dq kernel: this query tile's q_s and g, a ring of
-// K / V tiles with their keys' {flag, segment}, this tile's rows' {lse,
-// delta} and {flag, segment}, the barriers. Tiles are 1024-byte aligned
-// (the swizzle's period).
-struct __align__(1024) DqTcSmem {
-  bf16 q[BQ * TC_DH];
-  bf16 g[BQ * TC_DH];
-  bf16 k[TC_STAGES][BQ * TC_DH];
-  bf16 v[TC_STAGES][BQ * TC_DH];
-  int2 keys[TC_STAGES][BQ];
-  float2 rows[BQ];
-  int2 row_info[BQ];
-  uint64_t own, full[TC_STAGES], empty[TC_STAGES];
-};
-
-// Shared memory of the dk/dv kernel: this key tile's K and V and its keys'
-// {flag, segment}, a ring of q_s / g tiles with their rows' {lse, delta} and
-// {flag, segment}, the barriers.
-struct __align__(1024) DkvTcSmem {
-  bf16 k[BQ * TC_DH];
-  bf16 v[BQ * TC_DH];
-  bf16 q[TC_STAGES][BQ * TC_DH];
-  bf16 g[TC_STAGES][BQ * TC_DH];
-  float2 rows[TC_STAGES][BQ];
-  int2 row_info[TC_STAGES][BQ];
-  int2 key_info[BQ];
-  uint64_t own, full[TC_STAGES], empty[TC_STAGES];
-};
-
-// + 1024: the dynamic window is aligned by hand. Three dq and two dk/dv
-// blocks share an SM (1 KB of each block's share is reserved); registers
-// hold them there too (__launch_bounds__ below).
-constexpr size_t TC_SMEM_DQ = sizeof(DqTcSmem) + 1024;
-constexpr size_t TC_SMEM_DKV = sizeof(DkvTcSmem) + 1024;
-static_assert(3 * (TC_SMEM_DQ + 1024) <= SM_SMEM, "dq tc: three blocks no longer share an SM");
-static_assert(2 * (TC_SMEM_DKV + 1024) <= SM_SMEM, "dk/dv tc: two blocks no longer share an SM");
-
-template <typename S>
-__device__ __forceinline__ S& tc_smem(unsigned char* raw) {
-  return *reinterpret_cast<S*>(raw + ((1024 - (smem_addr(raw) & 1023)) & 1023));
-}
-
-struct TcArgs {
-  CUtensorMap q, k, v, g;  // q: the prep's q_s
-  const float2* rows;      // [B, H, Tp] {lse, delta}
-  const int2* info;        // [B, Tp] {key flag, segment}
-  const int* kvl;          // [B]
-  const int* tile_lo;      // [B, ceil(T / 64)], null: unpacked
-  const int* tile_hi;
-  bf16 *out0, *out1;  // dq, or dk and dv: [B, T, H, 64]
-  int T, Tp, H;
-  float scale;
-};
-
-// p of one score in the bias form with the stream kernels' rounding points
-// (as warp_probs; SM_BF16: the bf16 softmax interior): key flag `ok` 1 valid,
-// 0 masked, -1 past T (p = 0).
-template <bool SM_BF16>
-__device__ __forceinline__ float tc_prob(float s, int ok, bool same_video, float lse) {
-  const float x = s + ((ok == 1 && same_video) ? 0.f : MASK_BIAS) - lse;
-  const float p = SM_BF16 ? round_bf16(expf(round_bf16(x))) : expf(x);
-  return ok < 0 ? 0.f : p;
-}
-
-template <bool SM_BF16>
-__device__ __forceinline__ float tc_ds(float p, float dp, float delta) {
-  const float dd = dp - delta;
-  return SM_BF16 ? round_bf16(p * round_bf16(dd)) : p * dd;
-}
-
-// Rows row0 + (this thread's accumulator rows) of one head of a [B, T, H, 64]
-// output: acc * mul before kvl, 0 from kvl to T.
-__device__ __forceinline__ void tc_store(bf16* out_bh, long long row_stride,
-                                         const float (&d)[32], int row0, int T_len, int kvl,
-                                         float mul) {
-  const int lane = threadIdx.x % 32, r = 16 * (threadIdx.x / 32) + lane / 4, c0 = 2 * (lane % 4);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int t = row0 + r + 8 * half;
-    if (t >= T_len) continue;
-    bf16* row = out_bh + (long long)t * row_stride;
-    const bool live = t < kvl;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float x0 = live ? d[4 * n + 2 * half] * mul : 0.f;
-      const float x1 = live ? d[4 * n + 2 * half + 1] * mul : 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n + c0) = __floats2bfloat162_rn(x0, x1);
-    }
-  }
-}
-
-// Zeros for rows row0..row0 + 64 (those before T) of one head.
-__device__ void tc_zero_rows(bf16* out_bh, long long row_stride, int row0, int T_len) {
-  for (int idx = threadIdx.x; idx < BQ * 8; idx += blockDim.x) {
-    const int t = row0 + idx / 8;
-    if (t < T_len)
-      *reinterpret_cast<uint4*>(out_bh + (long long)t * row_stride + (idx % 8) * 8) =
-          make_uint4(0, 0, 0, 0);
-  }
-}
-
-__device__ __forceinline__ void tc_init_barriers(uint64_t* own, uint64_t* full, uint64_t* empty) {
-  mbar_init(own, 1);
-  for (int i = 0; i < TC_STAGES; ++i) {
-    mbar_init(&full[i], 1);
-    mbar_init(&empty[i], TC_CONSUMERS);
-  }
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-template <bool SM_BF16>
-__global__ void __launch_bounds__(TC_THREADS, 3)
-    flash_bwd_dq_stream_tc_kernel(const __grid_constant__ TcArgs a) {
-  extern __shared__ unsigned char smem_raw[];
-  DqTcSmem& s = tc_smem<DqTcSmem>(smem_raw);
-  const int qt = blockIdx.x, q0 = qt * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, T_len = a.T;
-  const long long D = (long long)a.H * TC_DH;
-  bf16* dq_bh = a.out0 + (long long)b * T_len * D + h * TC_DH;
-
-  // the sweep in 64-key tiles: [0, ceil(kvl / 64)), packed bounded by [lo, hi)
-  const int kvl = a.kvl[b];
-  int kt_lo = 0, kt_hi = (kvl + BQ - 1) / BQ;
-  if (a.tile_lo != nullptr) {
-    const long long n_tiles = (T_len + TILE - 1) / TILE;
-    kt_lo = a.tile_lo[(long long)b * n_tiles + qt];
-    kt_hi = min(a.tile_hi[(long long)b * n_tiles + qt], kt_hi);
-  }
-  if (q0 >= kvl || kt_lo >= kt_hi) {  // padding rows, or no key to sweep: dq = 0
-    tc_zero_rows(dq_bh, D, q0, T_len);
-    return;
-  }
-  if (tid == 0) tc_init_barriers(&s.own, s.full, s.empty);
-  __syncthreads();
-  const float2* rows_bh = a.rows + ((long long)b * a.H + h) * a.Tp;
-  const int2* info_b = a.info + (long long)b * a.Tp;
-
-  // the role, read through a shuffle so that the compiler sees it is
-  // warp-uniform, as the consumers' wgmma need
-  if (__shfl_sync(0xffffffffu, tid / TC_CONSUMERS, 0) != 0) {
-    // the producer warp: one thread issues every copy
-    if (tid == TC_CONSUMERS) {
-      mbar_arrive_expect_tx(&s.own, 2 * TC_TILE + 2 * TC_META);
-      tma_load_rows(s.q, &a.q, &s.own, h, q0, b);
-      tma_load_rows(s.g, &a.g, &s.own, h, q0, b);
-      bulk_load(s.rows, rows_bh + q0, TC_META, &s.own);
-      bulk_load(s.row_info, info_b + q0, TC_META, &s.own);
-      for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
-        const int st = i % TC_STAGES;
-        mbar_wait(&s.empty[st], ((i / TC_STAGES) & 1) ^ 1);  // the first round passes
-        mbar_arrive_expect_tx(&s.full[st], 2 * TC_TILE + TC_META);
-        tma_load_rows(s.k[st], &a.k, &s.full[st], h, kt * BQ, b);
-        tma_load_rows(s.v[st], &a.v, &s.full[st], h, kt * BQ, b);
-        bulk_load(s.keys[st], info_b + kt * BQ, TC_META, &s.full[st]);
-      }
-    }
-    return;
-  }
-
-  // consumers: rows r and r + 8 of the tile, columns c0 + 8n and c0 + 8n + 1
-  const int lane = tid % 32, r = 16 * (tid / 32) + lane / 4, c0 = 2 * (lane % 4);
-  mbar_wait(&s.own, 0);
-  const float2 stat[2] = {s.rows[r], s.rows[r + 8]};  // {lse, delta}
-  const int seg[2] = {s.row_info[r].y, s.row_info[r + 8].y};
-  const uint64_t dQ = sw128_desc(s.q, 16, SW_GROUP), dG = sw128_desc(s.g, 16, SW_GROUP);
-  float dq[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
-  uint32_t ds_a[4][4] = {};  // read by the dq product, which runs into the next iteration
-
-  for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
-    const int st = i % TC_STAGES;
-    mbar_wait(&s.full[st], (i / TC_STAGES) & 1);
-    const uint64_t dK = sw128_desc(s.k[st], 16, SW_GROUP), dV = sw128_desc(s.v[st], 16, SW_GROUP);
-    float sc[32], dp[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, dQ + K_STEP * kk, dK + K_STEP * kk);  // s
-    wg_commit();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, dG + K_STEP * kk, dV + K_STEP * kk);  // dp
-    wg_commit();
-    wg_wait<1>();  // s, and the previous tile's dq product, are done
-    reg_fence(sc);
-    reg_fence(ds_a);
-    if (i > 0) mbar_arrive(&s.empty[(i - 1) % TC_STAGES]);  // done with that stage
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {  // p over s, in place
-      const int4 kf = *reinterpret_cast<const int4*>(&s.keys[st][8 * n + c0]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ok = (e & 1) ? kf.z : kf.x, kseg = (e & 1) ? kf.w : kf.y;
-        sc[4 * n + e] =
-            tc_prob<SM_BF16>(sc[4 * n + e], ok, kseg == seg[e >> 1], stat[e >> 1].x);
-      }
-    }
-    wg_wait<0>();
-    reg_fence(dp);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {  // ds over dp, in place
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[4 * n + e] = tc_ds<SM_BF16>(sc[4 * n + e], dp[4 * n + e], stat[e >> 1].y);
-    }
-    acc_to_a<SM_BF16>(dp, ds_a);
-    const uint64_t dKt = sw128_desc(s.k[st], SW_GROUP, SW_GROUP);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(dq, ds_a[kk], dKt + MN_STEP * kk);  // dq += ds K
-    wg_commit();
-  }
-  wg_wait<0>();
-  reg_fence(dq);
-  tc_store(dq_bh, D, dq, q0, T_len, kvl, a.scale);
-}
-
-template <bool SM_BF16>
-__global__ void __launch_bounds__(TC_THREADS, 2)
-    flash_bwd_dkv_stream_tc_kernel(const __grid_constant__ TcArgs a) {
-  extern __shared__ unsigned char smem_raw[];
-  DkvTcSmem& s = tc_smem<DkvTcSmem>(smem_raw);
-  const int kt = blockIdx.x, j0 = kt * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, T_len = a.T;
-  const long long D = (long long)a.H * TC_DH;
-  bf16* dk_bh = a.out0 + (long long)b * T_len * D + h * TC_DH;
-  bf16* dv_bh = a.out1 + (long long)b * T_len * D + h * TC_DH;
-
-  // the sweep in 64-row query tiles: [0, ceil(kvl / 64)), packed bounded by
-  // this key tile's own [lo, hi) (the mask is symmetric)
-  const int kvl = a.kvl[b];
-  int qt_lo = 0, qt_hi = (kvl + BQ - 1) / BQ;
-  if (a.tile_lo != nullptr) {
-    const long long n_tiles = (T_len + TILE - 1) / TILE;
-    qt_lo = a.tile_lo[(long long)b * n_tiles + kt];
-    qt_hi = min(a.tile_hi[(long long)b * n_tiles + kt], qt_hi);
-  }
-  if (j0 >= kvl || qt_lo >= qt_hi) {  // no valid key, or no query to sweep: 0
-    tc_zero_rows(dk_bh, D, j0, T_len);
-    tc_zero_rows(dv_bh, D, j0, T_len);
-    return;
-  }
-  if (tid == 0) tc_init_barriers(&s.own, s.full, s.empty);
-  __syncthreads();
-  const float2* rows_bh = a.rows + ((long long)b * a.H + h) * a.Tp;
-  const int2* info_b = a.info + (long long)b * a.Tp;
-
-  if (__shfl_sync(0xffffffffu, tid / TC_CONSUMERS, 0) != 0) {  // as in the dq kernel
-    // the producer warp: one thread issues every copy
-    if (tid == TC_CONSUMERS) {
-      mbar_arrive_expect_tx(&s.own, 2 * TC_TILE + TC_META);
-      tma_load_rows(s.k, &a.k, &s.own, h, j0, b);
-      tma_load_rows(s.v, &a.v, &s.own, h, j0, b);
-      bulk_load(s.key_info, info_b + j0, TC_META, &s.own);
-      for (int qt = qt_lo, i = 0; qt < qt_hi; ++qt, ++i) {
-        const int st = i % TC_STAGES;
-        mbar_wait(&s.empty[st], ((i / TC_STAGES) & 1) ^ 1);  // the first round passes
-        mbar_arrive_expect_tx(&s.full[st], 2 * TC_TILE + 2 * TC_META);
-        tma_load_rows(s.q[st], &a.q, &s.full[st], h, qt * BQ, b);
-        tma_load_rows(s.g[st], &a.g, &s.full[st], h, qt * BQ, b);
-        bulk_load(s.rows[st], rows_bh + qt * BQ, TC_META, &s.full[st]);
-        bulk_load(s.row_info[st], info_b + qt * BQ, TC_META, &s.full[st]);
-      }
-    }
-    return;
-  }
-
-  // consumers: keys r and r + 8 of the tile (rows), query columns c0 + 8n
-  // and c0 + 8n + 1
-  const int lane = tid % 32, r = 16 * (tid / 32) + lane / 4, c0 = 2 * (lane % 4);
-  mbar_wait(&s.own, 0);
-  const int2 key[2] = {s.key_info[r], s.key_info[r + 8]};  // {flag, segment}
-  const uint64_t dK = sw128_desc(s.k, 16, SW_GROUP), dV = sw128_desc(s.v, 16, SW_GROUP);
-  float dk[32], dv[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
-  // read by the dv / dk products, which run into the ds work / next iteration
-  uint32_t p_a[4][4] = {}, ds_a[4][4] = {};
-
-  for (int qt = qt_lo, i = 0; qt < qt_hi; ++qt, ++i) {
-    const int st = i % TC_STAGES;
-    mbar_wait(&s.full[st], (i / TC_STAGES) & 1);
-    const uint64_t dQ = sw128_desc(s.q[st], 16, SW_GROUP), dG = sw128_desc(s.g[st], 16, SW_GROUP);
-    float sc[32], dp[32];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, dK + K_STEP * kk, dQ + K_STEP * kk);  // s^T
-    wg_commit();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, dV + K_STEP * kk, dG + K_STEP * kk);  // dp^T
-    wg_commit();
-    wg_wait<1>();  // s^T, and the previous tile's dv / dk products, are done
-    reg_fence(sc);
-    reg_fence(p_a);
-    reg_fence(ds_a);
-    if (i > 0) mbar_arrive(&s.empty[(i - 1) % TC_STAGES]);  // done with that stage
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {  // p^T over s^T, in place
-      const float4 rs = *reinterpret_cast<const float4*>(&s.rows[st][8 * n + c0]);
-      const int4 ri = *reinterpret_cast<const int4*>(&s.row_info[st][8 * n + c0]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float lse = (e & 1) ? rs.z : rs.x;
-        const int qseg = (e & 1) ? ri.w : ri.y;
-        sc[4 * n + e] =
-            tc_prob<SM_BF16>(sc[4 * n + e], key[e >> 1].x, key[e >> 1].y == qseg, lse);
-      }
-    }
-    acc_to_a<SM_BF16>(sc, p_a);
-    const uint64_t dGt = sw128_desc(s.g[st], SW_GROUP, SW_GROUP);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(dv, p_a[kk], dGt + MN_STEP * kk);  // dv += p^T g
-    wg_commit();
-    wg_wait<1>();  // dp^T is in; dv runs under the ds work
-    reg_fence(dp);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {  // ds^T over dp^T, in place
-      const float4 rs = *reinterpret_cast<const float4*>(&s.rows[st][8 * n + c0]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dp[4 * n + e] = tc_ds<SM_BF16>(sc[4 * n + e], dp[4 * n + e], (e & 1) ? rs.w : rs.y);
-    }
-    acc_to_a<SM_BF16>(dp, ds_a);
-    const uint64_t dQt = sw128_desc(s.q[st], SW_GROUP, SW_GROUP);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs_tb(dk, ds_a[kk], dQt + MN_STEP * kk);  // dk += ds^T q_s
-    wg_commit();
-  }
-  wg_wait<0>();
-  reg_fence(dk);
-  reg_fence(dv);
-  tc_store(dk_bh, D, dk, j0, T_len, kvl, 1.f);
-  tc_store(dv_bh, D, dv, j0, T_len, kvl, 1.f);
-}
+// ---- the tensor-core path's prep: bf16 at Dh 64 --------------------------------------
 
 // The prep: q_s, {lse, delta} and {key flag, segment} once per backward, eight
 // threads per (b, t, h) row (16 bytes of q, g and o each), rows past T padded.
@@ -1131,7 +764,7 @@ __global__ void __launch_bounds__(PREP_THREADS) flash_bwd_stream_prep_kernel(Pre
       out[e] = __float2bfloat16_rn(__bfloat162float(qe[e]) * a.scale);
       acc += __bfloat162float(ge[e]) * __bfloat162float(oe[e]);
     }
-    *reinterpret_cast<uint4*>(a.qs + ((b * a.T + t) * a.H + h) * TC_DH + c) =
+    *reinterpret_cast<uint4*>(a.qs + ((b * a.T + t) * a.H + h) * hopper::TC_DH + c) =
         *reinterpret_cast<const uint4*>(out);
   }
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);  // the row's eight parts
@@ -1151,7 +784,7 @@ int run_prep(const void* q, const void* g, const void* o, const long long* strid
              const void* lse, const void* key_valid, const void* seg_ids, void* qs, void* rows,
              void* info, int B, int T_len, int H, int Dh, float scale, cudaStream_t stream) {
   if (B <= 0 || T_len <= 0 || H <= 0) return 0;
-  if (Dh != TC_DH) return (int)cudaErrorInvalidValue;
+  if (Dh != hopper::TC_DH) return (int)cudaErrorInvalidValue;
   PrepArgs a;
   a.q = static_cast<const bf16*>(q);
   a.g = static_cast<const bf16*>(g);
@@ -1173,47 +806,6 @@ int run_prep(const void* q, const void* g, const void* o, const long long* strid
   const long long threads = (long long)B * a.Tp * H * 8;
   flash_bwd_stream_prep_kernel<<<(unsigned)((threads + PREP_THREADS - 1) / PREP_THREADS),
                                  PREP_THREADS, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-int run_tc(bool dq, const void* qs, const void* k, const void* v, const void* g,
-           const long long* strides, const void* rows, const void* info, const void* kvl,
-           const void* lo, const void* hi, void* out0, void* out1, int B, int T_len, int H,
-           int sm_bf16, float scale, cudaStream_t stream) {
-  if (B <= 0 || T_len <= 0 || H <= 0) return 0;
-  if (!kvl || (lo == nullptr) != (hi == nullptr)) return (int)cudaErrorInvalidValue;
-  TcArgs a;
-  const Strides qs_strides{(long long)T_len * H * TC_DH, (long long)H * TC_DH, TC_DH};
-  const void* bases[4] = {qs, k, v, g};
-  CUtensorMap* maps[4] = {&a.q, &a.k, &a.v, &a.g};
-  for (int i = 0; i < 4; ++i) {
-    const Strides s = i == 0 ? qs_strides
-                             : Strides{strides[3 * (i - 1)], strides[3 * (i - 1) + 1],
-                                       strides[3 * (i - 1) + 2]};
-    const int err = encode_rows(maps[i], bases[i], B, T_len, H, s.b, s.t, s.h);
-    if (err != 0) return err;
-  }
-  a.rows = static_cast<const float2*>(rows);
-  a.info = static_cast<const int2*>(info);
-  a.kvl = static_cast<const int*>(kvl);
-  a.tile_lo = static_cast<const int*>(lo);
-  a.tile_hi = static_cast<const int*>(hi);
-  a.out0 = static_cast<bf16*>(out0);
-  a.out1 = static_cast<bf16*>(out1);
-  a.T = T_len;
-  a.Tp = (T_len + BQ - 1) / BQ * BQ;
-  a.H = H;
-  a.scale = scale;
-  void (*kernel)(TcArgs) =
-      dq ? (sm_bf16 ? &flash_bwd_dq_stream_tc_kernel<true> : &flash_bwd_dq_stream_tc_kernel<false>)
-         : (sm_bf16 ? &flash_bwd_dkv_stream_tc_kernel<true>
-                    : &flash_bwd_dkv_stream_tc_kernel<false>);
-  const size_t smem = dq ? TC_SMEM_DQ : TC_SMEM_DKV;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.Tp / BQ, H, B);
-  kernel<<<grid, TC_THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1286,7 +878,7 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* g,
 // ignored). kvl is int32 [B]; lo/hi are int32 [B, ceil(T / 64)]
 // (`packed_block_bounds` at 64/64). Each returns cudaGetLastError() after its
 // launch (0 on success); bf16 at Dh 64 is refused (cudaErrorInvalidValue):
-// it takes the tensor-core entry points below.
+// it takes the tensor-core entry points of flash_bwd.cu.
 extern "C" int flash_bwd_dq_stream(const void* q, const void* k, const void* v,
                                    const void* g, const void* o, const long long* strides,
                                    const void* key_valid, const void* seg_ids,
@@ -1309,13 +901,12 @@ extern "C" int flash_bwd_dkv_stream(const void* q, const void* k, const void* v,
              B, T_len, H, Dh, is_bf16, sm_bf16, scale, stream);
 }
 
-// The tensor-core path (bf16, Dh 64). `strides` holds 9 element strides:
-// (batch, token, head) of q, g, o for the prep and of k, v, g for the two
-// kernels. The prep writes q_s [B, T, H, 64] bf16, rows [B, H, Tp] {lse,
-// delta} float32 and info [B, Tp] {key flag, segment} int32, Tp = T rounded
-// up to 64; the kernels read them (qs contiguous) with kvl and, packed, lo/hi
-// as above. Each returns cudaGetLastError() after its launch (0 on success),
-// or cudaErrorInvalidValue for a view no tensor map can describe.
+// The tensor-core path's prep (bf16, Dh 64). `strides` holds 9 element
+// strides: (batch, token, head) of q, g, o. It writes q_s [B, T, H, 64]
+// bf16, rows [B, H, Tp] {lse, delta} float32 and info [B, Tp] {key flag,
+// segment} int32, Tp = T rounded up to 64, which the tensor-core kernels of
+// flash_bwd.cu read (qs contiguous) with kvl and, packed, lo/hi as above.
+// Returns cudaGetLastError() after its launch (0 on success).
 extern "C" int flash_bwd_stream_prep(const void* q, const void* g, const void* o,
                                      const long long* strides, const void* lse,
                                      const void* key_valid, const void* seg_ids, void* qs,
@@ -1323,22 +914,4 @@ extern "C" int flash_bwd_stream_prep(const void* q, const void* g, const void* o
                                      float scale, void* stream) {
   return run_prep(q, g, o, strides, lse, key_valid, seg_ids, qs, rows, info, B, T_len, H, Dh,
                   scale, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int flash_bwd_dq_stream_tc(const void* qs, const void* k, const void* v,
-                                      const void* g, const long long* strides, const void* rows,
-                                      const void* info, const void* kvl, const void* lo,
-                                      const void* hi, void* dq, int B, int T_len, int H,
-                                      int sm_bf16, float scale, void* stream) {
-  return run_tc(true, qs, k, v, g, strides, rows, info, kvl, lo, hi, dq, nullptr, B, T_len, H,
-                sm_bf16, scale, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int flash_bwd_dkv_stream_tc(const void* qs, const void* k, const void* v,
-                                       const void* g, const long long* strides, const void* rows,
-                                       const void* info, const void* kvl, const void* lo,
-                                       const void* hi, void* dk, void* dv, int B, int T_len,
-                                       int H, int sm_bf16, float scale, void* stream) {
-  return run_tc(false, qs, k, v, g, strides, rows, info, kvl, lo, hi, dk, dv, B, T_len, H,
-                sm_bf16, scale, static_cast<cudaStream_t>(stream));
 }

@@ -65,6 +65,8 @@ SIGNATURES = {
              _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
             _I,
         ),
+        "flash_bwd_dq_tc": ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _P], _I),
+        "flash_bwd_dkv_tc": ([_P] * 12 + [_I] * 5 + [ctypes.c_float, _P], _I),
     },
     "flash_bwd_stream": {
         "flash_bwd_dq_stream": (
@@ -76,8 +78,6 @@ SIGNATURES = {
             _I,
         ),
         "flash_bwd_stream_prep": ([_P] * 10 + [_I] * 4 + [ctypes.c_float, _P], _I),
-        "flash_bwd_dq_stream_tc": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _P], _I),
-        "flash_bwd_dkv_stream_tc": ([_P] * 12 + [_I] * 4 + [ctypes.c_float, _P], _I),
     },
     "flash_fwd_nt": {
         "flash_fwd_nt": (

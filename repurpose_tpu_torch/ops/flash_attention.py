@@ -21,15 +21,21 @@ on the TPU:
 ``flash_backward`` is the counterpart of ``_flash_backward`` (same argument
 order): up to ``STREAM_MAX_T``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` replace
 the TPU kernels ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (+
-``_dkv_compute``), unpacked and packed, with the two kernels of
+``_dkv_compute``), unpacked and packed, with the kernels of
 ``csrc/flash_bwd.cu``; past it, ``flash_bwd_dq_stream`` and
 ``flash_bwd_dkv_stream`` replace the four long-T TPU backward kernels
 (``_bwd_dq_stream_kernel``, ``_bwd_dq_packed_stream_kernel``,
-``_bwd_dq_hbm_kernel``, ``_bwd_dkv_stream_kernel``) with the two kernels of
-``csrc/flash_bwd_stream.cu``, which sweep 64-row tiles and, packed, only the
-tiles of each tile's own videos; in bf16 at Dh 64 these are wgmma kernels
-fed by TMA, after ``flash_bwd_stream_prep`` has computed q_s and delta once
-per backward. dq rows and dk/dv rows at or past
+``_bwd_dq_hbm_kernel``, ``_bwd_dkv_stream_kernel``) with the kernels of
+``csrc/flash_bwd_stream.cu``. In bf16 at Dh 64 (``stream_tc``), at any T,
+both are the one wgmma/TMA pair of ``csrc/flash_bwd.cu`` (mainloop
+``csrc/flash_bwd_tc.cuh``): as the dense backward in the TPU dense kernels'
+select form, as the long-T one in the stream kernels' bias form, after
+``flash_bwd_stream_prep`` has computed q_s and delta once per backward. It
+sweeps 64-row tiles and, packed, only the tiles of each tile's own segment
+ids: every position of each id (``segment_tile_bounds``) for the dense
+backward, each id's run (``packed_block_bounds``, as the stream forward and
+the TPU stream kernels) for the long-T one.
+dq rows and dk/dv rows at or past
 ``_kv_len`` are 0. The upstream gradient must be 0 on query rows
 at or past ``_kv_len``, which is what the model gives (the loss masks those
 rows and masked keys carry no softmax mass): there the TPU forward leaves
@@ -238,8 +244,9 @@ def packed_block_bounds(
     holding every video that owns a row of the query tile (``_packed_block_bounds``,
     fa:486). Videos lie head to tail, so a position's video spans
     ``[start_of, end_of)``, a running max of video starts and a reverse
-    running min of video ends. A ragged last query tile counts as padding
-    past T; a tile of padding only gets an empty range."""
+    running min of video ends (each run of an id counts as a video of its
+    own, as on the TPU). A ragged last query tile counts as padding past T;
+    a tile of padding only gets an empty range."""
     b, t = seg_ids.shape
     seg = seg_ids.long()
     t_idx = torch.arange(t, device=seg.device).expand(b, t)
@@ -249,6 +256,39 @@ def packed_block_bounds(
     is_end = valid & (seg != torch.cat([seg[:, 1:], edge], dim=1))
     start_of = torch.cummax(torch.where(is_start, t_idx, 0), dim=1).values
     end_of = torch.cummin(torch.where(is_end, t_idx + 1, t).flip(1), dim=1).values.flip(1)
+    return _tile_bounds(valid, start_of, end_of, q_block, k_block)
+
+
+def segment_tile_bounds(
+    seg_ids: torch.Tensor, q_block: int, k_block: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Key-tile bounds ``[lo, hi)`` per (batch row, query tile), each int32
+    ``[B, ceil(T / q_block)]``: the smallest run of ``k_block``-key tiles
+    holding every position of each segment id (padding's included) that
+    owns a row of the query tile, wherever the id's positions lie. The sweep
+    of the dense backward's tensor-core pair, exact for any layout in the
+    select form. Where each video is one run and padding follows the last
+    valid key, as packing lays them, it sweeps what ``packed_block_bounds``
+    sweeps before kvl."""
+    b, t = seg_ids.shape
+    # each id's slot; ids a multiple of T + 1 apart share one, which only
+    # widens their spans (the sweep stays exact)
+    slot = torch.remainder(seg_ids.long(), t + 1)
+    pos = torch.arange(t, device=seg_ids.device).expand(b, t)
+    first = torch.full((b, t + 1), t, dtype=torch.long, device=seg_ids.device)
+    last = torch.full((b, t + 1), -1, dtype=torch.long, device=seg_ids.device)
+    first.scatter_reduce_(1, slot, pos, "amin")
+    last.scatter_reduce_(1, slot, pos, "amax")
+    return _tile_bounds(torch.ones_like(pos, dtype=torch.bool), first.gather(1, slot),
+                        last.gather(1, slot) + 1, q_block, k_block)
+
+
+def _tile_bounds(valid, start_of, end_of, q_block: int, k_block: int):
+    """lo / hi of the two functions above from each position's key span
+    ``[start_of, end_of)``, over the positions ``valid`` marks. A ragged last
+    query tile counts as padding past T; a tile with no marked row gets an
+    empty range."""
+    b, t = valid.shape
     nqb = -(-t // q_block)
     pad = (0, nqb * q_block - t)
     lo_pos = torch.nn.functional.pad(torch.where(valid, start_of, t), pad, value=t)
@@ -378,12 +418,12 @@ def flash_forward_stream_reference(
 
 
 def stream_tc(q: torch.Tensor) -> bool:
-    """Whether the streaming kernels on CUDA tensors take their tensor-core
-    design: bf16 at Dh 64, the model's shape, under either softmax interior
-    (``flash_fwd_stream_tc``; the backward's after ``flash_bwd_stream_prep``).
-    float32 (which would lose its parity on TF32 tensor cores) and bf16 at
-    Dh 16, 32 and 128 keep the first kernels of csrc/flash_fwd_stream.cu and
-    csrc/flash_bwd_stream.cu."""
+    """Whether the kernels on CUDA tensors take their tensor-core design:
+    bf16 at Dh 64, the model's shape, under either softmax interior
+    (``flash_fwd_stream_tc``; the backward, dense and streaming, after
+    ``flash_bwd_stream_prep``). float32 (which would lose its parity on TF32
+    tensor cores) and bf16 at Dh 16, 32 and 128 keep the first kernels of
+    csrc/flash_fwd_stream.cu, csrc/flash_bwd.cu and csrc/flash_bwd_stream.cu."""
     return q.dtype == torch.bfloat16 and q.shape[-1] == 64
 
 
@@ -536,15 +576,19 @@ def _check_bwd_inputs(q, k, v, key_valid, o, lse, g, seg_ids) -> None:
         raise ValueError(f"lse must be contiguous float32 [{b}, {h}, {t}, 1] on {q.device}")
 
 
-def _stream_sweep(key_valid, seg_ids):
+def _stream_sweep(key_valid, seg_ids, dense: bool = False):
     """kvl int32 [B] and, packed, the 64/64 tile bounds lo / hi (else None),
-    contiguous: the stream kernels' sweeps (the TPU kernels' scalar-prefetch
-    operands), made once per backward by the prep on the tensor-core path
-    and once per launch on the others."""
+    contiguous: the sweeps of the backward kernels that take them, made once
+    per backward by the prep on the tensor-core path and once per launch of
+    a first-design stream kernel. ``dense``: the dense pair's
+    (``segment_tile_bounds``, every key of each id); else the stream
+    kernels' (``packed_block_bounds``, the TPU kernels' scalar-prefetch
+    operands and the stream forward's sweep)."""
     kvl = _kv_len(key_valid)[:, 0].contiguous()
     if seg_ids is None:
         return kvl, None, None
-    lo, hi = packed_block_bounds(seg_ids.contiguous(), STREAM_TILE, STREAM_TILE)
+    bounds = segment_tile_bounds if dense else packed_block_bounds
+    lo, hi = bounds(seg_ids.contiguous(), STREAM_TILE, STREAM_TILE)
     return kvl, lo.contiguous(), hi.contiguous()
 
 
@@ -587,32 +631,74 @@ def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype
 
 
 def flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids=None,
-                 softmax_dtype: str = "float32", *, scale: float | None = None) -> torch.Tensor:
-    """dq ``[B, T, H, Dh]`` in q's dtype (contiguous)."""
+                 softmax_dtype: str = "float32", prep: StreamPrep | None = None, *,
+                 scale: float | None = None) -> torch.Tensor:
+    """dq ``[B, T, H, Dh]`` in q's dtype (contiguous), the dense backward at
+    any T: on CUDA tensors a kernel of csrc/flash_bwd.cu (counted in
+    ``flash_bwd_dq.launches``), the tensor-core one (``flash_bwd_dq_tc``) on
+    ``prep`` (the outputs of ``flash_bwd_stream_prep`` with ``dense=True``,
+    run here when not given) where ``stream_tc(q)``;
+    ``flash_bwd_dq_reference`` on CPU ones. ``flash_backward`` takes it up
+    to ``STREAM_MAX_T``."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dq"):
         return flash_bwd_dq_reference(*args, scale=scale)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_bwd_dq", *args, scale, (dq,))
+    if stream_tc(q):
+        if prep is None:
+            prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=True)
+        flash_bwd_dq_tc(q, k, v, g, softmax_dtype, scale, prep, dq)
+    else:
+        _bwd_launch("flash_bwd_dq", *args, scale, (dq,))
     flash_bwd_dq.launches += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, key_valid, o, lse, g, seg_ids=None,
-                  softmax_dtype: str = "float32", *, scale: float | None = None):
-    """(dk, dv), each ``[B, T, H, Dh]`` in the input dtype (contiguous)."""
+                  softmax_dtype: str = "float32", prep: StreamPrep | None = None, *,
+                  scale: float | None = None):
+    """(dk, dv), each ``[B, T, H, Dh]`` in the input dtype (contiguous), the
+    dense backward at any T: on CUDA tensors a kernel of csrc/flash_bwd.cu
+    (counted in ``flash_bwd_dkv.launches``), the tensor-core one
+    (``flash_bwd_dkv_tc``) on ``prep`` as for ``flash_bwd_dq``;
+    ``flash_bwd_dkv_reference`` on CPU ones."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dkv"):
         return flash_bwd_dkv_reference(*args, scale=scale)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_bwd_dkv", *args, scale, (dk, dv))
+    if stream_tc(q):
+        if prep is None:
+            prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=True)
+        flash_bwd_dkv_tc(q, k, v, g, softmax_dtype, scale, prep, dk, dv)
+    else:
+        _bwd_launch("flash_bwd_dkv", *args, scale, (dk, dv))
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
+def flash_bwd_dq_tc(q, k, v, g, softmax_dtype: str, scale, prep: StreamPrep, dq) -> None:
+    """Launches the tensor-core dq kernel (``flash_bwd_dq_tc_kernel`` of
+    csrc/flash_bwd.cu, bf16 at Dh 64) as the dense backward, in the select
+    form, on ``prep`` into ``dq``; counted in ``flash_bwd_dq_tc.launches``
+    (the caller counts it in ``flash_bwd_dq.launches`` too)."""
+    _tc_launch("flash_bwd_dq_tc", q, k, v, g, softmax_dtype, scale, prep, (dq,), dense=True)
+    flash_bwd_dq_tc.launches += 1
+
+
+def flash_bwd_dkv_tc(q, k, v, g, softmax_dtype: str, scale, prep: StreamPrep, dk, dv) -> None:
+    """Launches the tensor-core dk/dv kernel (``flash_bwd_dkv_tc_kernel`` of
+    csrc/flash_bwd.cu) as ``flash_bwd_dq_tc`` does; counted in
+    ``flash_bwd_dkv_tc.launches``."""
+    _tc_launch("flash_bwd_dkv_tc", q, k, v, g, softmax_dtype, scale, prep, (dk, dv),
+               dense=True)
+    flash_bwd_dkv_tc.launches += 1
+
+
 flash_bwd_dq.launches = 0  # kernel launches; the plain CPU path does not count
 flash_bwd_dkv.launches = 0
+flash_bwd_dq_tc.launches = 0  # the part of the above on the tensor-core kernels
+flash_bwd_dkv_tc.launches = 0  # (the stream wrappers' launches of them are not counted here)
 
 
 # -- long T: the streaming backward ----------------------------------------------
@@ -751,9 +837,9 @@ def flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
 
 
 class StreamPrep(NamedTuple):
-    """Everything the tensor-core stream kernels read besides k, v and g,
-    made once per backward by ``flash_bwd_stream_prep``; Tp = T rounded up
-    to 64."""
+    """Everything the tensor-core backward kernels (dense and streaming) read
+    besides k, v and g, made once per backward by ``flash_bwd_stream_prep``;
+    Tp = T rounded up to 64."""
 
     qs: torch.Tensor  # [B, T, H, Dh] q's dtype: round(float(q) * scale)
     rows: torch.Tensor  # [B, H, Tp, 2] float32: (lse, delta = rowsum(g o))
@@ -763,8 +849,17 @@ class StreamPrep(NamedTuple):
     hi: torch.Tensor | None
 
 
+class DensePrep(StreamPrep):
+    """A ``StreamPrep`` whose lo / hi are the dense backward's sweep
+    (``segment_tile_bounds``); a plain one holds the streaming backward's
+    (``packed_block_bounds``)."""
+
+    __slots__ = ()
+
+
 def flash_bwd_stream_prep_reference(q, k, v, key_valid, o, lse, g, seg_ids=None, *,
-                                    scale: float | None = None) -> StreamPrep:
+                                    scale: float | None = None,
+                                    dense: bool = False) -> StreamPrep:
     """Plain PyTorch version of the prep kernel: ``StreamPrep`` with rows
     past T holding (``SKIP_LSE``, 0) and (-1, 0), the segment 0 unpacked."""
     b, t, h, dh = q.shape
@@ -779,20 +874,22 @@ def flash_bwd_stream_prep_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
     info[:, :t, 0] = key_valid.to(torch.int32)
     if seg_ids is not None:
         info[:, :t, 1] = seg_ids
-    return StreamPrep(qs, rows, info, *_stream_sweep(key_valid, seg_ids))
+    return (DensePrep if dense else StreamPrep)(qs, rows, info,
+                                                *_stream_sweep(key_valid, seg_ids, dense))
 
 
 def flash_bwd_stream_prep(q, k, v, key_valid, o, lse, g, seg_ids=None, *,
-                          scale: float | None = None) -> StreamPrep:
-    """What the tensor-core stream kernels read besides k, v and g, made
-    once per backward: q_s, rows and info by the kernel
+                          scale: float | None = None, dense: bool = False) -> StreamPrep:
+    """What the tensor-core backward kernels, dense (``dense``, the backward
+    up to ``STREAM_MAX_T``) or streaming, read besides k, v and g, made once
+    per backward: q_s, rows and info by the kernel
     ``flash_bwd_stream_prep`` of csrc/flash_bwd_stream.cu on CUDA tensors
-    (counted in ``flash_bwd_stream_prep.launches``), with the sweep
+    (counted in ``flash_bwd_stream_prep.launches``), with that pair's sweep
     (``_stream_sweep``); ``flash_bwd_stream_prep_reference`` on CPU ones.
     Checks the backward's inputs."""
     if not _on_cuda(q, "float32", "flash_bwd_stream_prep"):
         return flash_bwd_stream_prep_reference(q, k, v, key_valid, o, lse, g, seg_ids,
-                                               scale=scale)
+                                               scale=scale, dense=dense)
     import ctypes
 
     _check_bwd_inputs(q, k, v, key_valid, o, lse, g, seg_ids)
@@ -819,13 +916,18 @@ def flash_bwd_stream_prep(q, k, v, key_valid, o, lse, g, seg_ids=None, *,
     if err != 0:
         raise RuntimeError(f"flash_bwd_stream_prep kernel launch failed: CUDA error {err}")
     flash_bwd_stream_prep.launches += 1
-    return StreamPrep(qs, rows, info, *_stream_sweep(key_valid, seg_ids))
+    return (DensePrep if dense else StreamPrep)(qs, rows, info,
+                                                *_stream_sweep(key_valid, seg_ids, dense))
 
 
-def _stream_tc_launch(name: str, q, k, v, g, softmax_dtype, scale, prep: StreamPrep, outs):
-    """Launches tensor-core stream kernel ``name`` of csrc/flash_bwd_stream.cu
-    on ``prep`` (the outputs of ``flash_bwd_stream_prep`` for these inputs,
-    which checked them) into the preallocated ``outs``."""
+def _tc_launch(name: str, q, k, v, g, softmax_dtype, scale, prep: StreamPrep, outs, *,
+               dense: bool):
+    """Launches tensor-core backward kernel ``name`` (``flash_bwd_dq_tc`` or
+    ``flash_bwd_dkv_tc`` of csrc/flash_bwd.cu) on ``prep`` (the outputs of
+    ``flash_bwd_stream_prep`` for these inputs, which checked them) into the
+    preallocated ``outs``: as the dense backward (``dense``: the select
+    form) or as the streaming one (the bias form). A packed ``prep`` must
+    hold that pair's sweep."""
     import ctypes
 
     from repurpose_tpu_torch import native
@@ -840,12 +942,15 @@ def _stream_tc_launch(name: str, q, k, v, g, softmax_dtype, scale, prep: StreamP
             or not all(x.is_contiguous() and x.device == q.device
                        for x in prep if x is not None)):
         raise ValueError("prep: not the outputs of flash_bwd_stream_prep for these inputs")
-    lib = native.load("flash_bwd_stream")
+    if lo is not None and isinstance(prep, DensePrep) != dense:
+        raise ValueError(f"prep: made with dense={not dense} for the "
+                         f"{'dense' if dense else 'streaming'} backward")
+    lib = native.load("flash_bwd")
     strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (k, v, g) for i in range(3)))
     err = getattr(lib, name)(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), strides, rows.data_ptr(),
         info.data_ptr(), kvl.data_ptr(), _ptr(lo), _ptr(hi), *(x.data_ptr() for x in outs),
-        b, t, h, int(softmax_dtype == "bfloat16"), _scale(q, scale),
+        b, t, h, int(softmax_dtype == "bfloat16"), int(dense), _scale(q, scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -857,9 +962,10 @@ def flash_bwd_dq_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
                         scale: float | None = None) -> torch.Tensor:
     """dq of the streaming backward, ``[B, T, H, Dh]`` in q's dtype: on CUDA
     tensors a kernel of csrc/flash_bwd_stream.cu (counted in
-    ``flash_bwd_dq_stream.launches``), the tensor-core one on ``prep`` (the
-    outputs of ``flash_bwd_stream_prep``, run here when not given) where
-    ``stream_tc(q)``; ``flash_bwd_dq_stream_reference`` on CPU ones."""
+    ``flash_bwd_dq_stream.launches``) or, where ``stream_tc(q)``, the
+    tensor-core one of csrc/flash_bwd.cu in the bias form, on ``prep`` (the
+    outputs of ``flash_bwd_stream_prep``, run here when not given);
+    ``flash_bwd_dq_stream_reference`` on CPU ones."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dq_stream"):
         return flash_bwd_dq_stream_reference(*args, scale=scale)
@@ -867,8 +973,8 @@ def flash_bwd_dq_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
     if stream_tc(q):
         if prep is None:
             prep = flash_bwd_stream_prep(*args[:-1], scale=scale)
-        _stream_tc_launch("flash_bwd_dq_stream_tc", q, k, v, g, softmax_dtype, scale, prep,
-                          (dq,))
+        _tc_launch("flash_bwd_dq_tc", q, k, v, g, softmax_dtype, scale, prep, (dq,),
+                   dense=False)
     else:
         _bwd_launch("flash_bwd_dq_stream", *args, scale, (dq,))
     flash_bwd_dq_stream.launches += 1
@@ -880,8 +986,8 @@ def flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
                          scale: float | None = None):
     """(dk, dv) of the streaming backward, each ``[B, T, H, Dh]`` in the
     input dtype: on CUDA tensors a kernel of csrc/flash_bwd_stream.cu
-    (counted in ``flash_bwd_dkv_stream.launches``), the tensor-core one on
-    ``prep`` as for ``flash_bwd_dq_stream``;
+    (counted in ``flash_bwd_dkv_stream.launches``) or the tensor-core one
+    of csrc/flash_bwd.cu as for ``flash_bwd_dq_stream``;
     ``flash_bwd_dkv_stream_reference`` on CPU ones."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dkv_stream"):
@@ -891,8 +997,8 @@ def flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
     if stream_tc(q):
         if prep is None:
             prep = flash_bwd_stream_prep(*args[:-1], scale=scale)
-        _stream_tc_launch("flash_bwd_dkv_stream_tc", q, k, v, g, softmax_dtype, scale, prep,
-                          (dk, dv))
+        _tc_launch("flash_bwd_dkv_tc", q, k, v, g, softmax_dtype, scale, prep, (dk, dv),
+                   dense=False)
     else:
         _bwd_launch("flash_bwd_dkv_stream", *args, scale, (dk, dv))
     flash_bwd_dkv_stream.launches += 1
@@ -909,19 +1015,21 @@ def flash_backward(q, k, v, key_valid, o, lse, g, seg_ids=None,
     """(dq, dk, dv) of ``out = flash_forward(q, k, v, key_valid, seg_ids)[0]``
     for the upstream gradient ``g``, given the forward's ``o`` and ``lse``:
     the dense kernels up to ``STREAM_MAX_T``, the streaming ones past it, as
-    on the TPU (fa:1340-1341, 1461-1468). q/k/v may be strided views as for
-    ``flash_forward``; ``g`` and ``o`` need a contiguous head-dim axis and
-    16-byte rows."""
+    on the TPU (fa:1340-1341, 1461-1468). Where ``stream_tc(q)`` holds on
+    CUDA (bf16 at Dh 64, any T) both kernels are the tensor-core ones, and
+    ``flash_bwd_stream_prep`` runs once for the two. q/k/v may be strided
+    views as for ``flash_forward``; ``g`` and ``o`` need a contiguous
+    head-dim axis and 16-byte rows."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    prep = None
+    if _on_cuda(q, softmax_dtype, "flash_backward") and stream_tc(q):  # once for both
+        prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=q.shape[1] <= STREAM_MAX_T)
     if q.shape[1] > STREAM_MAX_T:
-        prep = None
-        if q.device.type == "cuda" and stream_tc(q):  # once for both kernels
-            prep = flash_bwd_stream_prep(*args[:-1], scale=scale)
         dq = flash_bwd_dq_stream(*args, prep, scale=scale)
         dk, dv = flash_bwd_dkv_stream(*args, prep, scale=scale)
-        return dq, dk, dv
-    dq = flash_bwd_dq(*args, scale=scale)
-    dk, dv = flash_bwd_dkv(*args, scale=scale)
+    else:
+        dq = flash_bwd_dq(*args, prep, scale=scale)
+        dk, dv = flash_bwd_dkv(*args, prep, scale=scale)
     return dq, dk, dv
 
 

@@ -47,4 +47,5 @@ def test_the_kernel_sources_resolve_their_headers():
     assert set(native.SIGNATURES) == set(by_name)
     for name in ("flash_fwd_stream", "flash_fwd_nt"):
         assert by_name[name][1:] == ["flash_fwd_tc.cuh", "hopper.cuh"]
+    assert by_name["flash_bwd"][1:] == ["flash_bwd_tc.cuh", "hopper.cuh"]
     assert by_name["flash_bwd_stream"][1:] == ["hopper.cuh"]
