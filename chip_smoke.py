@@ -11,12 +11,18 @@ verdict line):
 1. card and build: print the card's name and power limit, build every
    kernel of ``repurpose_tpu_torch/csrc`` (one nvcc per source, in parallel)
    for sm_90a;
-2. forward kernel vs plain: the flash forward against its plain PyTorch
-   version at [8, 2048, 8, 64] bf16 (unpacked and packed, bf16 and float32
-   softmax interior) and T = 1000 in float32, with times of the kernel and
-   ``scaled_dot_product_attention`` (yardstick only) per launch of a chain of
-   back-to-back launches, the plain version's, and the card's bound for the
-   same work;
+2. forward kernel vs plain: the dense flash forward against its plain
+   PyTorch version at [8, 2048, 8, 64] bf16 (unpacked and packed, bf16 and
+   float32 softmax interior, and packed rows with padding inside kvl and
+   with a video's id split into two runs: the tensor-core kernel, which each
+   call must have launched) and T = 1000 in float32 (the first design); two
+   launches equal bit for bit, and on the packed rows the tensor-core
+   kernel's bounded sweep equal bit for bit to its sweep to kvl on every row
+   that attends a key; times of the kernel (with the sweep made inside the
+   wrapper, what a direct caller pays, and made once outside the chain,
+   what the model pays) and ``scaled_dot_product_attention`` (yardstick
+   only) per launch of a chain of back-to-back launches, the plain
+   version's, and the card's bound for the same work;
 3. backward kernels vs plain: dq and dk/dv against their plain versions at
    the training shapes ([6, 2048, 8, 64] bf16, unpacked and packed, both
    interiors: the tensor-core pair on one ``flash_bwd_stream_prep``, held
@@ -29,31 +35,36 @@ verdict line):
 4. serving: the flagship MMCT (d_model 512, 16 layers, 8 heads, bf16,
    random weights from a numpy seed) serves requests of synthetic videos
    through ``InferencePipeline.score_videos``, unpacked and packed; 16 flash
-   forward launches per forward batch;
+   forward launches per forward batch, every one the tensor-core kernel;
 5. training: the production config (packed [6, 2048] batches, bf16, dropout
    0.1) trains one epoch of synthetic videos through the CLI's ``run``:
    finite losses, the val probe, a checkpoint that ``resume()`` restores,
    the tIoU evaluation, and exactly 16 launches of each kernel per forward
-   or step (the forward; the prep, dq and dk/dv, every backward launch the
-   tensor-core pair's); then the step time, videos/s and a profiler
-   breakdown of one step with the host time of the backward prep's sweep;
+   or step (the forward; the prep, dq and dk/dv; every one the tensor-core
+   kernels'); then the step time, videos/s and a profiler breakdown of one
+   step with the calls and host time of the attention sweep
+   (``attention_sweep``: once a step, shared by the 16 layers' forwards and
+   backwards);
 6. gradients: one packed [6, 2048] step of the kernel model against the
    plain-attention model, parameter by parameter (bf16: the tensor-core
-   backward pair; float32 on two rows: the first design);
+   forward and backward kernels; float32 on two rows: the first designs);
 7. long videos (``configs/longvideo.yaml``, buckets 2048..32768 at batch 1):
    a. the streaming forward kernel against its plain version at [1, 4096] and
       [1, 32768] unpacked, packed rows of [1, 8192], [1, 16384] and
       [1, 32768], bf16 (the tensor-core kernel) and float32 (the first
-      design); two launches give equal bits; the kernel, SDPA and (packed
-      32768) the dense kernel's packed variant each timed over >= 5 chains
-      of back-to-back launches (median, min, max per launch) with each
-      time's ratio to SDPA in this run, the plain version over single calls;
+      design); two launches give equal bits; at packed 32768 the dense
+      forward (the tensor-core kernel on the dense sweep, which lays the
+      same tiles where each video is one run) gives the stream kernel's
+      bits on every live row; the kernel, SDPA and (packed 32768) the dense
+      forward each timed over >= 5 chains of back-to-back launches (median,
+      min, max per launch) with each time's ratio to SDPA in this run, the
+      plain version over single calls;
    b. the flagship serves request A (one video per bucket) unpacked and
       packed, bit-identical, and request B (12 videos) in shared packed rows;
       the [1, 32768] forward against the plain-stream model; exactly 16
-      launches of the streaming kernel per forward past T = 2048, every one
-      the tensor-core kernel; the latency of each request and a profile of
-      the 32768 batch;
+      launches of the streaming kernel per forward past T = 2048 and of the
+      dense one at 2048, every one the tensor-core kernel; the latency of
+      each request and a profile of the 32768 batch;
    c. the inference CLI's ``run`` with ``--synthetic 4``, unpacked and packed;
 8. long-video training (``configs/longvideo.yaml``, remat on, batch 1):
    a. the streaming backward kernels (the prep, dq, dk/dv) against their
@@ -72,10 +83,9 @@ verdict line):
       ``flash_fwd_stream`` / ``flash_bwd_dq_stream`` / ``flash_bwd_dkv_stream``
       / ``flash_bwd_stream_prep`` per step (forward and remat recompute, the
       forwards all tensor-core; backward) and no dense backward launch; then
-      step time, videos/s and
-      peak memory per bucket,
-      the [1, 16384] step without remat (a higher peak) and a profile of the
-      [1, 32768] step;
+      step time, videos/s and peak memory per bucket, the [1, 16384] step
+      without remat (a higher peak) and a profile of the [1, 32768] step,
+      which makes the attention sweep once;
    c. every parameter gradient of a [1, 8192] step, unpacked and packed, bf16
       and float32, against the plain-stream model (the streaming forward:
       the tensor-core kernel in bf16, the first design in float32); remat on
@@ -254,15 +264,19 @@ def median_ms(fn, reps: int, warmup: int = 2) -> float:
 
 def _counted_wrappers() -> dict:
     """Every kernel wrapper by kernel name; each counts its launches in
-    ``.launches``. ``flash_fwd_stream``, ``flash_fwd_nt``, ``flash_bwd_dq``
-    and ``flash_bwd_dkv`` count every launch of their wrapper;
-    ``flash_fwd_stream_tc``, ``flash_fwd_nt_tc``, ``flash_bwd_dq_tc`` and
-    ``flash_bwd_dkv_tc`` the part of them that took the tensor-core kernel
-    (bf16 at Dh 64), so the first design's launches are the difference."""
+    ``.launches``. ``flash_fwd``, ``flash_fwd_stream``, ``flash_fwd_nt``,
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` count every launch of their
+    wrapper; ``flash_fwd_tc``, ``flash_fwd_stream_tc``, ``flash_fwd_nt_tc``,
+    ``flash_bwd_dq_tc`` and ``flash_bwd_dkv_tc`` the part of them that took
+    the tensor-core kernel (bf16 at Dh 64; ``flash_fwd_tc`` and
+    ``flash_fwd_stream_tc`` launch one kernel of csrc/flash_fwd.cu, on the
+    dense and on the stream sweep), so the first design's launches are the
+    difference."""
     from repurpose_tpu_torch.ops import flash_attention as fa
     from repurpose_tpu_torch.tools import bench_attention_fwd, bench_int8_matmul
 
-    return {"flash_fwd": fa.flash_forward, "flash_fwd_stream": fa.flash_forward_stream,
+    return {"flash_fwd": fa.flash_forward, "flash_fwd_tc": fa.flash_fwd_tc,
+            "flash_fwd_stream": fa.flash_forward_stream,
             "flash_fwd_stream_tc": fa.flash_fwd_stream_tc,
             "flash_bwd_dq": fa.flash_bwd_dq, "flash_bwd_dkv": fa.flash_bwd_dkv,
             "flash_bwd_dq_tc": fa.flash_bwd_dq_tc, "flash_bwd_dkv_tc": fa.flash_bwd_dkv_tc,
@@ -340,10 +354,11 @@ def _packed_layout(b: int, t: int, durs: list[int]):
 
 
 def packed_attention_layout(b: int, t: int, padding_inside: bool = False,
-                            split_ids: bool = False):
+                            split_ids: bool = False, durs: list[int] | None = None):
     """key_valid / seg_ids (numpy) of the packed rows of phases 2 and 3: the
-    port's packing of synthetic videos of 200-1800 s into ``b`` rows of
-    ``t``. With ``padding_inside``, a stretch of padding tokens inside each
+    port's packing of synthetic videos of 200-1800 s (or of ``durs`` steps)
+    into ``b`` rows of ``t``. With ``padding_inside``, a stretch of padding
+    tokens inside each
     row's first video: masked keys with a segment of their own, which holds
     no valid key, and the video's tail after them takes another new segment
     (every run its own id, as packing gives them). With ``split_ids``, the
@@ -351,7 +366,8 @@ def packed_attention_layout(b: int, t: int, padding_inside: bool = False,
     which is then split into two runs."""
     import numpy as np
 
-    durs = [int(d) for d in np.random.default_rng(SEED + 1).integers(200, 1801, size=24)]
+    if durs is None:
+        durs = [int(d) for d in np.random.default_rng(SEED + 1).integers(200, 1801, size=24)]
     mask, seg, _ = _packed_layout(b, t, durs)
     if padding_inside or split_ids:
         for r in range(b):
@@ -394,7 +410,7 @@ def _attention_inputs(variant: dict, gen):
 
 def _bound(q, kv, seg):
     """Least time for the work these inputs need: the two products over the
-    allowed (valid query, key) pairs, against q/k/v rows up to each batch
+    allowed (query, valid key) pairs, against q/k/v rows up to each batch
     row's last valid key read once and out/lse written once."""
     import torch
 
@@ -403,8 +419,8 @@ def _bound(q, kv, seg):
         n = kv.sum(dim=1).double()
         pairs = float((n * n).sum())
     else:
-        counts = torch.stack([(seg == s).sum(dim=1) for s in range(int(seg.max()) + 1)])
-        pairs = float((counts.double() ** 2).sum())
+        pairs = sum(float(((seg == s).sum(dim=1).double() * ((seg == s) & kv).sum(dim=1)).sum())
+                    for s in range(int(seg.max()) + 1))
     flops = 4.0 * pairs * h * dh
     idx = torch.arange(t, device=kv.device)
     kvl = torch.where(kv, idx + 1, 0).amax(dim=1)
@@ -419,17 +435,37 @@ def _bound(q, kv, seg):
             flops, bytes_)
 
 
+def _attending_rows(kv, seg):
+    """[B, T]: the query rows before kvl that attend a key, i.e. whose
+    segment (packed) holds a valid key. Rows of padding inside kvl attend
+    none: the kernels average v over their sweep there, the plain version
+    over all T keys, and nothing reads them."""
+    import torch
+
+    from repurpose_tpu_torch.ops.flash_attention import _kv_len
+
+    b, t = kv.shape
+    rows = torch.arange(t, device=kv.device)[None, :] < _kv_len(kv)
+    if seg is None:
+        return rows
+    slot = torch.remainder(seg.long(), t + 1)
+    keys = torch.zeros((b, t + 1), dtype=torch.long, device=kv.device)
+    keys.scatter_add_(1, slot, kv.long())
+    return rows & (keys.gather(1, slot) > 0)
+
+
 def _hold_forward(name: str, out, lse, ref_out, ref_lse, kv, seg, dtype: str):
     """Holds a forward kernel's (out, lse) against its plain version under
-    ``TOL``: query rows before kvl that attend a key are compared, rows at or
-    past kvl must hold 0 / ``SKIP_LSE``. Returns (max |out error|, max |lse
-    error|, the out atol, the compared rows [B, T])."""
+    ``TOL``: query rows that attend a key (``_attending_rows``) are
+    compared, rows at or past kvl must hold 0 / ``SKIP_LSE``, every row
+    must be finite. Returns (max |out error|, max |lse error|, the out atol,
+    the compared rows [B, T])."""
     import torch
 
     from repurpose_tpu_torch.ops.flash_attention import SKIP_LSE, _kv_len
 
     skip = torch.arange(out.shape[1], device=out.device)[None, :] >= _kv_len(kv)
-    live = ~skip if seg is None else ~skip & (seg >= 0)
+    live = _attending_rows(kv, seg)
     got, want = out[live].float(), ref_out[live].float()
     lse_rows = lambda m: m[:, None, :, None].expand_as(lse)  # noqa: E731
     err = float((got - want).abs().max())
@@ -485,13 +521,30 @@ def _sdpa_bwd_ms(q, k, v, kv, seg, g, reps: int, chain: int = 1):
         torch.cuda.empty_cache()
 
 
-def phase_kernel_vs_plain() -> list[dict]:
-    """2: the dense forward against its plain version; the kernel and SDPA
-    timed per launch of a chain (``spread_ms``), the plain version over
-    single calls."""
+def _sweep_to_kvl(sweep):
+    """The packed ``sweep`` widened to every key tile before kvl: the sweep
+    of the first design, through the tensor-core kernel."""
     import torch
 
-    from repurpose_tpu_torch.ops.flash_attention import flash_forward, flash_forward_reference
+    from repurpose_tpu_torch.ops.flash_attention import STREAM_TILE, AttentionSweep
+
+    n_live = (sweep.kvl + STREAM_TILE - 1) // STREAM_TILE
+    return AttentionSweep(sweep.kvl, torch.zeros_like(sweep.lo),
+                          n_live[:, None].expand_as(sweep.hi).contiguous(), sweep.dense)
+
+
+def phase_kernel_vs_plain() -> list[dict]:
+    """2: the dense forward against its plain version (bf16 at Dh 64: the
+    tensor-core kernel, which each call must have launched, and whose
+    bounded sweep must give, packed, the bits of its sweep to kvl on every
+    row that attends a key; float32: the first design), two launches equal
+    bit for bit. Timed per launch of a chain (``spread_ms``): the kernel
+    with the sweep made once outside the chain (``ms``: the card's time,
+    what the model pays) and made inside the wrapper (``wrapper_ms``: what
+    a direct caller pays), and SDPA; the plain version over single calls."""
+    import torch
+
+    from repurpose_tpu_torch.ops import flash_attention as fa
 
     variants = [
         dict(name="unpacked_bf16_softmax_bf16", shape=(8, 2048, 8, 64),
@@ -502,6 +555,13 @@ def phase_kernel_vs_plain() -> list[dict]:
              dtype="bfloat16", sm="bfloat16", packed=True),
         dict(name="packed_bf16_softmax_f32", shape=(8, 2048, 8, 64),
              dtype="bfloat16", sm="float32", packed=True),
+        # padding inside kvl on a segment of its own (rows that attend no
+        # key), and a video's id split into two runs by masked keys on
+        # segment -1: the dense sweep spans every position of each id
+        dict(name="packed_padding_inside_bf16_softmax_bf16", shape=(8, 2048, 8, 64),
+             dtype="bfloat16", sm="bfloat16", packed=True, padding_inside=True),
+        dict(name="packed_split_ids_bf16_softmax_bf16", shape=(8, 2048, 8, 64),
+             dtype="bfloat16", sm="bfloat16", packed=True, split_ids=True),
         dict(name="unpacked_f32_T1000", shape=(8, 1000, 8, 64),
              dtype="float32", sm="float32", packed=False),
     ]
@@ -509,28 +569,69 @@ def phase_kernel_vs_plain() -> list[dict]:
     rows = []
     for var in variants:
         q, k, v, kv, seg = _attention_inputs(var, gen)
-        out, lse = flash_forward(q, k, v, kv, seg_ids=seg, softmax_dtype=var["sm"])
+        sm = var["sm"]
+        tc = fa.stream_tc(q)
+        before = (fa.flash_forward.launches, fa.flash_fwd_tc.launches)
+        out, lse = fa.flash_forward(q, k, v, kv, seg_ids=seg, softmax_dtype=sm)
+        again = fa.flash_forward(q, k, v, kv, seg_ids=seg, softmax_dtype=sm)
         torch.cuda.synchronize()
-        ref_out, ref_lse = flash_forward_reference(q, k, v, kv, seg, var["sm"])
-        err, lse_err, atol, _ = _hold_forward(var["name"], out, lse, ref_out, ref_lse, kv,
-                                              seg, var["dtype"])
-
-        kernel = spread_ms(lambda: flash_forward(q, k, v, kv, seg_ids=seg,
-                                                 softmax_dtype=var["sm"]), reps=5, chain=8)
-        plain_ms = median_ms(lambda: flash_forward_reference(q, k, v, kv, seg, var["sm"]),
-                             reps=3, warmup=1)
-        library = _sdpa_spread(q, k, v, kv, seg, reps=5, chain=8)
-        bound_ms, bound_by, flops, bytes_ = _bound(q, kv, seg)
+        launched = (fa.flash_forward.launches - before[0], fa.flash_fwd_tc.launches - before[1])
+        check(launched == (2, 2 if tc else 0),
+              f"{var['name']}: flash_fwd / flash_fwd_tc launched {launched} (want "
+              f"{(2, 2 if tc else 0)})")
+        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+              f"{var['name']}: two launches of the forward kernel differ")
+        del again
+        ref_out, ref_lse = fa.flash_forward_reference(q, k, v, kv, seg, sm)
+        err, lse_err, atol, live = _hold_forward(var["name"], out, lse, ref_out, ref_lse, kv,
+                                                 seg, var["dtype"])
+        del ref_out, ref_lse
         row = dict(name=var["name"], shape=list(var["shape"]), dtype=var["dtype"],
-                   softmax_dtype=var["sm"], packed=var["packed"], max_abs_err=err,
-                   lse_max_abs_err=lse_err, out_atol=atol, ms=kernel["ms"],
-                   min_ms=kernel["min_ms"], max_ms=kernel["max_ms"], chain=8,
-                   plain_ms=plain_ms, library_ms=library["ms"],
-                   ratio_to_library=kernel["ms"] / library["ms"], bound_ms=bound_ms,
-                   bound_by=bound_by, flops=flops, bytes=bytes_)
+                   softmax_dtype=sm, packed=var["packed"],
+                   kernel="flash_fwd_tc" if tc else "flash_fwd (first design)",
+                   max_abs_err=err, lse_max_abs_err=lse_err, out_atol=atol,
+                   compared_rows=int(live.sum()), deterministic=True)
+        sweep = fa.attention_sweep(kv, seg)
+        if tc and seg is not None:
+            # the sweep to kvl through the same kernel: a tile the bounded
+            # sweep leaves out adds nothing to a row that attends a key
+            to_kvl = _sweep_to_kvl(sweep)
+            full_out, full_lse = fa.flash_forward(q, k, v, kv, seg, sm, sweep=to_kvl)
+            torch.cuda.synchronize()
+            lse_live = live[:, None, :, None].expand_as(lse)
+            check(torch.equal(full_out[live], out[live])
+                  and torch.equal(full_lse[lse_live], lse[lse_live]),
+                  f"{var['name']}: the bounded sweep differs from the sweep to kvl on rows "
+                  "that attend a key")
+            row["bounded_sweep_equals_sweep_to_kvl"] = True
+            row["sweep_to_kvl_ms"] = spread_ms(
+                lambda: fa.flash_forward(q, k, v, kv, seg, sm, sweep=to_kvl), reps=5,
+                chain=8)["ms"]
+            del full_out, full_lse, to_kvl
+        kernel = spread_ms(lambda: fa.flash_forward(q, k, v, kv, seg, sm, sweep=sweep), reps=7,
+                           chain=8)
+        wrapper = spread_ms(lambda: fa.flash_forward(q, k, v, kv, seg, sm), reps=7, chain=8)
+        library = _sdpa_spread(q, k, v, kv, seg, reps=7, chain=8)
+        bound_ms, bound_by, flops, bytes_ = _bound(q, kv, seg)
+        row.update(ms=kernel["ms"], min_ms=kernel["min_ms"], max_ms=kernel["max_ms"], chain=8,
+                   wrapper_ms=wrapper["ms"],
+                   wrapper_min_max_ms=[wrapper["min_ms"], wrapper["max_ms"]],
+                   plain_ms=median_ms(lambda: fa.flash_forward_reference(q, k, v, kv, seg, sm),
+                                      reps=3, warmup=1),
+                   library_ms=library["ms"], library_min_ms=library["min_ms"],
+                   library_max_ms=library["max_ms"],
+                   ratio_to_library=kernel["ms"] / library["ms"],
+                   wrapper_ratio_to_library=wrapper["ms"] / library["ms"],
+                   bound_ms=bound_ms, bound_by=bound_by, ratio_to_bound=kernel["ms"] / bound_ms,
+                   flops=flops, bytes=bytes_)
         print(f"[kernel] {json.dumps(row)}")
+        print(f"[forward-time] {var['name']} ({row['kernel']}): ms per call of 8 chained, "
+              f"[median, min, max]: sweep made once outside {_triple(kernel)}, made inside the "
+              f"wrapper {_triple(wrapper)}; SDPA {_triple(library)}; kernel / SDPA "
+              f"{row['ratio_to_library']:.3f} ({row['wrapper_ratio_to_library']:.3f} with the "
+              f"sweep inside); kernel / bound {row['ratio_to_bound']:.2f}")
         rows.append(row)
-        del q, k, v, kv, seg, out, lse, ref_out, ref_lse
+        del q, k, v, kv, seg, out, lse, sweep
         torch.cuda.empty_cache()
     return rows
 
@@ -584,7 +685,7 @@ def _hold_backward(label: str, got: dict, want: dict, rel: float, past) -> dict:
 def _backward_device_split(args, sm: str, calls: int = 8) -> dict:
     """Where one ``flash_backward`` call's time goes on the tensor-core path:
     device time per call by kernel (the prep, dq, dk/dv, and the small
-    launches of the sweep, ``_stream_sweep``), from torch.profiler over
+    launches of the sweep, ``attention_sweep``), from torch.profiler over
     ``calls`` back-to-back calls, against the host clock per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -821,12 +922,14 @@ def phase_main_path(card: str) -> dict:
     mixed_unpacked = pipe.score_videos(mixed, buckets=(2048,), pack=False)
     mixed_packed = pipe.score_videos(mixed, buckets=(2048,), pack=True)
     launches = flash_forward.launches
+    tc_launches = read_launches("flash_fwd_tc")["flash_fwd_tc"]
     check(forwards[0] > 0, "no forward ran")
-    check(launches == cfg.self_num_layers * forwards[0],
-          f"flash_fwd launched {launches} times for {forwards[0]} forward batches "
-          f"(want {cfg.self_num_layers} per batch)")
+    check(launches == tc_launches == cfg.self_num_layers * forwards[0],
+          f"flash_fwd launched {launches} times, flash_fwd_tc {tc_launches}, for "
+          f"{forwards[0]} forward batches (want {cfg.self_num_layers} per batch, every one "
+          "the tensor-core kernel)")
     print(f"[serve] flash_fwd launches {launches} = {cfg.self_num_layers} x "
-          f"{forwards[0]} forward batches")
+          f"{forwards[0]} forward batches, every one the tensor-core kernel (flash_fwd_tc)")
 
     def well_formed(v, r):
         check(r["video_id"] == v["video_id"] and r["duration"] == min(v["duration"], 2048),
@@ -896,7 +999,7 @@ def phase_main_path(card: str) -> dict:
           f"forward {fwd_ms:.3f} ms, decode {decode_ms:.3f} ms "
           f"(of which Soft-NMS {nms_ms:.3f} ms)")
     _profile_request(pipe, requests[2], card)
-    return dict(launches=launches, forwards=forwards[0])
+    return dict(launches=launches, tc_launches=tc_launches, forwards=forwards[0])
 
 
 def _profile_request(pipe, videos, card: str, label: str | None = None, **score_kw) -> None:
@@ -942,7 +1045,7 @@ def phase_training(card: str, workdir: str) -> dict:
     bf16, dropout 0.1, one epoch with the val probe, a checkpoint and the
     tIoU evaluation. Every MMCT forward launches the flash forward 16 times,
     every training step the prep and the two backward kernels 16 times each,
-    every backward launch the tensor-core pair's."""
+    every forward and backward launch the tensor-core kernels'."""
     import numpy as np
     import torch
 
@@ -973,20 +1076,22 @@ def phase_training(card: str, workdir: str) -> dict:
     finally:
         hook.remove()
     wall_s = time.perf_counter() - t0
-    launches = read_launches("flash_fwd", "flash_bwd_stream_prep", "flash_bwd_dq",
-                             "flash_bwd_dkv", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+    launches = read_launches("flash_fwd", "flash_fwd_tc", "flash_bwd_stream_prep",
+                             "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tc",
+                             "flash_bwd_dkv_tc")
     layers = cfg.model.self_num_layers
     check(summary["step"] == steps == forwards["grad"] and steps > 0,
           f"{summary['step']} steps, {forwards['grad']} training forwards, plan {steps}")
-    check(launches["flash_fwd"] == layers * forwards["all"],
-          f"flash_fwd launched {launches['flash_fwd']} times for {forwards['all']} forwards")
+    for name in ("flash_fwd", "flash_fwd_tc"):
+        check(launches[name] == layers * forwards["all"],
+              f"{name} launched {launches[name]} times for {forwards['all']} forwards")
     for name in ("flash_bwd_stream_prep", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tc",
                  "flash_bwd_dkv_tc"):
         check(launches[name] == layers * steps,
               f"{name} launched {launches[name]} times for {steps} steps")
     print(f"[train] {card}: {steps} steps of packed [6, 2048] batches, {forwards['all']} "
           f"forwards (val probe and eval included), launches {json.dumps(launches)} = "
-          f"{layers} per forward / per step, every backward launch the tensor-core pair's; "
+          f"{layers} per forward / per step, every launch the tensor-core kernels'; "
           f"run {wall_s:.1f} s on the host clock")
 
     lines = [json.loads(line) for line in open(os.path.join(workdir, "metrics.jsonl"))]
@@ -1029,16 +1134,17 @@ def phase_training(card: str, workdir: str) -> dict:
                 videos_per_s=videos_per_s, **profile)
 
 
-SWEEP_LABEL = "flash_attention._stream_sweep"
+SWEEP_LABEL = "flash_attention.attention_sweep"
 
 
 def _profile_step(trainer, card: str, batch=None, label: str = "one training step") -> dict:
     """Where one training step's time goes (on ``batch``, by default the
     first of epoch 2): device time by kernel against the host clock
-    (torch.profiler with CUDA activity), and the host time of the backward
-    prep's sweep (``_stream_sweep``: kvl and, packed, ``packed_block_bounds``,
-    small launches from the host), wrapped for the step in a labelled range
-    on the host clock."""
+    (torch.profiler with CUDA activity), and the calls and host time of the
+    attention sweep (``attention_sweep``: kvl and, packed, the key-tile
+    bounds, small launches from the host), each wrapped in a labelled range
+    on the host clock. The encoder makes it once a step for every layer's
+    forward, remat recompute and backward: one call."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1047,7 +1153,7 @@ def _profile_step(trainer, card: str, batch=None, label: str = "one training ste
     if batch is None:
         batch = next(iter(trainer.train_loader.epoch(2)))
     batch = trainer._device_batch(batch)
-    sweep = fa._stream_sweep
+    sweep = fa.attention_sweep
     sweep_s = []
 
     def timed_sweep(*args):
@@ -1058,7 +1164,7 @@ def _profile_step(trainer, card: str, batch=None, label: str = "one training ste
         return out
 
     torch.cuda.synchronize()
-    fa._stream_sweep = timed_sweep
+    fa.attention_sweep = timed_sweep
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1066,7 +1172,7 @@ def _profile_step(trainer, card: str, batch=None, label: str = "one training ste
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        fa._stream_sweep = sweep
+        fa.attention_sweep = sweep
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA" and e.key != SWEEP_LABEL]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -1077,8 +1183,10 @@ def _profile_step(trainer, card: str, batch=None, label: str = "one training ste
         print(f"[profile]   {e.self_device_time_total / 1e3:8.2f} ms  {e.count:5d} x  "
               f"{e.key[:90]}")
     sweep_ms = sum(sweep_s) * 1e3
-    print(f"[profile]   the backward prep's sweep (_stream_sweep): {len(sweep_s)} x, "
-          f"{sweep_ms:.2f} ms on the host clock in all (under the profiler)")
+    print(f"[profile]   the attention sweep (attention_sweep, shared by every layer): "
+          f"{len(sweep_s)} call(s) a step, {sweep_ms:.2f} ms on the host clock in all (under "
+          f"the profiler)")
+    check(len(sweep_s) == 1, f"{label}: the attention sweep was made {len(sweep_s)} times")
     return dict(profile_wall_ms=wall_ms, profile_busy_ms=busy_ms,
                 profile_sweep_calls=len(sweep_s), profile_sweep_host_ms=sweep_ms)
 
@@ -1146,7 +1254,8 @@ def phase_gradients(card: str) -> dict:
     f32 = dataclasses.replace(cfg.model, compute_dtype="float32",
                               attn_softmax_dtype="float32")
     two_rows = Batch(*[None if x is None else x[:2] for x in batch])
-    names = ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+    names = ("flash_fwd", "flash_fwd_tc", "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tc",
+             "flash_bwd_dkv_tc")
     launches = {}
     for dtype, model_cfg, b in (("bfloat16", cfg.model, batch), ("float32", f32, two_rows)):
         reset_launches()
@@ -1154,7 +1263,8 @@ def phase_gradients(card: str) -> dict:
         launches[dtype] = read_launches(*names)
         layers = cfg.model.self_num_layers
         tc = layers if dtype == "bfloat16" else 0
-        check(launches[dtype] == {"flash_bwd_dq": layers, "flash_bwd_dkv": layers,
+        check(launches[dtype] == {"flash_fwd": layers, "flash_fwd_tc": tc,
+                                  "flash_bwd_dq": layers, "flash_bwd_dkv": layers,
                                   "flash_bwd_dq_tc": tc, "flash_bwd_dkv_tc": tc},
               f"{dtype} kernel step launched {launches[dtype]}")
         plain = _step_grads(model_cfg, cfg.train, b, "xla")
@@ -1162,7 +1272,7 @@ def phase_gradients(card: str) -> dict:
                     f"[{b.visual.shape[0]}, {b.visual.shape[1]}] step", kernel, plain,
                     GRAD_REL_BOUND[dtype], cfg.model.self_num_layers)
         del kernel, plain
-    print(f"[grad] {card}: backward launches of each kernel step {json.dumps(launches)}")
+    print(f"[grad] {card}: launches of each kernel step {json.dumps(launches)}")
     return launches
 
 
@@ -1211,11 +1321,14 @@ def phase_long_kernel_vs_plain() -> list[dict]:
     """7a: the streaming kernel against its plain version at the long-video
     shapes (bf16 rows: the tensor-core kernel, which each call must have
     launched; the float32 row: the first design), two launches equal bit
-    for bit. The kernel, SDPA on the same boolean mask (yardstick only) and,
-    at the packed 32768 row, the dense kernel's packed variant, which sweeps
-    every key tile up to kvl, are each timed over >= 5 chains of
-    back-to-back launches (median, min and max per launch), with each
-    time's ratio to SDPA in this run; the plain version over single calls."""
+    for bit. At the packed 32768 row the dense forward (the tensor-core
+    kernel on the dense sweep, ``segment_tile_bounds``) must give the stream
+    kernel's bits on every live row: with each video one run of the row the
+    two sweeps lay the same tiles there. The kernel, SDPA on the same
+    boolean mask (yardstick only) and that dense forward are each timed over
+    >= 5 chains of back-to-back launches (median, min and max per launch),
+    with each time's ratio to SDPA in this run; the plain version over
+    single calls."""
     import torch
 
     from repurpose_tpu_torch.ops.flash_attention import (
@@ -1223,6 +1336,7 @@ def phase_long_kernel_vs_plain() -> list[dict]:
         flash_forward_stream_reference,
         flash_fwd_dense,
         flash_fwd_stream_tc,
+        flash_fwd_tc,
         stream_tc,
     )
 
@@ -1279,18 +1393,24 @@ def phase_long_kernel_vs_plain() -> list[dict]:
                    bound_by=bound_by, ratio_to_bound=kernel["ms"] / bound_ms, flops=flops,
                    bytes=bytes_, deterministic=True)
         if var["packed"] and q.shape[1] == 32768:
-            # the dense kernel on the same inputs: what the bounded sweep saves
-            dense_out, _ = flash_fwd_dense(q, k, v, kv, seg, sm)
+            # the dense forward on the same inputs: the same mainloop on the
+            # dense sweep, which lays the same tiles here (each video one run)
+            tc_before = flash_fwd_tc.launches
+            dense_out, dense_lse = flash_fwd_dense(q, k, v, kv, seg, sm)
+            torch.cuda.synchronize()
+            check(flash_fwd_tc.launches - tc_before == 1,
+                  "packed 32768: the dense forward did not take the tensor-core kernel")
+            lse_live = live[:, None, :, None].expand_as(lse)
+            check(torch.equal(dense_out[live], out[live])
+                  and torch.equal(dense_lse[lse_live], lse[lse_live]),
+                  "packed 32768: the dense forward's bits differ from the stream kernel's on "
+                  "live rows")
             dense = spread_ms(lambda: flash_fwd_dense(q, k, v, kv, seg, sm), reps=5,
                               chain=chain)
             row["flash_fwd_packed_ms"] = dense["ms"]
             row["flash_fwd_packed_min_max_ms"] = [dense["min_ms"], dense["max_ms"]]
-            row["flash_fwd_packed_max_abs_diff"] = float(
-                (dense_out[live].float() - out[live].float()).abs().max())
-            check(dense["ms"] > kernel["ms"],
-                  f"packed 32768: the bounded sweep ({kernel['ms']:.3f} ms) is not faster "
-                  f"than flash_fwd's packed variant ({dense['ms']:.3f} ms)")
-            del dense_out
+            row["flash_fwd_packed_bit_equal"] = True
+            del dense_out, dense_lse
         print(f"[long-kernel] {json.dumps(row)}")
         print(f"[long-forward-time] {var['name']} ({row['kernel']}): ms per call of {chain} "
               f"chained, [median, min, max] {_triple(kernel)}; SDPA {_triple(library)}; "
@@ -1305,10 +1425,10 @@ def phase_long_kernel_vs_plain() -> list[dict]:
 def _plain_stream_attention(softmax_dtype: str):
     """Attention callable of the plain-stream model: the streaming kernel's
     plain version (query and key chunks; the dense plain attention at
-    T = 32768 would need ~34 GB of scores per layer)."""
+    T = 32768 would need ~34 GB of scores per layer), on its own sweep."""
     from repurpose_tpu_torch.ops.flash_attention import flash_forward_stream_reference
 
-    def attn(q, k, v, key_valid, seg_ids=None):
+    def attn(q, k, v, key_valid, seg_ids=None, sweep=None):
         return flash_forward_stream_reference(q, k, v, key_valid, seg_ids, softmax_dtype)[0]
 
     return attn
@@ -1321,7 +1441,7 @@ def phase_long_video_serving(card: str) -> dict:
     32768 bucket and in 8192 buckets, packed rows shared, held against
     unpacked; the 32768 forward against the plain-stream model. Every
     forward launches the streaming kernel 16 times past T = 2048 and the
-    dense one 16 times at 2048."""
+    dense one 16 times at 2048, every one the tensor-core kernel."""
     import numpy as np
     import torch
 
@@ -1340,9 +1460,10 @@ def phase_long_video_serving(card: str) -> dict:
     weights = build_model(model_cfg, "cpu", seed=SEED).state_dict()
     pipe = InferencePipeline(model_cfg, weights, test_cfg, raw_outputs=True, device="cuda")
 
-    # (T, dense launches, stream launches, tensor-core stream launches) per forward
+    # (T, dense launches, stream launches, tensor-core stream launches,
+    # tensor-core dense launches) per forward
     forwards = []
-    names = ("flash_fwd", "flash_fwd_stream", "flash_fwd_stream_tc")
+    names = ("flash_fwd", "flash_fwd_stream", "flash_fwd_stream_tc", "flash_fwd_tc")
 
     def counts():
         return tuple(read_launches(*names).values())
@@ -1380,15 +1501,16 @@ def phase_long_video_serving(card: str) -> dict:
         b_results[b_buckets[0]] = (un, pk)
     launches = read_launches(*names)
     for t, *launched in forwards:
-        # past STREAM_MAX_T every streaming launch takes the tensor-core kernel
-        want = [0, layers, layers] if t > fa.STREAM_MAX_T else [layers, 0, 0]
+        # every launch takes the tensor-core kernel, streaming past STREAM_MAX_T
+        want = [0, layers, layers, 0] if t > fa.STREAM_MAX_T else [layers, 0, 0, layers]
         check(launched == want, f"a forward at T = {t} launched flash_fwd / flash_fwd_stream / "
-                                f"flash_fwd_stream_tc {launched} times (want {want})")
+                                f"flash_fwd_stream_tc / flash_fwd_tc {launched} times (want "
+                                f"{want})")
     n_served = len(forwards)
     by_t = {t: sum(1 for f in forwards if f[0] == t) for t in sorted({f[0] for f in forwards})}
     print(f"[long-serve] launches {json.dumps(launches)} over {len(forwards)} forwards "
           f"(by T: {json.dumps(by_t)}): {layers} per forward, flash_fwd_stream past "
-          f"T = {fa.STREAM_MAX_T}, every one the tensor-core kernel, flash_fwd at 2048")
+          f"T = {fa.STREAM_MAX_T} and flash_fwd at 2048, every one the tensor-core kernel")
     for name, ms in served.items():
         print(f"[long-serve] {card}: request {name}: {ms:.1f} ms on the host clock")
 
@@ -1449,7 +1571,7 @@ def phase_long_video_serving(card: str) -> dict:
         plain_s = time.perf_counter() - t0
         d = (out.cls_logits - ref.cls_logits)[..., 0][mask].abs()
         fwd_ms = median_ms(lambda: pipe.model(*args, mask), reps=3, warmup=1)
-    check(all(f[1:] == (0, layers, layers) for f in forwards[n_served:]),
+    check(all(f[1:] == (0, layers, layers, 0) for f in forwards[n_served:]),
           "a T = 32768 forward did not launch flash_fwd_stream_tc 16 times")
     p_max, p_mean = float(d.max()), float(d.mean())
     check(p_max <= BF16_LOGIT_MAX and p_mean <= BF16_LOGIT_MEAN,
@@ -1485,10 +1607,12 @@ def phase_long_cli(card: str) -> dict:
         lines = [x for x in buf.getvalue().splitlines() if "precision@tIoU" in x]
         check(len(lines) == 6 and len(means) == 6, f"CLI {extra}: printed {lines}")
         name = "packed" if extra else "unpacked"
-        launches[name] = read_launches("flash_fwd", "flash_fwd_stream", "flash_fwd_stream_tc")
+        launches[name] = read_launches("flash_fwd", "flash_fwd_tc", "flash_fwd_stream",
+                                       "flash_fwd_stream_tc")
         check(launches[name]["flash_fwd_stream"] > 0, f"CLI {extra}: no streaming launch")
-        check(launches[name]["flash_fwd_stream_tc"] == launches[name]["flash_fwd_stream"],
-              f"CLI {extra}: a streaming launch took the first design: {launches[name]}")
+        check(launches[name]["flash_fwd_stream_tc"] == launches[name]["flash_fwd_stream"]
+              and launches[name]["flash_fwd_tc"] == launches[name]["flash_fwd"],
+              f"CLI {extra}: a launch took a first design: {launches[name]}")
         print(f"[long-cli] {card}: --synthetic 4 {' '.join(extra)}: {wall_s:.1f} s, launches "
               f"{json.dumps(launches[name])}; " + "; ".join(lines))
     return launches
@@ -1752,10 +1876,10 @@ def _hold_long_run(label: str, card: str, summary: dict, seen, workdir: str, ste
     """Holds one long-video training run: ``steps`` steps, each past T = 2048
     launching exactly flash_fwd_stream 2 x ``layers`` (forward and remat
     recompute), every one the tensor-core kernel, and each streaming backward
-    kernel (the prep, dq, dk/dv)
-    ``layers`` times, nothing else; each forward without gradients ``layers`` launches of its forward
-    kernel; finite losses, the val probe, the tIoU evaluation and a
-    checkpoint. Returns the launches summed over the run."""
+    kernel (the prep, dq, dk/dv) ``layers`` times, nothing else; each forward
+    without gradients ``layers`` launches of its forward kernel, the
+    tensor-core one; finite losses, the val probe, the tIoU evaluation and
+    a checkpoint. Returns the launches summed over the run."""
     import numpy as np
     import torch
 
@@ -1771,7 +1895,7 @@ def _hold_long_run(label: str, card: str, summary: dict, seen, workdir: str, ste
               f"{label}: a step at T = {t} launched {launched} (want {step_want})")
     for t, launched in seen.forwards:
         want = ({"flash_fwd_stream": layers, "flash_fwd_stream_tc": layers}
-                if t > fa.STREAM_MAX_T else {"flash_fwd": layers})
+                if t > fa.STREAM_MAX_T else {"flash_fwd": layers, "flash_fwd_tc": layers})
         check(launched == want, f"{label}: a forward at T = {t} launched {launched}")
     total = dict.fromkeys(_counted_wrappers(), 0)
     for _, launched in seen.steps + seen.forwards:
@@ -1947,8 +2071,8 @@ def _plain_stream_trainable(softmax_dtype: str):
             dk, dv = flash_bwd_dkv_stream_reference(*args)
             return flash_bwd_dq_stream_reference(*args), dk, dv, None, None
 
-    return lambda q, k, v, key_valid, seg_ids=None: PlainStream.apply(q, k, v, key_valid,
-                                                                      seg_ids)
+    return lambda q, k, v, key_valid, seg_ids=None, sweep=None: PlainStream.apply(
+        q, k, v, key_valid, seg_ids)
 
 
 def phase_long_gradients(card: str) -> dict:
@@ -2199,8 +2323,9 @@ def phase_int8_vs_plain() -> list[dict]:
 
 def phase_bench_tools(card: str) -> dict:
     """9c: each tool's ``main([])`` on the card, its lines printed and its
-    kernels' launches read (every ``mha_nt`` launch of the attention tool,
-    bf16 at Dh 64, the tensor-core kernel); then the attention tool's
+    kernels' launches read (every ``mha_nt`` and ``flash_forward`` launch of
+    the attention tool, bf16 at Dh 64, the tensor-core kernels); then the
+    attention tool's
     ``mha_nt`` on float32 inputs of its shape, the path that still takes the
     first design."""
     import contextlib
@@ -2210,7 +2335,8 @@ def phase_bench_tools(card: str) -> dict:
 
     launches = {}
     for tool, kernels, n_lines in ((bench_attention_fwd,
-                                    ("flash_fwd_nt", "flash_fwd_nt_tc", "flash_fwd"), 8),
+                                    ("flash_fwd_nt", "flash_fwd_nt_tc", "flash_fwd",
+                                     "flash_fwd_tc"), 8),
                                    (bench_int8_matmul, ("int8_matmul", "int8_core"),
                                     1 + 2 * len(bench_int8_matmul.SHAPES))):
         name = tool.__name__.rsplit(".", 1)[-1]
@@ -2231,8 +2357,8 @@ def phase_bench_tools(card: str) -> dict:
         print(f"[bench-tools] {name}: main([]) {wall_s:.1f} s, launches "
               f"{json.dumps(launches[name])}")
     nt = launches["bench_attention_fwd"]
-    check(nt["flash_fwd_nt_tc"] == nt["flash_fwd_nt"],
-          f"bench_attention_fwd: an mha_nt launch took the first design: {nt}")
+    check(nt["flash_fwd_nt_tc"] == nt["flash_fwd_nt"] and nt["flash_fwd_tc"] == nt["flash_fwd"],
+          f"bench_attention_fwd: an mha_nt or flash_forward launch took the first design: {nt}")
 
     import torch
 
@@ -2291,25 +2417,49 @@ def main() -> int:
     int8_variants = phase_int8_vs_plain()
     bench = phase_bench_tools(card)
 
-    head = next(r for r in variants if r["name"] == "packed_bf16_softmax_bf16")
+    def timed(row):  # a row's kernel times and yardsticks, for a kernels entry
+        return {x: row[x] for x in ("max_abs_err", "ms", "min_ms", "max_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}
+
     bwd_head = next(r for r in bwd_variants if r["name"] == "packed_bf16_softmax_bf16")
     source = "repurpose_tpu_torch/csrc/"
-    long_train = long_trained["launches"]
-    kernels = [dict(
-        name="flash_fwd", route="cuda", source=source + "flash_fwd.cu",
-        replaces="repurpose_tpu/ops/flash_attention.py:227",
-        launches=trained["launches"]["flash_fwd"],
-        launches_by_path=dict(serving=served["launches"],
-                              training=trained["launches"]["flash_fwd"],
-                              long_video_serving=long_served["launches"]["flash_fwd"],
-                              long_video_cli=long_cli,
-                              long_video_training=long_train["flash_fwd"],
-                              bench_attention_fwd=bench["bench_attention_fwd"]["flash_fwd"]),
-        max_abs_err=head["max_abs_err"], ms=head["ms"], plain_ms=head["plain_ms"],
-        bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-        library_ms=head["library_ms"], variant=head["name"], variants=variants,
-    )]
     fa_line = "repurpose_tpu/ops/flash_attention.py:"
+    long_train = long_trained["launches"]
+    # the dense forward: the tensor-core kernel (bf16 at Dh 64, every path of
+    # the model and the attention tool) and the first design (float32 and
+    # the other Dh), whose launches on those paths are the difference: 0
+    fwd_tc_rows = [r for r in variants if r["kernel"] == "flash_fwd_tc"]
+    fwd_head = next(r for r in fwd_tc_rows if r["name"] == "packed_bf16_softmax_bf16")
+    fwd_first = next(r for r in variants if r["kernel"] != "flash_fwd_tc")
+    dense_fwd = dict(  # (all launches, tensor-core launches) by path
+        serving=(served["launches"], served["tc_launches"]),
+        training=(trained["launches"]["flash_fwd"], trained["launches"]["flash_fwd_tc"]),
+        long_video_serving=(long_served["launches"]["flash_fwd"],
+                            long_served["launches"]["flash_fwd_tc"]),
+        long_video_cli=tuple(sum(v[n] for v in long_cli.values())
+                             for n in ("flash_fwd", "flash_fwd_tc")),
+        long_video_training=(long_train["flash_fwd"], long_train["flash_fwd_tc"]),
+        gradients_bf16=(grad_launches["bfloat16"]["flash_fwd"],
+                        grad_launches["bfloat16"]["flash_fwd_tc"]),
+        bench_attention_fwd=(bench["bench_attention_fwd"]["flash_fwd"],
+                             bench["bench_attention_fwd"]["flash_fwd_tc"]))
+    check(all(n == tc for n, tc in dense_fwd.values()),
+          f"a dense forward on the model's paths took the first design: {dense_fwd}")
+    kernels = [dict(
+        name="flash_fwd_tc", route="cuda", source=source + "flash_fwd.cu",
+        also_source=source + "flash_fwd_tc.cuh", replaces=f"{fa_line}227",
+        launches=trained["launches"]["flash_fwd_tc"],
+        launches_by_path={path: tc for path, (_, tc) in dense_fwd.items()},
+        **timed(fwd_head), wrapper_ms=fwd_head["wrapper_ms"],
+        variant=fwd_head["name"], variants=fwd_tc_rows,
+    ), dict(
+        name="flash_fwd", route="cuda", source=source + "flash_fwd.cu",
+        replaces=f"{fa_line}227", design="first: float32, and bf16 at Dh 16, 32 and 128",
+        launches=grad_launches["float32"]["flash_fwd"],
+        launches_by_path=dict(gradients_float32=grad_launches["float32"]["flash_fwd"],
+                              **{path: n - tc for path, (n, tc) in dense_fwd.items()}),
+        **timed(fwd_first), variant=fwd_first["name"], variants=[fwd_first],
+    )]
     # the dense backward: the tensor-core pair (bf16 at Dh 64, the training
     # path) and the first design (float32 and the other Dh)
     bwd_tc_rows = [r for r in bwd_variants if "prep" in r]
@@ -2349,17 +2499,14 @@ def main() -> int:
             library_ms=bwd_first["library_ms"], variant=bwd_first["name"],
         ))
 
-    def timed(row):  # a row's kernel times and yardsticks, for a kernels entry
-        return {x: row[x] for x in ("max_abs_err", "ms", "min_ms", "max_ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms")}
-
     # the streaming forward: the tensor-core kernel (bf16 at Dh 64, every
     # long-video path) and the first design (float32 and the other Dh)
     tc_rows = [r for r in long_variants if r["kernel"] == "flash_fwd_stream_tc"]
     first_rows = [r for r in long_variants if r["kernel"] == "flash_fwd_stream"]
     long_head = next(r for r in tc_rows if r["name"] == "unpacked_T32768")
     kernels.append(dict(
-        name="flash_fwd_stream_tc", route="cuda", source=source + "flash_fwd_stream.cu",
+        # the dense forward's kernel of flash_fwd.cu, launched on the stream sweep
+        name="flash_fwd_stream_tc", route="cuda", source=source + "flash_fwd.cu",
         also_source=source + "flash_fwd_tc.cuh", replaces=f"{fa_line}592",
         also_replaces=[f"{fa_line}512", f"{fa_line}657"],
         launches=long_served["launches"]["flash_fwd_stream_tc"],

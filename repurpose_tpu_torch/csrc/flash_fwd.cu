@@ -3,10 +3,15 @@
 //
 // Replaces the TPU kernel `_flash_fwd_kernel` of
 // repurpose_tpu/ops/flash_attention.py (line 227), in its unpacked and its
-// sequence-packed (`packed=True`) variant: one kernel, whose `seg_ids`
-// pointer is null when unpacked.
+// sequence-packed (`packed=True`) variant. Two designs, by dtype and head
+// width: bf16 at Dh 64 (the model's shape) takes `flash_fwd_tc_kernel`, the
+// tensor-core design of flash_fwd_tc.cuh; float32 (which must keep float32
+// parity, so no TF32 tensor cores) and bf16 at Dh 16, 32 and 128 keep the
+// first design, `flash_fwd_kernel<T, DH>`, which has no bf16 Dh 64 instance.
+// In both a `seg_ids` pointer null or not selects the unpacked or the
+// packed variant.
 //
-// What it computes, per batch row b, head h and query row i < kvl:
+// What both compute, per batch row b, head h and query row i < kvl:
 //   q_s    = round_to_input_dtype(float(q) * scale)        scale = 1/sqrt(Dh)
 //   s_j    = dot(q_s, k_j) in float32 + (allowed(i, j) ? 0 : -1e9)
 //   allowed(i, j) = key_valid[j] && (no seg_ids || seg_ids[i] == seg_ids[j])
@@ -16,26 +21,47 @@
 //   lse_i  = max_j s_j + log(sum_j p_j)
 // and for every query row i >= kvl (kvl = last valid key + 1 of the batch
 // row): out_i = 0, lse_i = 1e30. The TPU kernel skips whole query blocks
-// past kvl; this one skips row by row. Nothing downstream reads those rows.
+// past kvl; these kernels skip row by row. Nothing downstream reads those
+// rows. Both run the online softmax over 64-key tiles (the recurrence of
+// flash_fwd_stream.cu's note), which reaches the same values up to rounding.
 //
 // What bounds it. At the main path's shapes ([8, 2048, 8, 64] bf16, about
 // 60 % of each bucket valid) the work is the two products, 4*B*H*T*T*Dh
 // operations (68.7 GFLOP unpadded, ~69 us at 989 TFLOP/s), against ~67 MB of
-// q/k/v/out traffic (~20 us at 3.35 TB/s): it is bound by operations.
+// q/k/v/out traffic (~20 us at 3.35 TB/s): it is bound by operations; on the
+// card the tensor-core design is bound by the softmax's elementwise work per
+// (query, key) pair, as flash_fwd_tc.cuh says.
 //
-// What the design does about it, and what it leaves for later. The TPU kernel
-// holds a [Tq, T] float32 score slab in VMEM (4 MB at q_block 512, T 2048);
-// a Hopper block has 227 KB of shared memory, so this kernel runs the online
-// softmax instead: one block per (64-row query tile, head, batch row), four
-// warps of 16 query rows each, a sweep over 64-key tiles of K and V staged in
-// shared memory, and running max / running denominator / float32 output
-// accumulator per row, with the divide deferred to the end (as on the TPU).
-// The sweep stops at kvl, and query tiles at or past kvl do no work, so the
-// padding of a bucket costs nothing. bf16 products run on the tensor cores
-// through `nvcuda::wmma` (16x16x16, float32 accumulate); float32 inputs take
-// scalar FMAs, since TF32 would lose the float32 parity the tests hold it to.
-// Not done yet: wgmma, TMA, a multi-stage K/V ring and warp specialisation,
-// and skipping key tiles that hold none of a packed query tile's videos.
+// The tensor-core design (bf16, Dh 64; flash_fwd_tc.cuh has the whole
+// note): one consumer warpgroup per 64-row query tile and head and one
+// producer warp feeding a 3-stage TMA ring of K/V tiles; S = Q_s K^T and
+// O += P V by wgmma m64n64k16 with float32 register accumulators; the
+// online softmax on the accumulator layout with paired bf16 roundings. Its
+// sweep comes from the wrapper, made once per batch (`attention_sweep`, the
+// same record the backward's prep reads): key tiles [0, ceil(kvl / 64))
+// unpacked and [lo, min(hi, ceil(kvl / 64))) packed. The dense forward
+// hands it lo / hi from `segment_tile_bounds` at 64/64, the span of every
+// position of each segment id owning a row of the query tile. A tile left
+// out holds, for every row of the query tile, only keys at -1e9 (another
+// id's, or masked): on a row that attends a key it could only add
+// exp(-1e9 - m) = 0, or a running max that the first tile with a real key
+// wipes out (alpha = 0), so the bounded sweep gives the bits of the sweep to
+// kvl there. A row that attends no key (padding inside kvl) averages v over
+// its swept tiles; nothing reads it. A query tile at or past kvl, or with an
+// empty range, writes 0 and lse = 1e30. The same kernel is the long-T
+// forward's (flash_fwd_stream.cu's note), handed `packed_block_bounds`
+// instead. One head a block: two heads a block (one block an SM, the
+// producer and the bias shared) ran 1.17-1.25x slower on an H100 (PERF.md).
+//
+// The first design (float32; bf16 at Dh 16, 32, 128): one block per (64-row
+// query tile, head, batch row), four warps of 16 query rows each, a sweep
+// over every 64-key tile up to kvl staged in shared memory, and running max /
+// running denominator / float32 output accumulator per row, with the divide
+// deferred to the end (as on the TPU). Query tiles at or past kvl do no work,
+// so the padding of a bucket costs nothing. bf16 products run on the tensor
+// cores through `nvcuda::wmma` (16x16x16, float32 accumulate); float32
+// inputs take scalar FMAs, since TF32 would lose the float32 parity the
+// tests hold it to.
 //
 // Layout: q/k/v are read in place through (batch, token, head) strides, so
 // the three column slices of the [B, T, 3*H*Dh] QKV projection go in without
@@ -50,6 +76,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "flash_fwd_tc.cuh"
 
 namespace {
 
@@ -362,8 +390,11 @@ int dispatch_dh(int Dh, const void* q, const void* k, const void* v, Strides st,
       return launch<T, 16>(q, k, v, st, key_valid, seg_ids, out, lse, B, T_len, H, scale, sm_bf16, stream);
     case 32:
       return launch<T, 32>(q, k, v, st, key_valid, seg_ids, out, lse, B, T_len, H, scale, sm_bf16, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, st, key_valid, seg_ids, out, lse, B, T_len, H, scale, sm_bf16, stream);
+    case 64:  // bf16 at Dh 64 takes flash_fwd_tc_kernel
+      if constexpr (std::is_same<T, bf16>::value) return (int)cudaErrorInvalidValue;
+      else
+        return launch<T, 64>(q, k, v, st, key_valid, seg_ids, out, lse, B, T_len, H, scale,
+                             sm_bf16, stream);
     case 128:
       return launch<T, 128>(q, k, v, st, key_valid, seg_ids, out, lse, B, T_len, H, scale, sm_bf16, stream);
     default:
@@ -371,12 +402,20 @@ int dispatch_dh(int Dh, const void* q, const void* k, const void* v, Strides st,
   }
 }
 
+// The tensor-core design (bf16, Dh 64): flash_fwd_tc.cuh.
+template <bool SM_BF16, bool PACKED>
+__global__ void __launch_bounds__(fwd_tc::Cfg<1>::THREADS, fwd_tc::Cfg<1>::MIN_BLOCKS)
+    flash_fwd_tc_kernel(const __grid_constant__ fwd_tc::Params p) {
+  fwd_tc::run_block<1, SM_BF16, PACKED, false>(p);
+}
+
 }  // namespace
 
 // C entry point, bound with ctypes (repurpose_tpu_torch/native.py). Strides
 // are in elements; is_bf16 selects bf16 (1) or float32 (0) q/k/v/out; a null
 // seg_ids selects the unpacked variant. Returns cudaGetLastError() after the
-// launch (0 on success).
+// launch (0 on success); bf16 at Dh 64 is refused (cudaErrorInvalidValue):
+// it takes flash_fwd_tc below.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, long long qb,
                          long long qt, long long qh, long long kb, long long kt,
                          long long kh, long long vb, long long vt, long long vh,
@@ -391,4 +430,35 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, long long 
                              scale, sm_bf16, s);
   return dispatch_dh<float>(Dh, q, k, v, st, key_valid, seg_ids, out, lse, B, T_len, H,
                             scale, sm_bf16, s);
+}
+
+// The tensor-core entry point (bf16, Dh 64), of the dense and the long-T
+// forward: `strides` holds 9 element strides, (batch, token, head) of q, k,
+// v; kvl is int32 [B], and a null seg_ids selects the unpacked variant, else
+// lo / hi (int32 [B, ceil(T / 64)]) are the key-tile bounds of the sweep.
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a view no tensor map can describe.
+extern "C" int flash_fwd_tc(const void* q, const void* k, const void* v, const long long* strides,
+                            const void* key_valid, const void* seg_ids, const void* kvl,
+                            const void* lo, const void* hi, void* out, void* lse, int B, int T_len,
+                            int H, int sm_bf16, float scale, void* stream) {
+  if (B <= 0 || T_len <= 0 || H <= 0) return 0;
+  if (!kvl || (seg_ids && (!lo || !hi))) return (int)cudaErrorInvalidValue;
+  fwd_tc::Params p;
+  const int err = fwd_tc::encode_qkv(p, q, k, v, strides, B, T_len, H);
+  if (err != 0) return err;
+  p.key_valid = static_cast<const uint8_t*>(key_valid);
+  p.seg_ids = static_cast<const int*>(seg_ids);
+  p.kvl = static_cast<const int*>(kvl);
+  p.tile_lo = static_cast<const int*>(lo);
+  p.tile_hi = static_cast<const int*>(hi);
+  p.out = static_cast<bf16*>(out);
+  p.lse = static_cast<float*>(lse);
+  p.T = T_len;
+  p.H = H;
+  p.scale = scale;
+  void (*kernel)(fwd_tc::Params) =
+      seg_ids ? (sm_bf16 ? &flash_fwd_tc_kernel<true, true> : &flash_fwd_tc_kernel<false, true>)
+              : (sm_bf16 ? &flash_fwd_tc_kernel<true, false> : &flash_fwd_tc_kernel<false, false>);
+  return fwd_tc::launch<1>(kernel, p, B, static_cast<cudaStream_t>(stream));
 }

@@ -13,10 +13,12 @@
 // VMEM slab, or HBM with double-buffered DMA). On Hopper K/V always come
 // from device memory, so the three fold into one: a `seg_ids` pointer null
 // or not selects the packed variant. bf16 at Dh 64 (the model's shape)
-// takes `flash_fwd_stream_tc_kernel`, the tensor-core design of
-// flash_fwd_tc.cuh; float32 (which must keep float32 parity, so no TF32
-// tensor cores) and bf16 at Dh 16, 32 and 128 keep the first design,
-// `flash_fwd_stream_kernel<T, DH>`, which has no bf16 Dh 64 instance.
+// takes the tensor-core design of flash_fwd_tc.cuh, whose one kernel,
+// flash_fwd.cu's `flash_fwd_tc_kernel`, serves the dense and the long-T
+// forward, each handed its own sweep; float32 (which must keep float32
+// parity, so no TF32 tensor cores) and bf16 at Dh 16, 32 and 128 keep the
+// first design, `flash_fwd_stream_kernel<T, DH>` of this file, which has no
+// bf16 Dh 64 instance.
 //
 // What both compute, per batch row b, head h and 64-row query tile qt, over
 // the key tiles kt of its sweep (64 keys each), with the TPU stream
@@ -39,9 +41,10 @@
 // past T do not exist (p = 0). A query tile at or past kvl, or whose range
 // is empty, writes out = 0 and lse = 1e30 (fa:689-700); inside a live tile,
 // rows at or past kvl do the same, row by row (the TPU kernel computes
-// them; nothing reads them). kvl and the packed bounds are computed once by
-// the wrapper (the TPU kernels' scalar-prefetch operands), so no block
-// scans key_valid.
+// them; nothing reads them). kvl and the packed bounds come from the
+// wrapper (the TPU kernels' scalar-prefetch operands), made once per batch
+// (`attention_sweep`) and shared by every layer, so no block scans
+// key_valid.
 //
 // What bounds it. At [1, 32768, 8, 64] bf16 with kvl ~ 0.9 T the two
 // products are 4 * kvl^2 * H * Dh = 2.2 TFLOP (1.79 ms at 989 TFLOP/s)
@@ -58,7 +61,8 @@
 // layout, its bf16 roundings in pairs, the next tile's S issued before this
 // tile's P V is waited for. It runs at ~3x its bound at [1, 32768]
 // (PERF.md): the softmax's elementwise work per (query, key) pair, not the
-// products, takes the time.
+// products, takes the time. The dense forward launches the same kernel
+// over the dense sweep (`segment_tile_bounds`) instead of this one's.
 //
 // The first design (float32; bf16 at Dh 16, 32, 128): one block per (64-row
 // query tile, head, batch row), four warps of 16 query rows each, the online
@@ -84,8 +88,6 @@
 #include <stdint.h>
 
 #include <type_traits>
-
-#include "flash_fwd_tc.cuh"
 
 namespace {
 
@@ -464,7 +466,7 @@ int dispatch_dh(int Dh, const void* q, const void* k, const void* v, Strides st,
     case 32:
       return launch<T, 32>(q, k, v, st, key_valid, seg_ids, kvl, lo, hi, out, lse, B,
                            T_len, H, scale, sm_bf16, stream);
-    case 64:  // bf16 at Dh 64 takes flash_fwd_stream_tc_kernel
+    case 64:  // bf16 at Dh 64 takes flash_fwd.cu's flash_fwd_tc_kernel
       if constexpr (std::is_same<T, bf16>::value) return (int)cudaErrorInvalidValue;
       else
         return launch<T, 64>(q, k, v, st, key_valid, seg_ids, kvl, lo, hi, out, lse, B,
@@ -477,13 +479,6 @@ int dispatch_dh(int Dh, const void* q, const void* k, const void* v, Strides st,
   }
 }
 
-// The tensor-core design (bf16, Dh 64): flash_fwd_tc.cuh.
-template <bool SM_BF16, bool PACKED>
-__global__ void __launch_bounds__(fwd_tc::Cfg<1>::THREADS, fwd_tc::Cfg<1>::MIN_BLOCKS)
-    flash_fwd_stream_tc_kernel(const __grid_constant__ fwd_tc::Params p) {
-  fwd_tc::run_block<1, SM_BF16, PACKED, false>(p);
-}
-
 }  // namespace
 
 // C entry point, bound with ctypes (repurpose_tpu_torch/native.py). Strides
@@ -491,7 +486,7 @@ __global__ void __launch_bounds__(fwd_tc::Cfg<1>::THREADS, fwd_tc::Cfg<1>::MIN_B
 // seg_ids selects the unpacked variant (lo and hi are then ignored). kvl is
 // int32 [B]; lo/hi are int32 [B, ceil(T / 64)]. Returns cudaGetLastError()
 // after the launch (0 on success); bf16 at Dh 64 is refused
-// (cudaErrorInvalidValue): it takes flash_fwd_stream_tc below.
+// (cudaErrorInvalidValue): it takes flash_fwd.cu's flash_fwd_tc.
 extern "C" int flash_fwd_stream(const void* q, const void* k, const void* v,
                                 long long qb, long long qt, long long qh, long long kb,
                                 long long kt, long long kh, long long vb, long long vt,
@@ -508,36 +503,4 @@ extern "C" int flash_fwd_stream(const void* q, const void* k, const void* v,
                              B, T_len, H, scale, sm_bf16, s);
   return dispatch_dh<float>(Dh, q, k, v, st, key_valid, seg_ids, kvl, lo, hi, out, lse,
                             B, T_len, H, scale, sm_bf16, s);
-}
-
-// The tensor-core entry point (bf16, Dh 64): `strides` holds 9 element
-// strides, (batch, token, head) of q, k, v; the other arguments as above.
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for a view no tensor map can describe.
-extern "C" int flash_fwd_stream_tc(const void* q, const void* k, const void* v,
-                                   const long long* strides, const void* key_valid,
-                                   const void* seg_ids, const void* kvl, const void* lo,
-                                   const void* hi, void* out, void* lse, int B, int T_len, int H,
-                                   int sm_bf16, float scale, void* stream) {
-  if (B <= 0 || T_len <= 0 || H <= 0) return 0;
-  if (!kvl || (seg_ids && (!lo || !hi))) return (int)cudaErrorInvalidValue;
-  fwd_tc::Params p;
-  const int err = fwd_tc::encode_qkv(p, q, k, v, strides, B, T_len, H);
-  if (err != 0) return err;
-  p.key_valid = static_cast<const uint8_t*>(key_valid);
-  p.seg_ids = static_cast<const int*>(seg_ids);
-  p.kvl = static_cast<const int*>(kvl);
-  p.tile_lo = static_cast<const int*>(lo);
-  p.tile_hi = static_cast<const int*>(hi);
-  p.out = static_cast<bf16*>(out);
-  p.lse = static_cast<float*>(lse);
-  p.T = T_len;
-  p.H = H;
-  p.scale = scale;
-  void (*kernel)(fwd_tc::Params) =
-      seg_ids ? (sm_bf16 ? &flash_fwd_stream_tc_kernel<true, true>
-                         : &flash_fwd_stream_tc_kernel<false, true>)
-              : (sm_bf16 ? &flash_fwd_stream_tc_kernel<true, false>
-                         : &flash_fwd_stream_tc_kernel<false, false>);
-  return fwd_tc::launch<1>(kernel, p, B, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,10 @@
 // The tensor-core attention forward for Hopper (sm_90a), bf16 at Dh 64: one
 // warpgroup mainloop shared by two kernels,
-//   - flash_fwd_stream_tc_kernel (flash_fwd_stream.cu), the long-T forward
-//     with its LSE, unpacked and packed, under either softmax interior;
+//   - flash_fwd_tc_kernel (flash_fwd.cu), the attention forward with its
+//     LSE, unpacked and packed, under either softmax interior, over the
+//     sweep its wrapper hands it: the dense one (`segment_tile_bounds`) for
+//     the dense forward (T <= 2048), the stream one (`packed_block_bounds`)
+//     for the long-T forward;
 //   - flash_fwd_nt_tc_kernel (flash_fwd_nt.cu), the no-transpose forward of
 //     the attention bench tool: no LSE, every query row computed, the float32
 //     interior, G = heads_per_block heads per block.
@@ -78,7 +81,10 @@
 // their 32 arrivals beside lane 0's TMA bytes. The stream and nt semantics
 // differ only in the sweep, the live rows and the LSE, so one mainloop
 // takes both as template flags; nt's kvl, which its wrapper does not
-// compute, is found by each block in one pass over key_valid.
+// compute, is found by each block in one pass over key_valid. The dense and
+// the long-T forward differ only in the sweep, which their wrappers take
+// from one record made per batch (`attention_sweep`), so one kernel serves
+// both and no block scans key_valid or the segments for it.
 
 #pragma once
 
@@ -252,6 +258,7 @@ __device__ void skip_tile(const Params& p, int b, int h, int q0) {
 // and dead tiles get 0 / SKIP_LSE).
 template <int G, bool SM_BF16, bool PACKED, bool NT>
 __device__ __forceinline__ void run_block(const Params& p) {
+  static_assert(NT || G == 1, "the stream semantics run one head a block");
   using C = Cfg<G>;
   constexpr int S = C::STAGES;
   extern __shared__ unsigned char smem_raw[];

@@ -21,6 +21,11 @@ reference checkpoints load strictly. Numerics follow the JAX model:
   only torch's default generators, so the layer's own dropout generator is
   set back to its state at the forward for the recompute and then returned
   to where the recompute found it.
+- the attention kernels' sweep (kvl and the key-tile bounds) depends only
+  on the mask, the segments and T: where the attention callable has a
+  ``make_sweep`` (the kernel ``attention_impl`` values) the encoder makes it
+  once per forward and hands it to every layer, whose forward, remat
+  recompute and backward all take it.
 """
 
 from __future__ import annotations
@@ -78,12 +83,13 @@ class SelfAttention(nn.Module):
         self.out_proj = nn.Linear(d, d)
         self.attn = select_attention_impl(cfg.attention_impl, cfg.attn_softmax_dtype)
 
-    def forward(self, x, key_valid, seg_ids=None):
+    def forward(self, x, key_valid, seg_ids=None, sweep=None):
         b, t, d = x.shape
         h = self.cfg.num_heads
         qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
         q, k, v = (z.view(b, t, h, d // h) for z in qkv.split(d, dim=-1))
-        out = self.attn(q, k, v, key_valid, seg_ids=seg_ids)
+        kw = {} if sweep is None else {"sweep": sweep}
+        out = self.attn(q, k, v, key_valid, seg_ids=seg_ids, **kw)
         return linear(out.reshape(b, t, d), self.out_proj, x.dtype)
 
 
@@ -102,10 +108,10 @@ class EncoderLayer(nn.Module):
         self.dropout = Dropout(cfg.dropout)  # FFN hidden
         self.dropout2 = Dropout(cfg.dropout)  # FFN output
 
-    def forward(self, x, key_valid, seg_ids=None):
+    def forward(self, x, key_valid, seg_ids=None, sweep=None):
         dtype = x.dtype
         y = layer_norm(x, self.norm1).to(dtype)
-        x = x + self.dropout1(self.self_attn(y, key_valid, seg_ids))
+        x = x + self.dropout1(self.self_attn(y, key_valid, seg_ids, sweep))
         y = layer_norm(x, self.norm2).to(dtype)
         y = self.dropout(torch.relu(linear(y, self.linear1, dtype)))
         return x + self.dropout2(linear(y, self.linear2, dtype))
@@ -136,19 +142,24 @@ def _replaying_dropout(layer: nn.Module):
 
 class Encoder(nn.Module):
     """Stack of pre-LN layers (reference: 16, models/MMCTransformer.py:51-55),
-    each rematerialised in the backward when ``cfg.remat`` is on."""
+    each rematerialised in the backward when ``cfg.remat`` is on. With a
+    kernel attention one sweep per forward (``make_sweep``) serves every
+    layer."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.remat = cfg.remat
+        attn = select_attention_impl(cfg.attention_impl, cfg.attn_softmax_dtype)
+        self.make_sweep = getattr(attn, "make_sweep", None)  # None: no kernel takes a sweep
         self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.self_num_layers))
 
     def forward(self, x, key_valid, seg_ids=None):
+        sweep = None if self.make_sweep is None else self.make_sweep(key_valid, seg_ids)
         for layer in self.layers:
             if self.remat and torch.is_grad_enabled():
                 x = torch.utils.checkpoint.checkpoint(
-                    layer, x, key_valid, seg_ids, use_reentrant=False,
+                    layer, x, key_valid, seg_ids, sweep, use_reentrant=False,
                     context_fn=_replaying_dropout(layer))
             else:
-                x = layer(x, key_valid, seg_ids)
+                x = layer(x, key_valid, seg_ids, sweep)
         return x

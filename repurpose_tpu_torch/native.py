@@ -45,6 +45,7 @@ SIGNATURES = {
              _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
             _I,
         ),
+        "flash_fwd_tc": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _P], _I),
     },
     "flash_fwd_stream": {
         "flash_fwd_stream": (
@@ -52,7 +53,6 @@ SIGNATURES = {
              _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
             _I,
         ),
-        "flash_fwd_stream_tc": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _P], _I),
     },
     "flash_bwd": {
         "flash_bwd_dq": (

@@ -14,7 +14,10 @@ Counterpart of ``repurpose_tpu/ops/attention.py``:
   its odd-T fallbacks are TPU tiling artefacts, and the Hopper kernels mask
   their own ragged edge. A head width without a kernel instance runs
   zero-padded to the next one (``kernel_head_dim`` in ops/flash_attention.py),
-  where the JAX package sends untileable shapes to ``mha_xla``.
+  where the JAX package sends untileable shapes to ``mha_xla``. The kernel
+  callable also takes ``sweep``, the batch's ``AttentionSweep`` (kvl and the
+  key-tile bounds), which the encoder makes once for all its layers with
+  the callable's ``make_sweep``.
 
 Masking follows torch's ``src_key_padding_mask``: padded keys are excluded
 from every query's softmax; padded query rows hold finite values that no
@@ -54,17 +57,20 @@ def mha_torch(
 
 def select_attention_impl(impl: str, softmax_dtype: str = "float32") -> Callable:
     """Resolve ModelConfig.attention_impl to a callable
-    ``(q, k, v, key_valid, seg_ids=None) -> out [B, T, H, Dh]``."""
+    ``(q, k, v, key_valid, seg_ids=None) -> out [B, T, H, Dh]``. The
+    kernels' callable also takes ``sweep=None`` and has
+    ``make_sweep(key_valid, seg_ids)``, the batch's sweep for every call."""
     if impl == "xla":
         return mha_torch
     if impl in ("auto", "pallas", "pallas_full"):
-        from repurpose_tpu_torch.ops.flash_attention import flash_attention
+        from repurpose_tpu_torch.ops import flash_attention as fa
 
         backward = "xla" if impl == "pallas" else "pallas"
 
-        def flash(q, k, v, key_valid, seg_ids=None):
-            return flash_attention(q, k, v, key_valid, seg_ids, softmax_dtype, backward)
+        def flash(q, k, v, key_valid, seg_ids=None, sweep=None):
+            return fa.flash_attention(q, k, v, key_valid, seg_ids, softmax_dtype, backward, sweep)
 
+        flash.make_sweep = lambda key_valid, seg_ids=None: fa.attention_sweep(key_valid, seg_ids)
         return flash
     if impl == "ring":
         raise NotImplementedError(

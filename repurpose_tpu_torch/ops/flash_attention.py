@@ -3,8 +3,11 @@ PyTorch versions, and the autograd Function that ties them together.
 
 ``flash_forward`` is the counterpart of ``_flash_forward`` in
 ``repurpose_tpu/ops/flash_attention.py``, whose dense TPU kernel
-``_flash_fwd_kernel`` (unpacked and packed) it replaces with one hand-written
-kernel for Hopper, ``csrc/flash_fwd.cu`` (design notes there). Contract, as
+``_flash_fwd_kernel`` (unpacked and packed) it replaces with the kernels of
+``csrc/flash_fwd.cu`` (design notes there): in bf16 at Dh 64 (``stream_tc``)
+``flash_fwd_tc``, a wgmma kernel fed by TMA that sweeps, packed, only the
+key tiles of each query tile's own segment ids (``segment_tile_bounds``),
+else the first design, which sweeps every key tile up to kvl. Contract, as
 on the TPU:
 
 - q/k/v ``[B, T, H, Dh]`` in bfloat16 or float32, ``key_valid [B, T]`` bool,
@@ -57,8 +60,15 @@ the three long-T TPU forwards (``_flash_fwd_stream_kernel``,
 kernel replaces: ``csrc/flash_fwd_stream.cu``. It runs the TPU stream
 kernels' online-softmax recurrence over 64-key tiles and, packed, sweeps
 only the key tiles ``[lo, hi)`` of each query tile's own videos
-(``packed_block_bounds``); in bf16 at Dh 64 (``stream_tc``) that is a wgmma
-kernel fed by TMA, ``flash_fwd_stream_tc``.
+(``packed_block_bounds``); in bf16 at Dh 64 (``stream_tc``) that is
+``flash_fwd_stream_tc``, the dense forward's wgmma kernel of
+``csrc/flash_fwd.cu`` handed this sweep.
+
+The sweeps, kvl and the key-tile bounds, depend only on ``key_valid``,
+``seg_ids`` and T, so the model makes them once per batch
+(``attention_sweep``, an ``AttentionSweep``) and hands the record to every
+layer's forward and backward (the ``sweep`` argument of the wrappers); a call
+without one makes its own.
 
 On a CPU tensor each wrapper computes its plain version. On a CUDA tensor it
 launches the kernel or raises: there is no fallback.
@@ -182,58 +192,102 @@ def _on_cuda(q, softmax_dtype: str, name: str) -> bool:
 def flash_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
     seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32", *,
-    scale: float | None = None,
+    scale: float | None = None, sweep: AttentionSweep | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """q/k/v ``[B, T, H, Dh]`` -> (out ``[B, T, H, Dh]``, lse ``[B, H, T, 1]``).
 
-    T <= ``STREAM_MAX_T`` runs the dense forward (``flash_fwd``), longer T the
-    streaming one (``flash_forward_stream``), unpacked and packed. q/k/v may
-    be strided views (e.g. the column slices of a fused QKV projection) as
-    long as the head-dim axis is contiguous and rows start on 16-byte
-    boundaries. ``scale`` replaces 1/sqrt(Dh) (a zero-padded head's own)."""
+    T <= ``STREAM_MAX_T`` runs the dense forward (``flash_fwd_dense``), longer
+    T the streaming one (``flash_forward_stream``), unpacked and packed, each
+    on ``sweep`` (``attention_sweep(key_valid, seg_ids)``, made here when not
+    given). q/k/v may be strided views (e.g. the column slices of a fused
+    QKV projection) as long as the head-dim axis is contiguous and rows start
+    on 16-byte boundaries. ``scale`` replaces 1/sqrt(Dh) (a zero-padded
+    head's own)."""
     if q.shape[1] > STREAM_MAX_T:
-        return flash_forward_stream(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale)
-    return flash_fwd_dense(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale)
+        return flash_forward_stream(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale,
+                                    sweep=sweep)
+    return flash_fwd_dense(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale, sweep=sweep)
 
 
 def flash_fwd_dense(q, k, v, key_valid, seg_ids=None, softmax_dtype: str = "float32", *,
-                    scale: float | None = None):
-    """The dense forward at any T: the kernel of csrc/flash_fwd.cu on CUDA
-    tensors (counted in ``flash_forward.launches``), its plain version on CPU
-    ones. ``flash_forward`` takes it up to ``STREAM_MAX_T``."""
+                    scale: float | None = None, sweep: AttentionSweep | None = None):
+    """The dense forward at any T, counted in ``flash_forward.launches`` on
+    CUDA tensors: where ``stream_tc(q)`` the tensor-core kernel
+    (``flash_fwd_tc``) on the dense sweep ``sweep`` (``attention_sweep``
+    with ``dense=True``, made here when not given), else the first design of
+    csrc/flash_fwd.cu, which sweeps every key tile up to kvl. On CPU tensors
+    its plain version over every key (a given ``sweep`` is checked; on a
+    row that attends a key the bounded sweep gives the same values).
+    ``flash_forward`` takes it up to ``STREAM_MAX_T``."""
     if not _on_cuda(q, softmax_dtype, "flash_forward"):
+        if sweep is not None:
+            _sweep_for(key_valid, seg_ids, sweep, dense=True)
         return flash_forward_reference(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale)
     _check_cuda_inputs(q, k, v, key_valid, seg_ids)
     from repurpose_tpu_torch import native
 
-    lib = native.load("flash_fwd")
     b, t, h, dh = q.shape
     key_valid = key_valid.contiguous()
     if seg_ids is not None:
         seg_ids = seg_ids.contiguous()
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t, 1), dtype=torch.float32, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        key_valid.data_ptr(), None if seg_ids is None else seg_ids.data_ptr(),
-        out.data_ptr(), lse.data_ptr(),
-        b, t, h, dh, int(q.dtype == torch.bfloat16),
-        int(softmax_dtype == "bfloat16"), _scale(q, scale), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
+    if stream_tc(q):
+        flash_fwd_tc(q, k, v, key_valid, seg_ids, _sweep_for(key_valid, seg_ids, sweep, dense=True),
+                     out, lse, softmax_dtype, _scale(q, scale))
+    else:
+        err = native.load("flash_fwd").flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            key_valid.data_ptr(), _ptr(seg_ids), out.data_ptr(), lse.data_ptr(),
+            b, t, h, dh, int(q.dtype == torch.bfloat16), int(softmax_dtype == "bfloat16"),
+            _scale(q, scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     flash_forward.launches += 1
     return out, lse
 
 
+def flash_fwd_tc(q, k, v, key_valid, seg_ids, sweep: AttentionSweep, out, lse,
+                 softmax_dtype: str, scale: float) -> None:
+    """Launches the tensor-core dense forward (``flash_fwd_tc_kernel`` of
+    csrc/flash_fwd.cu, bf16 at Dh 64) on the checked inputs of
+    ``flash_fwd_dense`` and its dense sweep into ``out`` / ``lse``; counted
+    in ``flash_fwd_tc.launches`` (the caller counts it in
+    ``flash_forward.launches`` too)."""
+    _fwd_tc_launch(q, k, v, key_valid, seg_ids, sweep, out, lse, softmax_dtype, scale)
+    flash_fwd_tc.launches += 1
+
+
+def _fwd_tc_launch(q, k, v, key_valid, seg_ids, sweep, out, lse, softmax_dtype: str,
+                   scale: float) -> None:
+    """Calls ``flash_fwd_tc`` of csrc/flash_fwd.cu, the one kernel of the
+    tensor-core forward with its LSE (csrc/flash_fwd_tc.cuh), on ``sweep``:
+    the dense forward's and the long-T forward's, each with its own sweep."""
+    import ctypes
+
+    from repurpose_tpu_torch import native
+
+    b, t, h, dh = q.shape
+    strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v) for i in range(3)))
+    err = native.load("flash_fwd").flash_fwd_tc(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, key_valid.data_ptr(), _ptr(seg_ids),
+        sweep.kvl.data_ptr(), _ptr(sweep.lo), _ptr(sweep.hi), out.data_ptr(), lse.data_ptr(),
+        b, t, h, int(softmax_dtype == "bfloat16"), scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_tc kernel launch failed: CUDA error {err}")
+
+
 flash_forward.launches = 0  # kernel launches; the plain CPU path does not count
+flash_fwd_tc.launches = 0  # the part of the above on the tensor-core kernel
 
 
-# -- long T: the streaming forward ---------------------------------------------
+# -- the sweep: kvl and the key-tile bounds, made once per batch -------------------
 
 
 def packed_block_bounds(
@@ -298,27 +352,78 @@ def _tile_bounds(valid, start_of, end_of, q_block: int, k_block: int):
     return lo.to(torch.int32), torch.maximum(hi, lo).to(torch.int32)
 
 
-def _stream_ranges(key_valid: torch.Tensor, seg_ids: torch.Tensor | None, k_block: int):
-    """The sweeps of the stream kernels: kvl per batch row (a list) and, per
-    batch row, the ``k_block`` tile range ``[lo, hi)`` each 64-row tile
-    meets (two long ``[n_tiles]`` tensors): ``[0, ceil(kvl / k_block))``
-    unpacked, ``[lo, min(hi, ceil(kvl / k_block)))`` packed
-    (``packed_block_bounds``)."""
+class AttentionSweep(NamedTuple):
+    """The key tiles each 64-row query tile of a batch sweeps, for every
+    attention kernel that takes a bounded sweep (the tensor-core forwards,
+    the backward's prep, the first-design stream kernels). It depends only
+    on ``key_valid``, ``seg_ids`` and T, so the model makes it once per
+    batch (``attention_sweep``) for all its layers, forward and backward."""
+
+    kvl: torch.Tensor  # [B] int32: last valid key + 1 (``_kv_len``)
+    lo: torch.Tensor | None  # [B, ceil(T / 64)] int32, packed: first key tile, else None
+    hi: torch.Tensor | None  # one past the last, at most ceil(kvl / 64)
+    dense: bool  # lo / hi from segment_tile_bounds (True) or packed_block_bounds
+
+
+def attention_sweep(key_valid: torch.Tensor, seg_ids: torch.Tensor | None = None,
+                    dense: bool | None = None) -> AttentionSweep:
+    """The sweep of these inputs at 64/64 tiles, on their device and with no
+    host sync: each query tile sweeps key tiles ``[0, ceil(kvl / 64))``
+    unpacked and ``[lo, hi)`` packed, hi clamped to ``ceil(kvl / 64)``:
+    with ``dense`` (by default T <= ``STREAM_MAX_T``, the dense kernels')
+    ``segment_tile_bounds``, else the stream kernels' ``packed_block_bounds``
+    (the TPU kernels' scalar-prefetch operands)."""
+    if dense is None:
+        dense = key_valid.shape[1] <= STREAM_MAX_T
+    kvl = _kv_len(key_valid)[:, 0].contiguous()
+    if seg_ids is None:
+        return AttentionSweep(kvl, None, None, dense)
+    lo, hi = (segment_tile_bounds if dense else packed_block_bounds)(seg_ids, STREAM_TILE,
+                                                                     STREAM_TILE)
+    n_live = (kvl + STREAM_TILE - 1) // STREAM_TILE
+    return AttentionSweep(kvl, lo.contiguous(), torch.minimum(hi, n_live[:, None]).contiguous(),
+                          dense)
+
+
+def _sweep_for(key_valid, seg_ids, sweep: AttentionSweep | None, dense: bool) -> AttentionSweep:
+    """``sweep``, checked to be the ``dense`` (else the stream) sweep of
+    inputs of this shape and device, or ``attention_sweep`` of these inputs
+    when None. Raises on a record that cannot belong to them."""
+    if sweep is None:
+        return attention_sweep(key_valid, seg_ids, dense)
     b, t = key_valid.shape
-    kvl = _kv_len(key_valid)[:, 0].tolist()
-    if seg_ids is not None:
-        lo, hi = (x.long() for x in packed_block_bounds(seg_ids, STREAM_TILE, k_block))
-    n_tiles = -(-t // STREAM_TILE)
-    ranges = []
-    for bi in range(b):
-        n_live = -(-kvl[bi] // k_block)
-        if seg_ids is None:
-            ranges.append((torch.zeros(n_tiles, dtype=torch.long, device=key_valid.device),
-                           torch.full((n_tiles,), n_live, dtype=torch.long,
-                                      device=key_valid.device)))
-        else:
-            ranges.append((lo[bi], hi[bi].clamp(max=n_live)))
-    return kvl, ranges
+    parts = [(sweep.kvl, (b,))] + [(x, (b, -(-t // STREAM_TILE))) for x in (sweep.lo, sweep.hi)
+                                   if x is not None]
+    if (sweep.dense != dense or (sweep.lo is None) != (seg_ids is None)
+            or (sweep.hi is None) != (seg_ids is None)
+            or not all(x.shape == shape and x.dtype == torch.int32 and x.is_contiguous()
+                       and x.device == key_valid.device for x, shape in parts)):
+        raise ValueError(f"sweep: not the {'dense' if dense else 'stream'} sweep of inputs "
+                         f"[{b}, {t}] on {key_valid.device} (attention_sweep)")
+    return sweep
+
+
+def _tile_ranges(sweep: AttentionSweep, t: int):
+    """lo, hi ``[B, ceil(T / 64)]`` long: the key tiles of each query tile."""
+    if sweep.lo is not None:
+        return sweep.lo.long(), sweep.hi.long()
+    n_live = (sweep.kvl.long() + STREAM_TILE - 1) // STREAM_TILE
+    hi = n_live[:, None].expand(-1, -(-t // STREAM_TILE))
+    return torch.zeros_like(hi), hi
+
+
+# -- long T: the streaming forward ---------------------------------------------
+
+
+def _stream_ranges(key_valid: torch.Tensor, seg_ids: torch.Tensor | None,
+                   sweep: AttentionSweep | None = None):
+    """The sweep of the stream kernels as the plain versions loop over it:
+    kvl per batch row (a list) and, per batch row, the key-tile range
+    ``[lo, hi)`` of each 64-row tile (two long ``[n_tiles]`` tensors), from
+    ``sweep`` (the stream sweep, made here when None)."""
+    sweep = _sweep_for(key_valid, seg_ids, sweep, dense=False)
+    lo, hi = _tile_ranges(sweep, key_valid.shape[1])
+    return sweep.kvl.tolist(), list(zip(lo, hi))
 
 
 def _stream_keys(b_idx, k, v, key_valid, seg_ids, tp):
@@ -337,11 +442,11 @@ def _stream_keys(b_idx, k, v, key_valid, seg_ids, tp):
 def flash_forward_stream_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
     seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32",
-    k_block: int = STREAM_TILE, q_chunk: int = 4096, k_chunk: int = 8192, *,
-    scale: float | None = None,
+    q_chunk: int = 4096, k_chunk: int = 8192, *,
+    scale: float | None = None, sweep: AttentionSweep | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the streaming kernel: the online-softmax
-    recurrence of the TPU stream kernels (fa:623-654) over ``k_block``-key
+    recurrence of the TPU stream kernels (fa:623-654) over ``STREAM_TILE``-key
     tiles, with their rounding points:
 
     - s = q_s k^T in float32 plus the -1e9 bias, rounded to the softmax dtype;
@@ -352,8 +457,9 @@ def flash_forward_stream_reference(
     - out = acc / l, lse = m + log(l).
 
     Each query tile of ``STREAM_TILE`` rows sweeps key tiles ``[0, ceil(kvl /
-    k_block))`` unpacked and ``[lo, min(hi, ceil(kvl / k_block)))`` packed
-    (``packed_block_bounds``); keys past T do not exist (p = 0). Rows at or
+    64))`` unpacked and ``[lo, min(hi, ceil(kvl / 64)))`` packed
+    (``packed_block_bounds``; ``sweep``, made here when None); keys past T
+    do not exist (p = 0). Rows at or
     past kvl, and tiles with an empty range, get out = 0 and lse =
     ``SKIP_LSE``. The loop runs over ``q_chunk`` query rows and ``k_chunk``
     keys at a time, so the live score block stays near H * q_chunk * k_chunk
@@ -364,11 +470,11 @@ def flash_forward_stream_reference(
     sm_dtype = _SM_DTYPES[softmax_dtype]
     scale = _scale(q, scale)
     dev = q.device
-    q_block = STREAM_TILE  # the kernel's query tile: what packed bounds are taken over
+    q_block = k_block = STREAM_TILE  # the kernel's tiles
     tp = -(-t // k_block) * k_block
     q_chunk = max(q_block, q_chunk // q_block * q_block)
     tiles_per_chunk = max(1, k_chunk // k_block)
-    kvl, ranges = _stream_ranges(key_valid, seg_ids, k_block)
+    kvl, ranges = _stream_ranges(key_valid, seg_ids, sweep)
     out = torch.zeros((b, t, h, dh), dtype=q.dtype, device=dev)
     lse = torch.full((b, h, t, 1), SKIP_LSE, dtype=torch.float32, device=dev)
     for bi in range(b):
@@ -420,34 +526,22 @@ def flash_forward_stream_reference(
 def stream_tc(q: torch.Tensor) -> bool:
     """Whether the kernels on CUDA tensors take their tensor-core design:
     bf16 at Dh 64, the model's shape, under either softmax interior
-    (``flash_fwd_stream_tc``; the backward, dense and streaming, after
-    ``flash_bwd_stream_prep``). float32 (which would lose its parity on TF32
-    tensor cores) and bf16 at Dh 16, 32 and 128 keep the first kernels of
-    csrc/flash_fwd_stream.cu, csrc/flash_bwd.cu and csrc/flash_bwd_stream.cu."""
+    (``flash_fwd_tc`` / ``flash_fwd_stream_tc``; the backward, dense and
+    streaming, after ``flash_bwd_stream_prep``). float32 (which would lose
+    its parity on TF32 tensor cores) and bf16 at Dh 16, 32 and 128 keep the
+    first kernels of csrc/flash_fwd.cu, csrc/flash_fwd_stream.cu,
+    csrc/flash_bwd.cu and csrc/flash_bwd_stream.cu."""
     return q.dtype == torch.bfloat16 and q.shape[-1] == 64
 
 
-def flash_fwd_stream_tc(q, k, v, key_valid, seg_ids, kvl, lo, hi, out, lse,
+def flash_fwd_stream_tc(q, k, v, key_valid, seg_ids, sweep: AttentionSweep, out, lse,
                         softmax_dtype: str, scale: float) -> None:
-    """Launches the tensor-core streaming forward (``flash_fwd_stream_tc_kernel``
-    of csrc/flash_fwd_stream.cu, bf16 at Dh 64) on the checked inputs of
-    ``flash_forward_stream`` and its sweep (``kvl`` [B], packed ``lo`` / ``hi``)
-    into ``out`` / ``lse``; counted in ``flash_fwd_stream_tc.launches`` (the
+    """Launches the tensor-core streaming forward (``flash_fwd_tc_kernel``
+    of csrc/flash_fwd.cu, bf16 at Dh 64, the dense forward's kernel) on the
+    checked inputs of ``flash_forward_stream`` and its stream sweep into
+    ``out`` / ``lse``; counted in ``flash_fwd_stream_tc.launches`` (the
     caller counts it in ``flash_forward_stream.launches`` too)."""
-    import ctypes
-
-    from repurpose_tpu_torch import native
-
-    b, t, h, dh = q.shape
-    strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v) for i in range(3)))
-    err = native.load("flash_fwd_stream").flash_fwd_stream_tc(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, key_valid.data_ptr(), _ptr(seg_ids),
-        kvl.data_ptr(), _ptr(lo), _ptr(hi), out.data_ptr(), lse.data_ptr(), b, t, h,
-        int(softmax_dtype == "bfloat16"), scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_fwd_stream_tc kernel launch failed: CUDA error {err}")
+    _fwd_tc_launch(q, k, v, key_valid, seg_ids, sweep, out, lse, softmax_dtype, scale)
     flash_fwd_stream_tc.launches += 1
 
 
@@ -457,33 +551,31 @@ flash_fwd_stream_tc.launches = 0  # kernel launches; the plain CPU path does not
 def flash_forward_stream(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
     seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32", *,
-    scale: float | None = None,
+    scale: float | None = None, sweep: AttentionSweep | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The streaming forward, same contract as ``flash_forward``: a kernel
-    of csrc/flash_fwd_stream.cu on CUDA tensors (counted in
-    ``flash_forward_stream.launches``), the tensor-core one
-    (``flash_fwd_stream_tc``) where ``stream_tc(q)``;
-    ``flash_forward_stream_reference`` on CPU ones. The wrapper computes kvl
-    and, packed, the tile bounds once (the TPU kernels' scalar-prefetch
-    operands) and hands them to the kernel."""
+    on CUDA tensors (counted in ``flash_forward_stream.launches``), the
+    tensor-core one (``flash_fwd_stream_tc``) where ``stream_tc(q)``, else
+    the first design of csrc/flash_fwd_stream.cu;
+    ``flash_forward_stream_reference`` on CPU ones. Each takes kvl and,
+    packed, the tile bounds from ``sweep`` (the stream sweep of
+    ``attention_sweep``, made here when not given: the TPU kernels'
+    scalar-prefetch operands)."""
     if not _on_cuda(q, softmax_dtype, "flash_forward_stream"):
         return flash_forward_stream_reference(q, k, v, key_valid, seg_ids, softmax_dtype,
-                                              scale=scale)
+                                              scale=scale, sweep=sweep)
     _check_cuda_inputs(q, k, v, key_valid, seg_ids)
     from repurpose_tpu_torch import native
 
     b, t, h, dh = q.shape
     key_valid = key_valid.contiguous()
-    kvl = _kv_len(key_valid)[:, 0].contiguous()
-    lo = hi = None
     if seg_ids is not None:
         seg_ids = seg_ids.contiguous()
-        lo, hi = (x.contiguous() for x in packed_block_bounds(seg_ids, STREAM_TILE,
-                                                               STREAM_TILE))
+    sweep = _sweep_for(key_valid, seg_ids, sweep, dense=False)
     out = torch.empty((b, t, h, dh), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t, 1), dtype=torch.float32, device=q.device)
     if stream_tc(q):
-        flash_fwd_stream_tc(q, k, v, key_valid, seg_ids, kvl, lo, hi, out, lse, softmax_dtype,
+        flash_fwd_stream_tc(q, k, v, key_valid, seg_ids, sweep, out, lse, softmax_dtype,
                             _scale(q, scale))
     else:
         err = native.load("flash_fwd_stream").flash_fwd_stream(
@@ -491,8 +583,9 @@ def flash_forward_stream(
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
-            key_valid.data_ptr(), _ptr(seg_ids), kvl.data_ptr(), _ptr(lo), _ptr(hi),
-            out.data_ptr(), lse.data_ptr(), b, t, h, dh, int(q.dtype == torch.bfloat16),
+            key_valid.data_ptr(), _ptr(seg_ids), sweep.kvl.data_ptr(), _ptr(sweep.lo),
+            _ptr(sweep.hi), out.data_ptr(), lse.data_ptr(), b, t, h, dh,
+            int(q.dtype == torch.bfloat16),
             int(softmax_dtype == "bfloat16"), _scale(q, scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -576,32 +669,16 @@ def _check_bwd_inputs(q, k, v, key_valid, o, lse, g, seg_ids) -> None:
         raise ValueError(f"lse must be contiguous float32 [{b}, {h}, {t}, 1] on {q.device}")
 
 
-def _stream_sweep(key_valid, seg_ids, dense: bool = False):
-    """kvl int32 [B] and, packed, the 64/64 tile bounds lo / hi (else None),
-    contiguous: the sweeps of the backward kernels that take them, made once
-    per backward by the prep on the tensor-core path and once per launch of
-    a first-design stream kernel. ``dense``: the dense pair's
-    (``segment_tile_bounds``, every key of each id); else the stream
-    kernels' (``packed_block_bounds``, the TPU kernels' scalar-prefetch
-    operands and the stream forward's sweep)."""
-    kvl = _kv_len(key_valid)[:, 0].contiguous()
-    if seg_ids is None:
-        return kvl, None, None
-    bounds = segment_tile_bounds if dense else packed_block_bounds
-    lo, hi = bounds(seg_ids.contiguous(), STREAM_TILE, STREAM_TILE)
-    return kvl, lo.contiguous(), hi.contiguous()
-
-
 def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
 def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype, scale,
-                outs):
+                outs, sweep: AttentionSweep | None = None):
     """Checks the inputs and launches kernel ``name`` of csrc/flash_bwd.cu
     or, for a ``*_stream`` name, of csrc/flash_bwd_stream.cu, into the
     preallocated ``outs``. A stream kernel also gets kvl and, packed, the
-    64/64 tile bounds (``_stream_sweep``)."""
+    64/64 tile bounds of the stream sweep ``sweep`` (made here when None)."""
     import ctypes
 
     _check_bwd_inputs(q, k, v, key_valid, o, lse, g, seg_ids)
@@ -616,12 +693,12 @@ def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype
     strides = (ctypes.c_longlong * 15)(
         *(x.stride(i) for x in (q, k, v, g, o) for i in range(3))
     )
-    sweep = ()
+    bounds = ()
     if stream_kernel:
-        sweep = tuple(_ptr(x) for x in _stream_sweep(key_valid, seg_ids))
+        bounds = tuple(_ptr(x) for x in _sweep_for(key_valid, seg_ids, sweep, dense=False)[:3])
     err = getattr(lib, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), o.data_ptr(), strides,
-        key_valid.data_ptr(), None if seg_ids is None else seg_ids.data_ptr(), *sweep,
+        key_valid.data_ptr(), None if seg_ids is None else seg_ids.data_ptr(), *bounds,
         lse.data_ptr(), *(x.data_ptr() for x in outs),
         b, t, h, dh, int(q.dtype == torch.bfloat16), int(softmax_dtype == "bfloat16"),
         _scale(q, scale), torch.cuda.current_stream(q.device).cuda_stream,
@@ -632,12 +709,12 @@ def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype
 
 def flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids=None,
                  softmax_dtype: str = "float32", prep: StreamPrep | None = None, *,
-                 scale: float | None = None) -> torch.Tensor:
+                 scale: float | None = None, sweep: AttentionSweep | None = None) -> torch.Tensor:
     """dq ``[B, T, H, Dh]`` in q's dtype (contiguous), the dense backward at
     any T: on CUDA tensors a kernel of csrc/flash_bwd.cu (counted in
     ``flash_bwd_dq.launches``), the tensor-core one (``flash_bwd_dq_tc``) on
     ``prep`` (the outputs of ``flash_bwd_stream_prep`` with ``dense=True``,
-    run here when not given) where ``stream_tc(q)``;
+    run here on ``sweep`` when not given) where ``stream_tc(q)``;
     ``flash_bwd_dq_reference`` on CPU ones. ``flash_backward`` takes it up
     to ``STREAM_MAX_T``."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
@@ -646,7 +723,7 @@ def flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids=None,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if stream_tc(q):
         if prep is None:
-            prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=True)
+            prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=True, sweep=sweep)
         flash_bwd_dq_tc(q, k, v, g, softmax_dtype, scale, prep, dq)
     else:
         _bwd_launch("flash_bwd_dq", *args, scale, (dq,))
@@ -656,7 +733,7 @@ def flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids=None,
 
 def flash_bwd_dkv(q, k, v, key_valid, o, lse, g, seg_ids=None,
                   softmax_dtype: str = "float32", prep: StreamPrep | None = None, *,
-                  scale: float | None = None):
+                  scale: float | None = None, sweep: AttentionSweep | None = None):
     """(dk, dv), each ``[B, T, H, Dh]`` in the input dtype (contiguous), the
     dense backward at any T: on CUDA tensors a kernel of csrc/flash_bwd.cu
     (counted in ``flash_bwd_dkv.launches``), the tensor-core one
@@ -669,7 +746,7 @@ def flash_bwd_dkv(q, k, v, key_valid, o, lse, g, seg_ids=None,
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if stream_tc(q):
         if prep is None:
-            prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=True)
+            prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=True, sweep=sweep)
         flash_bwd_dkv_tc(q, k, v, g, softmax_dtype, scale, prep, dk, dv)
     else:
         _bwd_launch("flash_bwd_dkv", *args, scale, (dk, dv))
@@ -729,13 +806,14 @@ def _stream_rows(b_idx, r0, r1, q, o, lse, g, scale):
 
 def flash_bwd_dq_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
                                   softmax_dtype: str = "float32", q_chunk: int = 4096,
-                                  k_chunk: int = 4096, *,
-                                  scale: float | None = None) -> torch.Tensor:
+                                  k_chunk: int = 4096, *, scale: float | None = None,
+                                  sweep: AttentionSweep | None = None) -> torch.Tensor:
     """Plain PyTorch version of the streaming dq kernel: the TPU kernels
     ``_bwd_dq_stream_kernel``, ``_bwd_dq_packed_stream_kernel`` and
     ``_bwd_dq_hbm_kernel`` (fa:859-1103) at 64-key tiles. dq accumulates in
     float32 over the key tiles of each 64-row query tile's sweep (``[0,
-    ceil(kvl / 64))``, packed ``[lo, min(hi, ceil(kvl / 64)))``), every
+    ceil(kvl / 64))``, packed ``[lo, min(hi, ceil(kvl / 64)))``: the stream
+    sweep ``sweep``, made here when None), every
     tile normalised by the saved lse with no running max; ds is rounded to
     k's dtype for the product and dq = scale * sum in q's dtype. Query rows
     at or past kvl, and tiles with an empty range, get 0. The loop runs over
@@ -748,7 +826,7 @@ def flash_bwd_dq_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
     tp = -(-t // tile) * tile
     q_chunk = max(tile, q_chunk // tile * tile)
     tiles_per_chunk = max(1, k_chunk // tile)
-    kvl, ranges = _stream_ranges(key_valid, seg_ids, tile)
+    kvl, ranges = _stream_ranges(key_valid, seg_ids, sweep)
     dq = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     for bi in range(b):
         tile_lo, tile_hi = ranges[bi]
@@ -782,7 +860,8 @@ def flash_bwd_dq_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
 
 def flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
                                    softmax_dtype: str = "float32", q_chunk: int = 4096,
-                                   k_chunk: int = 4096, *, scale: float | None = None):
+                                   k_chunk: int = 4096, *, scale: float | None = None,
+                                   sweep: AttentionSweep | None = None):
     """Plain PyTorch version of the streaming dk/dv kernel: the TPU kernel
     ``_bwd_dkv_stream_kernel`` (fa:1200-1282) at 64-row tiles, (dk, dv).
     Each 64-key tile accumulates in float32 over the query tiles that meet
@@ -800,7 +879,7 @@ def flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
     tp = -(-t // tile) * tile
     q_chunk = max(tile, q_chunk // tile * tile)
     k_chunk = max(tile, k_chunk // tile * tile)
-    kvl, ranges = _stream_ranges(key_valid, seg_ids, tile)
+    kvl, ranges = _stream_ranges(key_valid, seg_ids, sweep)
     dk = torch.zeros(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
     for bi in range(b):
@@ -844,7 +923,7 @@ class StreamPrep(NamedTuple):
     qs: torch.Tensor  # [B, T, H, Dh] q's dtype: round(float(q) * scale)
     rows: torch.Tensor  # [B, H, Tp, 2] float32: (lse, delta = rowsum(g o))
     info: torch.Tensor  # [B, Tp, 2] int32: (key flag 1 / 0 / -1 past T, segment)
-    kvl: torch.Tensor  # [B] int32 (``_stream_sweep``)
+    kvl: torch.Tensor  # [B] int32 (of an ``AttentionSweep``)
     lo: torch.Tensor | None  # [B, ceil(T / 64)] int32 packed tile bounds, else None
     hi: torch.Tensor | None
 
@@ -858,10 +937,12 @@ class DensePrep(StreamPrep):
 
 
 def flash_bwd_stream_prep_reference(q, k, v, key_valid, o, lse, g, seg_ids=None, *,
-                                    scale: float | None = None,
-                                    dense: bool = False) -> StreamPrep:
+                                    scale: float | None = None, dense: bool = False,
+                                    sweep: AttentionSweep | None = None) -> StreamPrep:
     """Plain PyTorch version of the prep kernel: ``StreamPrep`` with rows
-    past T holding (``SKIP_LSE``, 0) and (-1, 0), the segment 0 unpacked."""
+    past T holding (``SKIP_LSE``, 0) and (-1, 0), the segment 0 unpacked,
+    and the sweep ``sweep`` (``dense`` or the stream one, made here when
+    None)."""
     b, t, h, dh = q.shape
     tp = -(-t // STREAM_TILE) * STREAM_TILE
     qs = (q.float() * _scale(q, scale)).to(q.dtype)
@@ -874,22 +955,24 @@ def flash_bwd_stream_prep_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
     info[:, :t, 0] = key_valid.to(torch.int32)
     if seg_ids is not None:
         info[:, :t, 1] = seg_ids
-    return (DensePrep if dense else StreamPrep)(qs, rows, info,
-                                                *_stream_sweep(key_valid, seg_ids, dense))
+    return (DensePrep if dense else StreamPrep)(
+        qs, rows, info, *_sweep_for(key_valid, seg_ids, sweep, dense)[:3])
 
 
 def flash_bwd_stream_prep(q, k, v, key_valid, o, lse, g, seg_ids=None, *,
-                          scale: float | None = None, dense: bool = False) -> StreamPrep:
+                          scale: float | None = None, dense: bool = False,
+                          sweep: AttentionSweep | None = None) -> StreamPrep:
     """What the tensor-core backward kernels, dense (``dense``, the backward
     up to ``STREAM_MAX_T``) or streaming, read besides k, v and g, made once
     per backward: q_s, rows and info by the kernel
     ``flash_bwd_stream_prep`` of csrc/flash_bwd_stream.cu on CUDA tensors
     (counted in ``flash_bwd_stream_prep.launches``), with that pair's sweep
-    (``_stream_sweep``); ``flash_bwd_stream_prep_reference`` on CPU ones.
-    Checks the backward's inputs."""
+    ``sweep`` (``attention_sweep``, made here when None);
+    ``flash_bwd_stream_prep_reference`` on CPU ones. Checks the backward's
+    inputs."""
     if not _on_cuda(q, "float32", "flash_bwd_stream_prep"):
         return flash_bwd_stream_prep_reference(q, k, v, key_valid, o, lse, g, seg_ids,
-                                               scale=scale, dense=dense)
+                                               scale=scale, dense=dense, sweep=sweep)
     import ctypes
 
     _check_bwd_inputs(q, k, v, key_valid, o, lse, g, seg_ids)
@@ -916,8 +999,8 @@ def flash_bwd_stream_prep(q, k, v, key_valid, o, lse, g, seg_ids=None, *,
     if err != 0:
         raise RuntimeError(f"flash_bwd_stream_prep kernel launch failed: CUDA error {err}")
     flash_bwd_stream_prep.launches += 1
-    return (DensePrep if dense else StreamPrep)(qs, rows, info,
-                                                *_stream_sweep(key_valid, seg_ids, dense))
+    return (DensePrep if dense else StreamPrep)(
+        qs, rows, info, *_sweep_for(key_valid, seg_ids, sweep, dense)[:3])
 
 
 def _tc_launch(name: str, q, k, v, g, softmax_dtype, scale, prep: StreamPrep, outs, *,
@@ -959,31 +1042,33 @@ def _tc_launch(name: str, q, k, v, g, softmax_dtype, scale, prep: StreamPrep, ou
 
 def flash_bwd_dq_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
                         softmax_dtype: str = "float32", prep: StreamPrep | None = None, *,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None,
+                        sweep: AttentionSweep | None = None) -> torch.Tensor:
     """dq of the streaming backward, ``[B, T, H, Dh]`` in q's dtype: on CUDA
     tensors a kernel of csrc/flash_bwd_stream.cu (counted in
     ``flash_bwd_dq_stream.launches``) or, where ``stream_tc(q)``, the
     tensor-core one of csrc/flash_bwd.cu in the bias form, on ``prep`` (the
-    outputs of ``flash_bwd_stream_prep``, run here when not given);
+    outputs of ``flash_bwd_stream_prep``, run here when not given), each on
+    the stream sweep ``sweep`` (made here when None);
     ``flash_bwd_dq_stream_reference`` on CPU ones."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dq_stream"):
-        return flash_bwd_dq_stream_reference(*args, scale=scale)
+        return flash_bwd_dq_stream_reference(*args, scale=scale, sweep=sweep)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if stream_tc(q):
         if prep is None:
-            prep = flash_bwd_stream_prep(*args[:-1], scale=scale)
+            prep = flash_bwd_stream_prep(*args[:-1], scale=scale, sweep=sweep)
         _tc_launch("flash_bwd_dq_tc", q, k, v, g, softmax_dtype, scale, prep, (dq,),
                    dense=False)
     else:
-        _bwd_launch("flash_bwd_dq_stream", *args, scale, (dq,))
+        _bwd_launch("flash_bwd_dq_stream", *args, scale, (dq,), sweep)
     flash_bwd_dq_stream.launches += 1
     return dq
 
 
 def flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
                          softmax_dtype: str = "float32", prep: StreamPrep | None = None, *,
-                         scale: float | None = None):
+                         scale: float | None = None, sweep: AttentionSweep | None = None):
     """(dk, dv) of the streaming backward, each ``[B, T, H, Dh]`` in the
     input dtype: on CUDA tensors a kernel of csrc/flash_bwd_stream.cu
     (counted in ``flash_bwd_dkv_stream.launches``) or the tensor-core one
@@ -991,16 +1076,16 @@ def flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
     ``flash_bwd_dkv_stream_reference`` on CPU ones."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dkv_stream"):
-        return flash_bwd_dkv_stream_reference(*args, scale=scale)
+        return flash_bwd_dkv_stream_reference(*args, scale=scale, sweep=sweep)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if stream_tc(q):
         if prep is None:
-            prep = flash_bwd_stream_prep(*args[:-1], scale=scale)
+            prep = flash_bwd_stream_prep(*args[:-1], scale=scale, sweep=sweep)
         _tc_launch("flash_bwd_dkv_tc", q, k, v, g, softmax_dtype, scale, prep, (dk, dv),
                    dense=False)
     else:
-        _bwd_launch("flash_bwd_dkv_stream", *args, scale, (dk, dv))
+        _bwd_launch("flash_bwd_dkv_stream", *args, scale, (dk, dv), sweep)
     flash_bwd_dkv_stream.launches += 1
     return dk, dv
 
@@ -1011,22 +1096,25 @@ flash_bwd_stream_prep.launches = 0
 
 
 def flash_backward(q, k, v, key_valid, o, lse, g, seg_ids=None,
-                   softmax_dtype: str = "float32", *, scale: float | None = None):
+                   softmax_dtype: str = "float32", *, scale: float | None = None,
+                   sweep: AttentionSweep | None = None):
     """(dq, dk, dv) of ``out = flash_forward(q, k, v, key_valid, seg_ids)[0]``
     for the upstream gradient ``g``, given the forward's ``o`` and ``lse``:
     the dense kernels up to ``STREAM_MAX_T``, the streaming ones past it, as
-    on the TPU (fa:1340-1341, 1461-1468). Where ``stream_tc(q)`` holds on
-    CUDA (bf16 at Dh 64, any T) both kernels are the tensor-core ones, and
-    ``flash_bwd_stream_prep`` runs once for the two. q/k/v may be strided
-    views as for ``flash_forward``; ``g`` and ``o`` need a contiguous
-    head-dim axis and 16-byte rows."""
+    on the TPU (fa:1340-1341, 1461-1468), on ``sweep`` (the forward's
+    ``attention_sweep``, made where needed when not given). Where
+    ``stream_tc(q)`` holds on CUDA (bf16 at Dh 64, any T) both kernels are
+    the tensor-core ones, and ``flash_bwd_stream_prep`` runs once for the
+    two. q/k/v may be strided views as for ``flash_forward``; ``g`` and
+    ``o`` need a contiguous head-dim axis and 16-byte rows."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     prep = None
     if _on_cuda(q, softmax_dtype, "flash_backward") and stream_tc(q):  # once for both
-        prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=q.shape[1] <= STREAM_MAX_T)
+        prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=q.shape[1] <= STREAM_MAX_T,
+                                     sweep=sweep)
     if q.shape[1] > STREAM_MAX_T:
-        dq = flash_bwd_dq_stream(*args, prep, scale=scale)
-        dk, dv = flash_bwd_dkv_stream(*args, prep, scale=scale)
+        dq = flash_bwd_dq_stream(*args, prep, scale=scale, sweep=sweep)
+        dk, dv = flash_bwd_dkv_stream(*args, prep, scale=scale, sweep=sweep)
     else:
         dq = flash_bwd_dq(*args, prep, scale=scale)
         dk, dv = flash_bwd_dkv(*args, prep, scale=scale)
@@ -1041,15 +1129,16 @@ class FlashAttention(torch.autograd.Function):
     its own scale 1/sqrt(Dh); out and the gradients are cut back to Dh."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_valid, seg_ids, softmax_dtype, backward):
+    def forward(ctx, q, k, v, key_valid, seg_ids, softmax_dtype, backward, sweep):
         dh = q.shape[-1]
         width = kernel_head_dim(q.device, dh)
         if width != dh:
             q, k, v = (torch.nn.functional.pad(x, (0, width - dh)) for x in (q, k, v))
         scale = 1.0 / (dh ** 0.5)
-        out, lse = flash_forward(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale)
+        out, lse = flash_forward(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale,
+                                 sweep=sweep)
         ctx.save_for_backward(q, k, v, out, lse, key_valid, seg_ids)
-        ctx.softmax_dtype, ctx.head_dim, ctx.scale = softmax_dtype, dh, scale
+        ctx.softmax_dtype, ctx.head_dim, ctx.scale, ctx.sweep = softmax_dtype, dh, scale, sweep
         ctx.recompute = backward == "xla"
         return out if width == dh else out[..., :dh].contiguous()
 
@@ -1062,18 +1151,20 @@ class FlashAttention(torch.autograd.Function):
                 qkv = [x[..., :dh].detach().requires_grad_() for x in (q, k, v)]
                 ref = mha_torch(*qkv, key_valid, seg_ids)
                 dq, dk, dv = torch.autograd.grad(ref, qkv, g)
-            return dq, dk, dv, None, None, None, None
+            return dq, dk, dv, None, None, None, None, None
         g = torch.nn.functional.pad(g, (0, width - dh)) if width != dh else g.contiguous()
         grads = flash_backward(q, k, v, key_valid, out, lse, g, seg_ids, ctx.softmax_dtype,
-                               scale=ctx.scale)
+                               scale=ctx.scale, sweep=ctx.sweep)
         if width != dh:
             grads = tuple(x[..., :dh] for x in grads)
-        return *grads, None, None, None, None
+        return *grads, None, None, None, None, None
 
 
 def flash_attention(q, k, v, key_valid, seg_ids=None, softmax_dtype: str = "float32",
-                    backward: str = "pallas") -> torch.Tensor:
-    """Differentiable flash attention: out ``[B, T, H, Dh]``."""
+                    backward: str = "pallas", sweep: AttentionSweep | None = None) -> torch.Tensor:
+    """Differentiable flash attention: out ``[B, T, H, Dh]``, forward and
+    backward on ``sweep`` (``attention_sweep(key_valid, seg_ids)``; each
+    kernel call makes its own when not given)."""
     if backward not in ("pallas", "xla"):
         raise ValueError(f"bad backward: {backward}")
-    return FlashAttention.apply(q, k, v, key_valid, seg_ids, softmax_dtype, backward)
+    return FlashAttention.apply(q, k, v, key_valid, seg_ids, softmax_dtype, backward, sweep)

@@ -5,7 +5,7 @@ plain versions adds, and that the padding-inside-kvl layout of the card's
 check separates the two mask forms. The kernels themselves run only on the
 card (``tests/test_torch_flash_bwd_gpu.py``, marked ``gpu``).
 
-The sweep (``_stream_sweep(..., dense=True)``, at 64-row tiles): dq's query
+The sweep (``attention_sweep(..., dense=True)``, at 64-row tiles): dq's query
 tile qt sweeps key tiles ``[0, ceil(kvl / 64))`` and, packed, only
 ``[lo[qt], min(hi[qt], ceil(kvl / 64)))`` (``segment_tile_bounds`` at 64/64:
 every position of each segment id owning a row of the tile); dk/dv's key
@@ -121,11 +121,11 @@ def _inputs(seed, valid, h, dh, dtype=np.float32):
 
 def _sweep_masks(key_valid, seg_ids, dense=True):
     """[B, T, T] bool: the (query, key) pairs the dq kernel's sweep reaches
-    and those the dk/dv kernel's sweep reaches, from ``_stream_sweep`` (the
+    and those the dk/dv kernel's sweep reaches, from ``attention_sweep`` (the
     bounds the prep hands the pair; ``dense=False``: the streaming
     backward's)."""
     b, t = key_valid.shape
-    kvl, lo, hi = fa._stream_sweep(key_valid, seg_ids, dense)
+    kvl, lo, hi, _ = fa.attention_sweep(key_valid, seg_ids, dense)
     n_live = (kvl.long() + TILE - 1) // TILE  # [B]
     n_tiles = -(-t // TILE)
     if lo is None:

@@ -307,8 +307,8 @@ def test_cpu_tensors_take_the_stream_plain_version_at_the_tensor_core_shape(pack
 def test_the_tensor_core_forward_steps_the_plain_versions_key_tile():
     """The online-softmax step decides where m' is rounded, so the kernel's
     key tile (``BK`` of csrc/flash_fwd_tc.cuh, one TMA box of ``ROWS`` rows)
-    must be the plain version's ``k_block`` default, ``STREAM_TILE``, which
-    the tests above hold against the Pallas kernels."""
+    must be the plain version's key tile, ``STREAM_TILE``, which the tests
+    above hold against the Pallas kernels."""
     import re
 
     csrc = Path(port_fa.__file__).resolve().parent.parent / "csrc"

@@ -70,9 +70,9 @@ def test_padded_heads_match_jax_mha(monkeypatch, dh, packed, backward):
     seen = []
     forward = fa.flash_forward
 
-    def spy(q, *args, scale=None):
+    def spy(q, *args, scale=None, **kw):
         seen.append((q.shape[-1], scale))
-        return forward(q, *args, scale=scale)
+        return forward(q, *args, scale=scale, **kw)
 
     monkeypatch.setattr(fa, "flash_forward", spy)
     t = 96
