@@ -55,10 +55,11 @@ verdict line):
       design); two launches give equal bits; at packed 32768 the dense
       forward (the tensor-core kernel on the dense sweep, which lays the
       same tiles where each video is one run) gives the stream kernel's
-      bits on every live row; the kernel, SDPA and (packed 32768) the dense
-      forward each timed over >= 5 chains of back-to-back launches (median,
-      min, max per launch) with each time's ratio to SDPA in this run, the
-      plain version over single calls;
+      bits on every live row; the kernel (with the stream sweep made once
+      outside the chain, what the model pays, and made inside the wrapper),
+      SDPA and (packed 32768) the dense forward each timed over >= 5 chains
+      of back-to-back launches (median, min, max per launch) with each
+      time's ratio to SDPA in this run, the plain version over single calls;
    b. the flagship serves request A (one video per bucket) unpacked and
       packed, bit-identical, and request B (12 videos) in shared packed rows;
       the [1, 32768] forward against the plain-stream model; exactly 16
@@ -72,8 +73,9 @@ verdict line):
       [1, 32768] unpacked and packed rows of [1, 8192], [1, 16384] and
       [1, 32768]; two launches of each kernel give equal bits; each kernel
       timed over >= 5 chains of back-to-back launches (median, min, max per
-      launch) with the plain versions, SDPA's backward timed the same way and
-      each time's ratio to it in this run, and (packed
+      launch; with the stream sweep made once outside the chain and made
+      inside the wrapper) with the plain versions, SDPA's backward timed the
+      same way and each time's ratio to it in this run, and (packed
       32768) the dense backward pair on the same prep, which must give the
       same gradients bit for bit, and SDPA, which must be slower;
    b. the flagship trains through the CLI's ``run`` (``--synthetic 7``,
@@ -99,8 +101,11 @@ verdict line):
       SDPA on the same inputs timed over >= 5 chains, the plain version over
       single calls;
    b. ``int8_core`` and ``int8_matmul`` against their plain versions, bit for
-      bit, at the tool's three shapes and a ragged one, timed with the plain
-      versions, ``torch._int_mm`` (core) and bf16 ``torch.matmul``;
+      bit, at the tool's three shapes and a ragged one (bf16 x), float32 x
+      and unaligned x / xq at the first tool shape, each launch's load route
+      checked against the rule; timed per launch of a chain with the plain
+      versions, ``torch._int_mm`` (core) and ``torch.matmul``, a
+      ``[int8-time]`` line per row with each kernel's share of its bound;
    c. each tool's ``main([])`` on the card, with its launches (every
       ``mha_nt`` launch the tensor-core kernel), then ``mha_nt`` on float32
       inputs of the tool's shape (the first design);
@@ -1324,14 +1329,17 @@ def phase_long_kernel_vs_plain() -> list[dict]:
     for bit. At the packed 32768 row the dense forward (the tensor-core
     kernel on the dense sweep, ``segment_tile_bounds``) must give the stream
     kernel's bits on every live row: with each video one run of the row the
-    two sweeps lay the same tiles there. The kernel, SDPA on the same
-    boolean mask (yardstick only) and that dense forward are each timed over
-    >= 5 chains of back-to-back launches (median, min and max per launch),
-    with each time's ratio to SDPA in this run; the plain version over
-    single calls."""
+    two sweeps lay the same tiles there. The kernel (``ms``: with the stream
+    sweep made once outside the chain, as the model makes it once a batch;
+    ``wrapper_ms``: made inside each call, what a direct caller pays), SDPA
+    on the same boolean mask (yardstick only) and that dense forward are
+    each timed over >= 5 chains of back-to-back launches (median, min and
+    max per launch), with each time's ratio to SDPA in this run; the plain
+    version over single calls."""
     import torch
 
     from repurpose_tpu_torch.ops.flash_attention import (
+        attention_sweep,
         flash_forward_stream,
         flash_forward_stream_reference,
         flash_fwd_dense,
@@ -1376,8 +1384,13 @@ def phase_long_kernel_vs_plain() -> list[dict]:
         del ref_out, ref_lse
 
         chain = 2 if q.shape[1] >= 16384 else 8  # back-to-back calls per timing
-        kernel = spread_ms(lambda: flash_forward_stream(q, k, v, kv, seg, sm), reps=5,
-                           chain=chain)
+        # with the stream sweep made once outside the chain (what the model
+        # pays: the encoder makes one a batch), and made inside every call
+        sweep = attention_sweep(kv, seg, dense=False)
+        kernel = spread_ms(lambda: flash_forward_stream(q, k, v, kv, seg, sm, sweep=sweep),
+                           reps=5, chain=chain)
+        wrapper = spread_ms(lambda: flash_forward_stream(q, k, v, kv, seg, sm), reps=5,
+                            chain=chain)
         library = _sdpa_spread(q, k, v, kv, seg, reps=5, chain=chain)
         plain_ms = median_ms(lambda: flash_forward_stream_reference(q, k, v, kv, seg, sm),
                              reps=3, warmup=1)
@@ -1387,6 +1400,9 @@ def phase_long_kernel_vs_plain() -> list[dict]:
                    kernel="flash_fwd_stream_tc" if tc else "flash_fwd_stream",
                    max_abs_err=err, lse_max_abs_err=lse_err, out_atol=atol,
                    ms=kernel["ms"], min_ms=kernel["min_ms"], max_ms=kernel["max_ms"],
+                   wrapper_ms=wrapper["ms"],
+                   wrapper_min_max_ms=[wrapper["min_ms"], wrapper["max_ms"]],
+                   wrapper_ratio_to_library=wrapper["ms"] / library["ms"],
                    chain=chain, plain_ms=plain_ms, library_ms=library["ms"],
                    library_min_ms=library["min_ms"], library_max_ms=library["max_ms"],
                    ratio_to_library=kernel["ms"] / library["ms"], bound_ms=bound_ms,
@@ -1413,11 +1429,12 @@ def phase_long_kernel_vs_plain() -> list[dict]:
             del dense_out, dense_lse
         print(f"[long-kernel] {json.dumps(row)}")
         print(f"[long-forward-time] {var['name']} ({row['kernel']}): ms per call of {chain} "
-              f"chained, [median, min, max] {_triple(kernel)}; SDPA {_triple(library)}; "
-              f"kernel / SDPA {row['ratio_to_library']:.3f}; kernel / bound "
-              f"{row['ratio_to_bound']:.2f}")
+              f"chained, [median, min, max]: sweep made once outside {_triple(kernel)}, made "
+              f"inside the wrapper {_triple(wrapper)}; SDPA {_triple(library)}; kernel / SDPA "
+              f"{row['ratio_to_library']:.3f} ({row['wrapper_ratio_to_library']:.3f} with the "
+              f"sweep inside); kernel / bound {row['ratio_to_bound']:.2f}")
         rows.append(row)
-        del q, k, v, kv, seg, out, lse
+        del q, k, v, kv, seg, out, lse, sweep
         torch.cuda.empty_cache()
     return rows
 
@@ -1680,7 +1697,9 @@ def phase_long_backward_vs_plain() -> list[dict]:
     and max of the time per launch: the card's time, not the host's), with
     the plain versions, SDPA's backward on the same boolean mask (yardstick
     only, timed the same way) and each time's ratio to SDPA in this run;
-    two launches of each kernel must
+    ``ms`` with the stream sweep made once outside the chain (the model's
+    case), ``wrapper_ms`` with each call making its own; two launches of
+    each kernel must
     give equal bits. On the packed [1, 32768] row the dense backward pair
     (at bf16 Dh 64 the select-form instances of the same kernels, on its
     own sweep, which spans the same tiles where every video is one run)
@@ -1690,6 +1709,7 @@ def phase_long_backward_vs_plain() -> list[dict]:
     import torch
 
     from repurpose_tpu_torch.ops.flash_attention import (
+        attention_sweep,
         flash_bwd_dkv,
         flash_bwd_dkv_stream,
         flash_bwd_dkv_stream_reference,
@@ -1747,16 +1767,27 @@ def phase_long_backward_vs_plain() -> list[dict]:
                    softmax_dtype=sm, packed=var["packed"], max_abs_err_by_grad=errs,
                    tolerance=f"{rel} x max |plain|", library_ms=library_ms,
                    library_note=library_note, deterministic=True)
+        # each kernel timed with the stream sweep made once outside the chain
+        # (``ms``: what the model pays, one sweep a batch) and, as before,
+        # with the wrapper making its own (``wrapper_ms``)
+        sweep = attention_sweep(kv, seg, dense=False)
+
+        def both(fn, reps):
+            outside = spread_ms(lambda: fn(sweep=sweep), reps=reps, chain=chain)
+            inside = spread_ms(fn, reps=reps, chain=chain)
+            return dict(**outside, wrapper_ms=inside["ms"],
+                        wrapper_min_max_ms=[inside["min_ms"], inside["max_ms"]])
+
         kw = {}
         if stream_tc(q):
-            prep = flash_bwd_stream_prep(*args[:-1])
+            prep = flash_bwd_stream_prep(*args[:-1], sweep=sweep)
             torch.cuda.synchronize()
             delta_err = _hold_prep(f"long {var['name']}", prep,
                                    flash_bwd_stream_prep_reference(*args[:-1]))
             bound_ms, bound_by, flops, bytes_ = _prep_bound(q, seg)
             row["prep"] = dict(
                 max_abs_err=delta_err,
-                **spread_ms(lambda: flash_bwd_stream_prep(*args[:-1]), reps=10, chain=chain),
+                **both(lambda **sw: flash_bwd_stream_prep(*args[:-1], **sw), reps=10),
                 plain_ms=median_ms(lambda: flash_bwd_stream_prep_reference(*args[:-1]),
                                    reps=3, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
@@ -1768,7 +1799,7 @@ def phase_long_backward_vs_plain() -> list[dict]:
             bound_ms, bound_by, flops, bytes_ = _bwd_bound(q, kv, seg, products, outputs)
             row[kname] = dict(
                 max_abs_err=max(errs[x] for x in keys),
-                **spread_ms(lambda: fn(*args, **kw), reps=5 if big else 10, chain=chain),
+                **both(lambda **sw: fn(*args, **kw, **sw), reps=5 if big else 10),
                 plain_ms=median_ms(lambda: ref_fn(*args), reps=1 if big else 3, warmup=1),
                 bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=bytes_)
         pair_ms = row["dq"]["ms"] + row["dkv"]["ms"] + row.get("prep", {}).get("ms", 0.0)
@@ -1796,14 +1827,17 @@ def phase_long_backward_vs_plain() -> list[dict]:
                   f"SDPA's backward ({library_ms} ms)")
             del dense
         print(f"[long-backward] {json.dumps(row)}")
-        summary = {key: [round(row[key][x], 3) for x in ("ms", "min_ms", "max_ms")]
+        summary = {key: [round(row[key][x], 4) for x in ("ms", "min_ms", "max_ms")]
                    for key in ("prep", "dq", "dkv") if key in row}
+        inside = {key: [round(row[key]["wrapper_ms"], 4),
+                        *(round(x, 4) for x in row[key]["wrapper_min_max_ms"])]
+                  for key in ("prep", "dq", "dkv") if key in row}
         print(f"[long-backward-time] {var['name']}: ms per call of {chain} chained, "
-              f"[median, min, max] "
-              f"{json.dumps(summary)}; SDPA backward {library_ms} ms; pair / SDPA "
+              f"[median, min, max]: sweep made once outside {json.dumps(summary)}, made inside "
+              f"the wrappers {json.dumps(inside)}; SDPA backward {library_ms} ms; pair / SDPA "
               f"{row.get('pair_ratio_to_library')}")
         rows.append(row)
-        del q, k, v, kv, seg, o, lse, g, got, args, kw
+        del q, k, v, kv, seg, o, lse, g, got, args, kw, sweep
         torch.cuda.empty_cache()
     return rows
 
@@ -2261,8 +2295,8 @@ def phase_nt_vs_plain() -> list[dict]:
 def _int8_bounds(m: int, k: int, n: int, x_bytes: int) -> dict:
     """Least times of the two int8 kernels at (m, k, n): 2 m k n int8
     operations at the card's int8 peak against their bytes (the fused kernel:
-    x, wq, ws read and out in x's dtype written once; the core kernel: xq and
-    wq read and the int32 out written once)."""
+    x, wq, ws read and out in x's dtype written once; the core kernel: xq
+    and wq read and the int32 out written once)."""
     t_ops = 2.0 * m * k * n / PEAK_OPS["int8"] * 1e3
     out = {}
     for name, bytes_ in (("fused", m * k * x_bytes + k * n + 4 * n + m * n * x_bytes),
@@ -2274,49 +2308,103 @@ def _int8_bounds(m: int, k: int, n: int, x_bytes: int) -> dict:
     return out
 
 
+def _unaligned_copy(t):
+    """A copy of ``t`` whose storage starts one element past a 16-byte
+    boundary: a contiguous row-slice view of a larger flat buffer (as
+    ``buf[1:]`` gives), which ``.contiguous()`` leaves where it is."""
+    import torch
+
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def phase_int8_vs_plain() -> list[dict]:
     """9b: ``int8_core`` and ``int8_matmul`` against their plain versions,
-    bit for bit, at the tool's shapes and a ragged one, bf16 x with an
-    all-zero row; the kernels, ``torch._int_mm`` (the core kernel's
-    yardstick, never on the port's path) and the bf16 ``torch.matmul``
-    incumbent timed per launch of a chain (``spread_ms``), the plain
-    versions over single calls."""
+    bit for bit, at the tool's shapes, a ragged one, float32 x at the first
+    tool shape and, at the same shape, x and xq unaligned (their rows reach
+    the kernel through the plain-load route), bf16 or float32 x with an
+    all-zero row; each launch's route checked against the rule (route 1
+    where the A operand's rows are 16-byte aligned). The kernels,
+    ``torch._int_mm`` (the core kernel's yardstick, never on the port's
+    path) and the ``torch.matmul`` incumbent (bf16; float32 on the float32
+    row) timed per launch of a chain (``spread_ms``), the plain versions over
+    single calls; a ``[int8-time]`` line per row with each kernel's share of
+    its bound and its ratio to the yardsticks."""
     import torch
 
     from repurpose_tpu_torch.tools import bench_int8_matmul as bim
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    variants = [dict(shape=shape, dtype="bfloat16", unaligned=False)
+                for shape in [*bim.SHAPES, (1000, 520, 776)]]
+    variants += [dict(shape=bim.SHAPES[0], dtype="float32", unaligned=False),
+                 dict(shape=bim.SHAPES[0], dtype="bfloat16", unaligned=True)]
     rows = []
-    for m, k, n in [*bim.SHAPES, (1000, 520, 776)]:
-        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    for var in variants:
+        m, k, n = var["shape"]
+        x = torch.randn((m, k), generator=gen, device="cuda").to(getattr(torch, var["dtype"]))
         x[3] = 0  # the 1e-12 scale clamp
         w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
         wq, ws = bim.quantize_columns(w)
         xq, _ = bim.quantize_rows(x)
+        if var["unaligned"]:
+            x, xq = _unaligned_copy(x), _unaligned_copy(xq)
         fused, core = bim.int8_matmul(x, wq, ws), bim.int8_core(xq, wq)
         torch.cuda.synchronize()
-        want_fused, want_core = bim.int8_matmul_reference(x, wq, ws), bim.int8_core_reference(xq, wq)
-        for label, got, want in (("int8_matmul", fused, want_fused), ("int8_core", core, want_core)):
+        routes = dict(fused=bim.int8_matmul.last_launch, core=bim.int8_core.last_launch)
+        for key, a in (("fused", x), ("core", xq)):
+            want_route = int((k * a.element_size()) % 16 == 0 and a.data_ptr() % 16 == 0)
+            check(routes[key]["route"] == want_route,
+                  f"int8 {key} [{m}x{k}x{n}] {var}: route {routes[key]} taken, the rule gives "
+                  f"{want_route}")
+        for label, got, want in (
+                ("int8_matmul", fused, bim.int8_matmul_reference(x, wq, ws)),
+                ("int8_core", core, bim.int8_core_reference(xq, wq))):
             diff = int((got != want).sum())
-            check(diff == 0, f"{label} [{m}x{k}x{n}]: {diff} elements differ from the plain version")
+            check(got.dtype == want.dtype and diff == 0,
+                  f"{label} [{m}x{k}x{n}] {var}: {diff} elements differ from the plain version")
         bounds = _int8_bounds(m, k, n, x.element_size())
         chain = 20
+
+        def timed(fn, plain, library, key):
+            t = spread_ms(fn, reps=5, chain=chain)
+            return dict(**t, plain_ms=median_ms(plain, reps=3, warmup=1),
+                        library_ms=library, share_of_bound=bounds[key]["bound_ms"] / t["ms"],
+                        **bounds[key])
+
+        w_mm = w.to(x.dtype)
+        # the yardsticks on aligned copies (cuBLAS may refuse an unaligned base)
+        x_lib, xq_lib = (x.clone(), xq.clone()) if var["unaligned"] else (x, xq)
+        bf16 = spread_ms(lambda: torch.matmul(x_lib, w_mm), reps=5, chain=chain)
+        int_mm = spread_ms(lambda: torch._int_mm(xq_lib, wq), reps=5, chain=chain)
         row = dict(
-            shape=[m, k, n], max_abs_err=0.0,
-            fused=dict(**spread_ms(lambda: bim.int8_matmul(x, wq, ws), reps=5, chain=chain),
-                       plain_ms=median_ms(lambda: bim.int8_matmul_reference(x, wq, ws),
-                                          reps=3, warmup=1),
-                       library_ms=None, **bounds["fused"]),
-            core=dict(**spread_ms(lambda: bim.int8_core(xq, wq), reps=5, chain=chain),
-                      plain_ms=median_ms(lambda: bim.int8_core_reference(xq, wq),
-                                         reps=3, warmup=1),
-                      library_ms=spread_ms(lambda: torch._int_mm(xq, wq), reps=5,
-                                           chain=chain)["ms"],
-                      **bounds["core"]),
-            bf16_matmul_ms=spread_ms(lambda: torch.matmul(x, w), reps=5, chain=chain)["ms"])
+            shape=[m, k, n], x_dtype=var["dtype"], unaligned=var["unaligned"], routes=routes,
+            max_abs_err=0.0,
+            fused=timed(lambda: bim.int8_matmul(x, wq, ws),
+                        lambda: bim.int8_matmul_reference(x, wq, ws), None, "fused"),
+            core=timed(lambda: bim.int8_core(xq, wq), lambda: bim.int8_core_reference(xq, wq),
+                       int_mm["ms"], "core"),
+            int_mm=int_mm, matmul=dict(**bf16, dtype=str(w_mm.dtype).split(".")[-1]),
+            bf16_matmul_ms=bf16["ms"] if var["dtype"] == "bfloat16" else None)
+        row["core"]["ratio_to_int_mm"] = row["core"]["ms"] / int_mm["ms"]
+        for key in ("fused", "core"):
+            row[key]["ratio_to_matmul"] = row[key]["ms"] / bf16["ms"]
         print(f"[int8-kernel] {json.dumps(row)}")
+        print(f"[int8-time] {m}x{k}x{n} x {var['dtype']}"
+              f"{' unaligned' if var['unaligned'] else ''} (routes fused "
+              f"{routes['fused']['route']}, core {routes['core']['route']}): ms per call of "
+              f"{chain} chained, [median, min, max]: int8_matmul {_triple(row['fused'])} "
+              f"({row['fused']['share_of_bound']:.2f} of its bound "
+              f"{row['fused']['bound_ms']:.4f}, {row['fused']['ratio_to_matmul']:.2f}x "
+              f"{row['matmul']['dtype']} torch.matmul {_triple(bf16)}); int8_core "
+              f"{_triple(row['core'])} ({row['core']['share_of_bound']:.2f} of its bound "
+              f"{row['core']['bound_ms']:.4f}, {row['core']['ratio_to_int_mm']:.2f}x "
+              f"torch._int_mm {_triple(int_mm)}, {row['core']['ratio_to_matmul']:.2f}x "
+              f"torch.matmul)")
         rows.append(row)
-        del x, w, wq, ws, xq, fused, core, want_fused, want_core
+        del x, w, w_mm, wq, ws, xq, fused, core, x_lib, xq_lib
         torch.cuda.empty_cache()
     return rows
 
@@ -2584,22 +2672,28 @@ def main() -> int:
             bench_attention_fwd_float32=bench["mha_nt_float32"]["flash_fwd_nt"]),
         **timed(nt_first), variant=nt_first["name"], variants=nt_first_rows,
     ))
-    int8_head = next(r for r in int8_variants if r["shape"] == [16384, 512, 512])
-    for name, key, line in (("int8_matmul", "fused", 67), ("int8_core", "core", 102)):
+    int8_head = next(r for r in int8_variants if r["shape"] == [16384, 512, 512]
+                     and r["x_dtype"] == "bfloat16" and not r["unaligned"])
+    int8_tool = bench["bench_int8_matmul"]
+    for name, key, device_kernel, replaces, library_note in (
+            ("int8_matmul", "fused", "int8_mm_kernel", "tools/bench_int8_matmul.py:67",
+             "no single PyTorch call quantises, multiplies in int8 and dequantises; "
+             "bf16_matmul_ms is the bf16 torch.matmul incumbent"),
+            ("int8_core", "core", "int8_core_kernel", "tools/bench_int8_matmul.py:102",
+             "torch._int_mm")):
         r = int8_head[key]
         kernels.append(dict(
             name=name, route="cuda", source=source + "int8_matmul.cu",
-            replaces=f"tools/bench_int8_matmul.py:{line}",
-            launches=bench["bench_int8_matmul"][name],
-            launches_by_path=dict(bench_int8_matmul=bench["bench_int8_matmul"][name]),
-            max_abs_err=int8_head["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=r["library_ms"],
-            library_note=(None if r["library_ms"] is not None else
-                          "no single PyTorch call quantises, multiplies in int8 and "
-                          "dequantises; bf16_matmul_ms is the bf16 torch.matmul incumbent"),
-            bf16_matmul_ms=int8_head["bf16_matmul_ms"], variant=str(int8_head["shape"]),
-            variants=[dict(shape=v["shape"], bf16_matmul_ms=v["bf16_matmul_ms"], **v[key])
-                      for v in int8_variants],
+            device_kernel=device_kernel, replaces=replaces,
+            launches=int8_tool[name], launches_by_path=dict(bench_int8_matmul=int8_tool[name]),
+            max_abs_err=int8_head["max_abs_err"], ms=r["ms"], min_ms=r["min_ms"],
+            max_ms=r["max_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"], library_note=library_note,
+            share_of_bound=r["share_of_bound"], bf16_matmul_ms=int8_head["bf16_matmul_ms"],
+            variant=str(int8_head["shape"]),
+            variants=[dict(shape=v["shape"], x_dtype=v["x_dtype"], unaligned=v["unaligned"],
+                           route=v["routes"][key]["route"],
+                           matmul_ms=v["matmul"]["ms"], **v[key]) for v in int8_variants],
         ))
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched: "
           + json.dumps({k["name"]: k["launches"] for k in kernels}))

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by the tensor-core attention
-// kernels (flash_bwd_stream.cu, and flash_fwd_stream.cu / flash_fwd_nt.cu
-// through flash_fwd_tc.cuh): shared-memory addresses, mbarriers, TMA and
-// bulk copies, wgmma m64n64k16 (bf16 in, float32 accumulators in
-// registers), the accumulator-to-A-operand repack, and the tensor maps of
-// strided [B, T, H, 64] bf16 views. Everything lives in namespace `hopper`.
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels (the
+// attention kernels through flash_fwd_tc.cuh / flash_bwd_tc.cuh, and
+// int8_matmul.cu): shared-memory addresses, mbarriers, TMA and bulk copies,
+// wgmma m64n64k16 (bf16 in, float32 accumulators in registers) and
+// m64n128k32 (s8 in, int32 accumulators), the accumulator-to-A-operand
+// repack, and the tensor maps of strided [B, T, H, 64] bf16 views and of
+// int8 matrices. Everything lives in namespace `hopper`.
 //
 // The layouts below were checked on the card with the long-T backward: TMA 4D
 // tensor maps with CU_TENSOR_MAP_SWIZZLE_128B write exactly the layout of a
@@ -84,6 +85,17 @@ __device__ __forceinline__ void tma_load_rows(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box at (c0, c1) (innermost first) of a 2D tensor map into `dst`;
+// completes on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // `bytes` contiguous bytes (16-byte aligned, a multiple of 16); completes on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
                                           uint64_t* bar) {
@@ -102,6 +114,12 @@ __device__ __forceinline__ void fence_async_shared() {
 // Barrier `id` (1..15; 0 is __syncthreads) among `threads` threads.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrives at barrier `id` without waiting (the waiters use named_barrier
+// with the same count).
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -160,6 +178,45 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WG_D32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 64 int32 accumulators of m64n128 (s8 products): the operand list of
+// wgmma_s8, in the m64nN accumulator layout (acc_to_a's note below).
+#define WG_R64(d)                                                                            \
+  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),        \
+      "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),             \
+      "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),          \
+      "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),          \
+      "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),          \
+      "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),          \
+      "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),          \
+      "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),          \
+      "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),          \
+      "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),          \
+      "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+#define WG_R64_LIST                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "   \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "    \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "    \
+  "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+
+// d += A . B^T over one k32 slice of int8 (d = A . B^T with accumulate = 0),
+// exact in int32: A [64, 32] and B [128, 32] s8, both K-major in shared
+// memory (8-bit wgmma has no transpose flag, so B must be stored K-major
+// too). One 128-byte swizzle row holds 128 int8, four k32 slices: a slice
+// starts 32 bytes further (K_STEP), as a bf16 k16 slice does.
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " WG_R64_LIST
+      ", %64, %65, p;\n}\n"
+      : WG_R64(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void reg_fence(uint32_t (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Two floats as a bf16 pair (lo in the low half): rounded to nearest even,
@@ -225,6 +282,26 @@ inline int encode_rows(CUtensorMap* map, const void* base, int B, int T_len, int
   cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A tensor map over a row-major [rows, cols] int8 matrix whose rows are
+// `row_bytes` apart (a multiple of 16, and the base 16-byte aligned: TMA's
+// rule): boxes of [box_rows, 128] bytes with the 128-byte swizzle, each
+// 128-byte row one swizzle row, as an 8-bit K-major wgmma operand is read;
+// bytes outside the matrix read as 0. Returns 0, or a CUDA error.
+inline int encode_int8_rows(CUtensorMap* map, const void* base, long long rows, long long cols,
+                            long long row_bytes, int box_rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  cuuint32_t box[2] = {128, (cuuint32_t)box_rows};
+  cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;

@@ -92,8 +92,8 @@ SIGNATURES = {
         ),
     },
     "int8_matmul": {
-        "int8_core": ([_P, _P, _P, _I, _I, _I, _P], _I),
-        "int8_matmul": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "int8_core": ([_P] * 6, _I),
+        "int8_matmul": ([_P] * 7, _I),
     },
 }
 

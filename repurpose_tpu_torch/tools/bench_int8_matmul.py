@@ -32,12 +32,20 @@ plain versions equal the Pallas kernels bit for bit:
   rounded to x's dtype.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor it
-launches its kernel or raises. Each counts its launches in ``.launches``.
+launches its kernel (one launch a call) or raises. Each counts its launches
+in ``.launches``. Both kernels read the weight K-major (8-bit wgmma takes no
+transposed operand): the blocks of each launch first write its K-major copy
+into a scratch buffer together and meet at a grid barrier. ``int8_route``
+(the A operand's load route) and ``int8_schedule`` (panel rows, column-tile
+runs, grid, shared-memory split) are the wrappers' choices, in Python so
+that the CPU tests reach them; the last launch's are kept in
+``.last_launch``.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 
 import numpy as np
 import torch
@@ -50,6 +58,7 @@ SHAPES = [(16384, 512, 512), (16384, 512, 2048), (16384, 2048, 512)]
 
 _INV_127 = float(np.float32(1.0) / np.float32(127.0))  # exact as a float32
 _X_DTYPES = (torch.bfloat16, torch.float32)
+_INT8 = (torch.int8,)
 
 
 def _scale(amax: torch.Tensor) -> torch.Tensor:
@@ -91,17 +100,105 @@ def int8_matmul_reference(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -
     return ((acc.float() * xs) * ws).to(x.dtype)
 
 
+# The kernels' geometry (csrc/int8_matmul.cu): 128-byte K chunks, 128-column
+# tiles, and a shared-memory pool of 13 chunks of 16 KB that a launch splits
+# between the panel's slots (BM x 128 bytes each) and the weight's ring.
+CHUNK = 128
+TILE_N = 128
+POOL = 212992
+SCRATCH_WT = 256  # the scratch's barrier words, then the weight's K-major copy
+MIN_B_STAGES, MAX_B_STAGES = 4, 16
+STREAM_A_SLOTS = 4  # the slots of a panel too deep to be resident
+
+
+def int8_route(a: torch.Tensor) -> int:
+    """The load route of a contiguous A operand ``[M, K]`` (xq or x): 1 where
+    its rows are 16-byte aligned (the row's bytes a multiple of 16 and the
+    base 16-byte aligned: TMA for xq, vector loads for x), 0 elsewhere
+    (plain loads, zero-filled). Both routes are the same kernel."""
+    row_bytes = a.shape[1] * a.element_size()
+    return int(row_bytes % 16 == 0 and a.data_ptr() % 16 == 0)
+
+
+def int8_schedule(m: int, k: int, n: int, sms: int) -> tuple[int, int, int, int, int]:
+    """(panel rows BM, column-tile runs per panel, grid, panel slots, weight
+    stages) of a launch at (m, k, n) on a card with ``sms`` SMs.
+
+    BM is 128 where a 128-row panel's whole K fits the pool beside a
+    4-stage weight ring (K <= 1152), else 64 where a 64-row one does
+    (K <= 2304), else 128 with the panel streamed through 4 slots once per
+    column tile. The weight ring takes the rest of the pool (up to 16
+    stages). Each panel's tiles are split into the number of runs that
+    minimises waves x (tiles per run + 1), the + 1 the panel's load, ties to
+    fewer runs; the grid is persistent over (panel, run) units, at most one
+    block per SM."""
+    kc = -(-k // CHUNK)
+    for bm in (128, 64):
+        if kc * bm * CHUNK + MIN_B_STAGES * TILE_N * CHUNK <= POOL:
+            slots = kc
+            break
+    else:
+        bm, slots = 128, STREAM_A_SLOTS
+    stages = min(MAX_B_STAGES, (POOL - slots * bm * CHUNK) // (TILE_N * CHUNK))
+    panels, tiles = -(-m // bm), -(-n // TILE_N)
+    best = None
+    for runs in range(1, tiles + 1):
+        per = -(-tiles // runs)
+        runs = -(-tiles // per)  # no empty run
+        cost = -(-panels * runs // sms) * (per + 1)
+        if best is None or cost < best[0]:
+            best = (cost, runs)
+    runs = best[1]
+    return bm, runs, min(panels * runs, sms), slots, stages
+
+
+# The launch path below passes the device as its index and reads each
+# tensor attribute once: a chain of small calls runs at the speed of a
+# call's host work, not of its kernel.
+_SMS: dict[int, int] = {}
+_SCHEDULES: dict[tuple, tuple[int, int, int, int, int]] = {}
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _schedule(m: int, k: int, n: int, index: int) -> tuple[int, int, int, int, int]:
+    """``int8_schedule`` for CUDA device ``index``'s SM count, remembered per
+    shape."""
+    key = (m, k, n, index)
+    if key not in _SCHEDULES:
+        if index not in _SMS:
+            _SMS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+        _SCHEDULES[key] = int8_schedule(m, k, n, _SMS[index])
+    return _SCHEDULES[key]
+
+
+def _scratch(index: int, stream: int, k: int, n: int) -> torch.Tensor:
+    """The kernels' device scratch for a [k, n] weight, one zero-initialised
+    buffer per (device, stream), grown on demand: the grid barrier's words,
+    which every launch leaves as it found them, then room for the weight's
+    K-major copy [n, k rounded up to 16], which every launch writes anew
+    before it reads it (in the stream's order, so calls on one stream never
+    see each other's). Only the memory is kept, never a weight."""
+    nbytes = SCRATCH_WT + n * (-(-k // 16) * 16)
+    buf = _SCRATCH.get((index, stream))
+    if buf is None or buf.numel() < nbytes:
+        buf = _SCRATCH[(index, stream)] = torch.zeros(
+            nbytes, dtype=torch.int8, device=torch.device("cuda", index))
+    return buf
+
+
 def _on_cuda(x: torch.Tensor, name: str) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
+    if x.is_cuda:
+        return True
+    if x.device.type != "cpu":
         raise ValueError(f"{name} runs on CUDA or CPU tensors, not {x.device}")
-    return True
+    return False
 
 
-def _check_2d(name: str, x: torch.Tensor, dtypes, device) -> None:
-    if x.dim() != 2 or x.dtype not in dtypes or x.device != device:
-        raise ValueError(f"{name}: a 2-d {'/'.join(map(str, dtypes))} tensor on {device} "
+def _check_2d(name: str, x: torch.Tensor, dtypes, index: int) -> None:
+    """Raises unless ``x`` is 2-d, of one of ``dtypes`` and on CUDA device
+    ``index``."""
+    if x.dim() != 2 or x.dtype not in dtypes or x.get_device() != index:
+        raise ValueError(f"{name}: a 2-d {'/'.join(map(str, dtypes))} tensor on cuda:{index} "
                          f"is needed, not {tuple(x.shape)} {x.dtype} {x.device}")
 
 
@@ -113,62 +210,103 @@ def _check_product(x, wq) -> tuple[int, int, int]:
     return m, k, n
 
 
+_CONFIGS: dict[tuple, tuple] = {}
+
+
+def _config(name: str, a: torch.Tensor, m: int, k: int, n: int, index: int) -> tuple:
+    """The C entry's int arguments for this call, made once per (kernel,
+    shape, route, dtype, device) and kept as a ctypes array: M, K, N, Kp,
+    bf16 x, route, then the schedule. Returns (array, its address, the
+    launch record)."""
+    route = int8_route(a)
+    key = (name, m, k, n, route, a.dtype, index)
+    hit = _CONFIGS.get(key)
+    if hit is None:
+        sched = _schedule(m, k, n, index)
+        cfg = (ctypes.c_int * 11)(m, k, n, -(-k // 16) * 16, int(a.dtype == torch.bfloat16),
+                                  route, *sched)
+        record = dict(route=route, **dict(zip(("bm", "runs", "grid", "slots", "stages"), sched)))
+        hit = _CONFIGS[key] = (cfg, ctypes.addressof(cfg), record)
+    return hit
+
+
+_ENTRIES: dict[str, object] = {}
+
+
+def _entry(name: str):
+    """The C entry ``name`` of the built library (built at first use)."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        from repurpose_tpu_torch import native
+
+        fn = _ENTRIES[name] = getattr(native.load("int8_matmul"), name)
+    return fn
+
+
+def _launch(name: str, a: torch.Tensor, wq: torch.Tensor, out: torch.Tensor, index: int,
+            m: int, k: int, n: int, *extra) -> None:
+    """One launch of kernel ``name`` (``int8_core`` or ``int8_matmul``) on the
+    contiguous A operand ``a [m, k]`` and ``wq [k, n]`` on CUDA device
+    ``index``, with this layout's route and this shape's schedule (kept in
+    ``<wrapper>.last_launch``), on the device's current stream."""
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    _, cfg, record = _config(name, a, m, k, n, index)
+    scratch = _scratch(index, stream, k, n)
+    err = _entry(name)(
+        a.data_ptr(), wq.data_ptr(), scratch.data_ptr(), *extra, out.data_ptr(), cfg, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    wrapper = int8_core if name == "int8_core" else int8_matmul
+    wrapper.launches += 1
+    wrapper.last_launch = record
+
+
 def int8_core(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """int32 ``[M, N]`` = int8 ``xq [M, K]`` @ int8 ``wq [K, N]``: the kernel
     ``int8_core_kernel`` of csrc/int8_matmul.cu on CUDA tensors (counted in
-    ``int8_core.launches``), ``int8_core_reference`` on CPU ones. Any M, K
-    and N: the kernel zero-fills ragged tiles."""
+    ``int8_core.launches``),
+    ``int8_core_reference`` on CPU ones. Any M, K and N: the kernel
+    zero-fills ragged tiles."""
     if not _on_cuda(xq, "int8_core"):
         return int8_core_reference(xq, wq)
-    for name, t in (("xq", xq), ("wq", wq)):
-        _check_2d(name, t, (torch.int8,), xq.device)
+    index = xq.get_device()
+    _check_2d("xq", xq, _INT8, index)
+    _check_2d("wq", wq, _INT8, index)
     m, k, n = _check_product(xq, wq)
-    from repurpose_tpu_torch import native
-
     xq, wq = xq.contiguous(), wq.contiguous()
-    out = torch.empty((m, n), dtype=torch.int32, device=xq.device)
+    out = torch.empty_strided((m, n), (n, 1), dtype=torch.int32, device=xq.device)
     if out.numel() == 0:
         return out
-    err = native.load("int8_matmul").int8_core(
-        xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, k, n,
-        torch.cuda.current_stream(xq.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int8_core kernel launch failed: CUDA error {err}")
-    int8_core.launches += 1
+    _launch("int8_core", xq, wq, out, index, m, k, n)
     return out
 
 
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor) -> torch.Tensor:
     """``[M, N]`` in x's dtype = dequantised (quantise_rows(x) @ wq): the
     kernel ``int8_mm_kernel`` of csrc/int8_matmul.cu on CUDA tensors
-    (counted in ``int8_matmul.launches``), ``int8_matmul_reference`` on CPU
-    ones. x bf16 or float32 ``[M, K]``, wq int8 ``[K, N]``, ws float32
-    ``[1, N]``; any M, K and N."""
+    (counted in ``int8_matmul.launches``),
+    ``int8_matmul_reference`` on CPU ones. x bf16 or float32 ``[M, K]``, wq
+    int8 ``[K, N]``, ws float32 ``[1, N]``; any M, K and N."""
     if not _on_cuda(x, "int8_matmul"):
         return int8_matmul_reference(x, wq, ws)
-    _check_2d("x", x, _X_DTYPES, x.device)
-    _check_2d("wq", wq, (torch.int8,), x.device)
-    _check_2d("ws", ws, (torch.float32,), x.device)
+    index = x.get_device()
+    _check_2d("x", x, _X_DTYPES, index)
+    _check_2d("wq", wq, _INT8, index)
+    _check_2d("ws", ws, (torch.float32,), index)
     m, k, n = _check_product(x, wq)
     if ws.shape != (1, n):
         raise ValueError(f"ws must be [1, {n}], not {tuple(ws.shape)}")
-    from repurpose_tpu_torch import native
-
     x, wq, ws = x.contiguous(), wq.contiguous(), ws.contiguous()
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    out = torch.empty_strided((m, n), (n, 1), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    err = native.load("int8_matmul").int8_matmul(
-        x.data_ptr(), wq.data_ptr(), ws.data_ptr(), out.data_ptr(), m, k, n,
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err}")
-    int8_matmul.launches += 1
+    _launch("int8_matmul", x, wq, out, index, m, k, n, ws.data_ptr())
     return out
 
 
 int8_core.launches = 0  # kernel launches; the plain CPU path does not count
 int8_matmul.launches = 0
+int8_core.last_launch = int8_matmul.last_launch = None  # route and schedule of the last launch
 
 
 def parse_args(argv=None) -> argparse.Namespace:

@@ -13,7 +13,8 @@ masked rows included), float32 atol 1e-4 / rtol 1e-4 (the kernel sums in
 another order and rescales its online softmax, ~1e-6 relative per step);
 bf16 atol 1e-2 * max |out| / rtol 1e-2 (bf16 outputs, one ulp 2**-8
 relative, and the kernel rounds exp(s - m) to bf16 against its running max
-where the plain version uses the final max). The int8 kernels: bit for bit.
+where the plain version uses the final max). The int8 kernels: bit for bit,
+on both load routes.
 """
 
 import pytest
@@ -95,7 +96,15 @@ def _int8_inputs(m, k, n, dtype, device, seed=0):
 
 
 INT8_SHAPES = [*bim.SHAPES, (1000, 520, 776), (17, 16, 8), (130, 2048, 136), (5, 3, 7),
-               (300, 1, 129)]
+               (300, 1, 129),
+               # 16-byte rows, K not a multiple of 128 (TMA past K zero-fills)
+               (256, 528, 272),
+               # fewer panels than SMs: column tiles split across blocks
+               (2000, 256, 1000),
+               # 397 panels on a persistent grid: three or four units a block
+               (50693, 64, 136),
+               # a panel too deep to stay resident: streamed once per column tile
+               (256, 4096, 256)]
 
 
 @pytest.mark.parametrize("m,k,n", INT8_SHAPES)
@@ -106,11 +115,89 @@ def test_int8_kernels_equal_plain_bit_for_bit(cuda, m, k, n, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     assert torch.equal(got, bim.int8_matmul_reference(x, wq, ws))
+    assert bim.int8_matmul.last_launch["route"] == _want_route(x)
     xq, _ = bim.quantize_rows(x)
     core = bim.int8_core(xq, wq)
     torch.cuda.synchronize()
     assert core.dtype == torch.int32
     assert torch.equal(core, bim.int8_core_reference(xq, wq))
+    assert bim.int8_core.last_launch["route"] == _want_route(xq)
+
+
+def _want_route(a):
+    return int((a.shape[1] * a.element_size()) % 16 == 0 and a.data_ptr() % 16 == 0)
+
+
+def _unaligned(t):
+    """``t``'s values in a contiguous view one element past a 16-byte boundary
+    (``buf[1:]`` of a larger buffer)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_int8_kernels_read_an_unaligned_base_bit_for_bit(cuda, dtype):
+    """x and xq whose storage starts off a 16-byte boundary, at a tool shape:
+    the plain-load route (0), the same bits as the plain versions and as the
+    aligned copies through the TMA / vector route (1)."""
+    m, k, n = bim.SHAPES[0]
+    x, wq, ws = _int8_inputs(m, k, n, dtype, cuda, seed=4)
+    xq, _ = bim.quantize_rows(x)
+    ux, uxq = _unaligned(x), _unaligned(xq)
+    got, core = bim.int8_matmul(ux, wq, ws), bim.int8_core(uxq, wq)
+    torch.cuda.synchronize()
+    assert bim.int8_matmul.last_launch["route"] == 0 == _want_route(ux)
+    assert bim.int8_core.last_launch["route"] == 0 == _want_route(uxq)
+    assert torch.equal(got, bim.int8_matmul_reference(x, wq, ws))
+    assert torch.equal(core, bim.int8_core_reference(xq, wq))
+    assert torch.equal(got, bim.int8_matmul(x, wq, ws))
+    assert bim.int8_matmul.last_launch["route"] == 1
+    assert torch.equal(core, bim.int8_core(xq, wq))
+    assert bim.int8_core.last_launch["route"] == 1
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+def test_int8_kernels_on_a_forced_small_grid(cuda, bm, monkeypatch):
+    """Fewer panels than SMs and more than two waves: 1000 x 520 x 776 with
+    each panel's 7 column tiles split into runs of 1-2 tiles, on a grid of
+    5 blocks, so that every block walks many (panel, run) units, some
+    reusing a panel's slots, some not."""
+    m, k, n = 1000, 520, 776
+    x, wq, ws = _int8_inputs(m, k, n, torch.bfloat16, cuda, seed=5)
+    xq, _ = bim.quantize_rows(x)
+    _, _, _, slots, stages = bim.int8_schedule(m, k, n, 132)
+    key = (m, k, n, x.device.index)
+    monkeypatch.setattr(bim, "_CONFIGS", {})  # launch arguments made from the schedule
+    for runs in (4, 7):
+        monkeypatch.setitem(bim._SCHEDULES, key, (bm, runs, 5, slots, stages))
+        bim._CONFIGS.clear()
+        got, core = bim.int8_matmul(x, wq, ws), bim.int8_core(xq, wq)
+        torch.cuda.synchronize()
+        assert bim.int8_core.last_launch == dict(route=0, bm=bm, runs=runs, grid=5, slots=slots,
+                                                 stages=stages)
+        assert torch.equal(got, bim.int8_matmul_reference(x, wq, ws))
+        assert torch.equal(core, bim.int8_core_reference(xq, wq))
+
+
+@pytest.mark.parametrize("m,k,n", [bim.SHAPES[0], (1000, 520, 776)])
+def test_int8_chained_launches_give_equal_bits(cuda, m, k, n):
+    """Launches queued back to back (no synchronisation between) share one
+    scratch: each writes the weight's K-major copy there and passes the grid
+    barrier in it after the one before has read it, in stream order. Equal
+    bits, including a launch with another weight in between."""
+    x, wq, ws = _int8_inputs(m, k, n, torch.bfloat16, cuda, seed=6)
+    xq, _ = bim.quantize_rows(x)
+    wq2 = torch.flip(wq, dims=[0])
+    before = (bim.int8_matmul.launches, bim.int8_core.launches)
+    a, b = bim.int8_matmul(x, wq, ws), bim.int8_matmul(x, wq, ws)
+    c, e, d = bim.int8_core(xq, wq), bim.int8_core(xq, wq2), bim.int8_core(xq, wq)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(c, d)
+    assert torch.equal(a, bim.int8_matmul_reference(x, wq, ws))
+    assert torch.equal(e, bim.int8_core_reference(xq, wq2))
+    assert (bim.int8_matmul.launches, bim.int8_core.launches) == (before[0] + 2, before[1] + 3)
 
 
 def test_int8_core_at_the_int32_extremes(cuda):

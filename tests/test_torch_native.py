@@ -50,3 +50,4 @@ def test_the_kernel_sources_resolve_their_headers():
     assert by_name["flash_fwd_stream"][1:] == []
     assert by_name["flash_bwd"][1:] == ["flash_bwd_tc.cuh", "hopper.cuh"]
     assert by_name["flash_bwd_stream"][1:] == ["hopper.cuh"]
+    assert by_name["int8_matmul"][1:] == ["hopper.cuh"]
