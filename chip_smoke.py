@@ -109,7 +109,25 @@ verdict line):
    c. each tool's ``main([])`` on the card, with its launches (every
       ``mha_nt`` launch the tensor-core kernel), then ``mha_nt`` on float32
       inputs of the tool's shape (the first design);
-10. a JSON line listing every ported kernel, then the verdict line
+10. wide heads: the Dh 256 instances of the first designs (the dense and the
+   streaming forward and backward) against their plain versions at
+   [2, 1024, 2, 256] and [1, 4096, 2, 256], unpacked and packed, bf16 and
+   float32, timed beside SDPA and the bound, and the model's route at
+   Dh 192 (zero-padded to 256) against the same call on the CPU;
+11. the serving daemon (``python -m repurpose_tpu_torch.serve``) at the
+   production width: its classes in this process, each answer equal bit for
+   bit to ``score_videos`` one client at a time, every forward the
+   tensor-core kernel; 4 concurrent clients, unpacked and ``--pack``; the
+   module as a subprocess with ``--warmup``, SIGTERM exit 0; request latency
+   and videos/s;
+12. ``python -m repurpose_tpu_torch.campaign --smoke 8`` at the production
+   width: the packed cross-check passes, the report names the card, the
+   temporary split is removed;
+13. the train CLI with ``--profile --async-ckpt`` (12 synthetic videos): the
+   trace and the host-time split of the profiled epoch by operator, the
+   asynchronous checkpoint against a synchronous save bit for bit, and
+   ``load_batch``'s native route against ``collate`` bit for bit;
+14. a JSON line listing every ported kernel, then the verdict line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -122,6 +140,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2188,6 +2207,535 @@ def phase_long_gradients(card: str) -> dict:
 # -- phase 9: the bench tools ---------------------------------------------------
 
 
+WIDE_DH = 256  # the widest kernel instance of the first designs
+WIDE_PADDED_DH = 192  # a head the model route zero-pads to WIDE_DH
+
+
+def phase_wide_heads() -> list[dict]:
+    """Wide heads: the Dh 256 instances of the first designs (csrc/flash_fwd.cu,
+    flash_fwd_stream.cu, flash_bwd.cu, flash_bwd_stream.cu) against their
+    plain versions, forward and backward, bf16 and float32: the dense
+    kernels at [2, 1024, 2, 256] unpacked and packed, the streaming ones at
+    [1, 4096, 2, 256] unpacked and packed, each under ``TOL`` / ``BWD_REL``;
+    each launch counted on the first design (never the tensor-core one).
+    Times per launch of a chain with the sweep made outside (the forward,
+    and the dq + dk/dv pair), SDPA forward and backward on the same mask,
+    and the bounds. Then the model's route at Dh 192 (``flash_attention``,
+    zero-padded to 256 with the head's own scale) on the card against the
+    same call on CPU tensors (the plain versions at Dh 192), out and
+    gradients."""
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch.ops import flash_attention as fa
+
+    variants = []
+    for dtype in ("bfloat16", "float32"):
+        for packed in (False, True):
+            variants.append(dict(name=f"dense_{'packed' if packed else 'unpacked'}_{dtype}",
+                                 shape=(2, 1024, 2, WIDE_DH), dtype=dtype, sm=dtype,
+                                 packed=packed, stream=False))
+            variants.append(dict(name=f"stream_{'packed' if packed else 'unpacked'}_{dtype}",
+                                 shape=(1, 4096, 2, WIDE_DH), dtype=dtype, sm=dtype,
+                                 packed=packed, stream=True))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    for var in variants:
+        b, t, h, dh = var["shape"]
+        dtype = getattr(torch, var["dtype"])
+        qkv = torch.randn((b, t, 3 * h * dh), generator=gen, device="cuda").to(dtype)
+        q, k, v = (z.view(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
+        seg = None
+        if var["packed"]:
+            durs = [int(d) for d in np.random.default_rng(SEED + 12 + t).integers(
+                t // 8, t // 2, size=4 * b)]
+            mask, seg_np, _ = _packed_layout(b, t, durs)
+            seg = torch.from_numpy(seg_np).cuda()
+        else:
+            mask = np.zeros((b, t), bool)
+            for i in range(b):
+                mask[i, : int((0.9 - 0.3 * i) * t)] = True
+            mask[:, t // 3: t // 3 + 50] = False
+        kv = torch.from_numpy(mask).cuda()
+        sm = var["sm"]
+        fwd, fwd_ref = ((fa.flash_forward_stream, fa.flash_forward_stream_reference)
+                        if var["stream"] else (fa.flash_forward, fa.flash_forward_reference))
+        dq_fn, dkv_fn, dq_ref, dkv_ref = (
+            (fa.flash_bwd_dq_stream, fa.flash_bwd_dkv_stream, fa.flash_bwd_dq_stream_reference,
+             fa.flash_bwd_dkv_stream_reference) if var["stream"] else
+            (fa.flash_bwd_dq, fa.flash_bwd_dkv, fa.flash_bwd_dq_reference,
+             fa.flash_bwd_dkv_reference))
+        names = ("flash_fwd_stream", "flash_bwd_dq_stream", "flash_bwd_dkv_stream") \
+            if var["stream"] else ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        tc_names = ("flash_fwd_stream_tc", "flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+        reset_launches()
+        out, lse = fwd(q, k, v, kv, seg, sm)
+        g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+        g = g.masked_fill(~_grad_rows(kv, seg)[:, :, None, None], 0.0)
+        args = (q, k, v, kv, out, lse, g, seg, sm)
+        got = dict(dq=dq_fn(*args))
+        got["dk"], got["dv"] = dkv_fn(*args)
+        torch.cuda.synchronize()
+        launched = read_launches(*names, *tc_names)
+        check([launched[n] for n in names] == [1, 1, 1] and not any(
+            launched[n] for n in tc_names), f"wide {var['name']}: launches {launched}")
+        ref_out, ref_lse = fwd_ref(q, k, v, kv, seg, sm)
+        err, lse_err, atol, live = _hold_forward(f"wide {var['name']}", out, lse, ref_out,
+                                                 ref_lse, kv, seg, var["dtype"])
+        del ref_out, ref_lse
+        want = dict(dq=dq_ref(*args))
+        want["dk"], want["dv"] = dkv_ref(*args)
+        rel = BWD_REL.get((var["dtype"], sm), BWD_REL_BF16)
+        errs = _hold_backward(f"wide {var['name']}", got, want, rel, ~_grad_rows(kv, None))
+        del want
+        sweep = fa.attention_sweep(kv, seg, dense=not var["stream"])
+        chain = 4
+        f_ms = spread_ms(lambda: fwd(q, k, v, kv, seg, sm, sweep=sweep), reps=5, chain=chain)
+        b_ms = spread_ms(lambda: (dq_fn(*args, sweep=sweep), dkv_fn(*args, sweep=sweep)),
+                         reps=5, chain=chain)
+        f_lib = _sdpa_spread(q, k, v, kv, seg, reps=5, chain=chain)
+        b_lib, b_lib_note = _sdpa_bwd_ms(q, k, v, kv, seg, g, reps=5, chain=chain)
+        f_bound = _bound(q, kv, seg)
+        dq_bound, dkv_bound = _bwd_bound(q, kv, seg, 3, 1), _bwd_bound(q, kv, seg, 4, 2)
+        row = dict(
+            name=var["name"], shape=list(var["shape"]), dtype=var["dtype"], softmax_dtype=sm,
+            packed=var["packed"], kernels=list(names), max_abs_err=err, lse_max_abs_err=lse_err,
+            out_atol=atol, max_abs_err_by_grad=errs, grad_tolerance=f"{rel} x max |plain|",
+            ms=f_ms["ms"], min_ms=f_ms["min_ms"], max_ms=f_ms["max_ms"],
+            plain_ms=median_ms(lambda: fwd_ref(q, k, v, kv, seg, sm), reps=3, warmup=1),
+            library_ms=f_lib["ms"], bound_ms=f_bound[0], bound_by=f_bound[1],
+            bwd_ms=b_ms["ms"], bwd_min_ms=b_ms["min_ms"], bwd_max_ms=b_ms["max_ms"],
+            bwd_plain_ms=median_ms(lambda: (dq_ref(*args), dkv_ref(*args)), reps=3, warmup=1),
+            bwd_library_ms=b_lib, bwd_library_note=b_lib_note,
+            bwd_bound_ms=dq_bound[0] + dkv_bound[0],
+            bwd_bound_by=dq_bound[1] if dq_bound[0] >= dkv_bound[0] else dkv_bound[1],
+            chain=chain)
+        print(f"[wide-heads] {json.dumps(row)}")
+        print(f"[wide-time] {var['name']}: forward {_triple(f_ms)} ms (SDPA "
+              f"{f_lib['ms']:.4f}, bound {f_bound[0]:.4f}); dq + dk/dv {_triple(b_ms)} ms "
+              f"(SDPA backward {b_lib}, bound {row['bwd_bound_ms']:.4f})")
+        rows.append(row)
+        del q, k, v, kv, seg, out, lse, g, args, got, sweep, qkv
+        torch.cuda.empty_cache()
+
+    # the model's route at Dh 192: zero-padded to 256 with the head's own scale
+    for dtype in (torch.bfloat16, torch.float32):
+        b, t, h, dh = 2, 1024, 2, WIDE_PADDED_DH
+        rng = np.random.default_rng(SEED + 13)
+        q, k, v, w = (torch.from_numpy(rng.normal(0, 1, (b, t, h, dh)).astype(np.float32))
+                      .to(dtype) for _ in range(4))
+        valid = torch.ones(b, t, dtype=torch.bool)
+        valid[1, t // 2:] = False
+        w = w * valid[:, :, None, None]
+        runs = []
+        for device in ("cuda", "cpu"):
+            reset_launches()
+            leaves = [x.to(device).requires_grad_() for x in (q, k, v)]
+            out = fa.flash_attention(*leaves, valid.to(device), None, "float32")
+            (out.float() * w.to(device).float()).sum().backward()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launched = read_launches("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                check(launched == dict(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1),
+                      f"wide Dh {dh} {dtype}: launches {launched}")
+            runs.append([x.detach().float().cpu() for x in (out, *(z.grad for z in leaves))])
+        rel = 1e-4 if dtype == torch.float32 else 1e-2
+        live = torch.arange(t)[None] < fa._kv_len(valid)
+        errs = {}
+        for name, got_x, want_x in zip(("out", "dq", "dk", "dv"), *runs):
+            scale = float(want_x[live].abs().max())
+            errs[name] = float((got_x[live] - want_x[live]).abs().max())
+            check(errs[name] <= rel * scale and bool(torch.isfinite(got_x).all()),
+                  f"wide Dh {dh} {dtype} {name}: max err {errs[name]:.3g} > {rel} x {scale:.3g}")
+        row = dict(name=f"model_route_Dh{dh}_{str(dtype).split('.')[-1]}",
+                   shape=[b, t, h, dh], padded_to=fa.kernel_head_dim("cuda", dh),
+                   max_abs_err_by_output=errs, tolerance=f"{rel} x max |cpu|")
+        print(f"[wide-heads] {json.dumps(row)}")
+        rows.append(row)
+    return rows
+
+
+# the daemon and campaign phases' decode gate: with random weights the
+# default 10 s duration gate would leave no candidate (as in phase 4)
+DAEMON_DURATION_THRESH = 0.001
+# Concurrent drains merge several clients' videos into other batches (other
+# rows, other matrix shapes), so bf16 rounding differs from the sequential
+# answer: each video's top score (the sigmoid of its largest kept logit,
+# which Soft-NMS never decays) is held within 0.025 = BF16_LOGIT_MAX x 1/4,
+# the sigmoid's largest slope; its clip count within 25 % of the larger
+# count plus 2, since Soft-NMS keeps the candidates whose decayed score
+# stays above min_score, and a score near it can flip either way.
+DAEMON_TOP_SCORE_TOL = BF16_LOGIT_MAX / 4
+
+
+def _daemon_config(workdir: str):
+    """The production config with the daemon's decode gate, and a JSON copy
+    of it for the subprocess (the card's machine has no PyYAML)."""
+    cfg = production_config()
+    cfg = dataclasses.replace(cfg, test_cfg=dataclasses.replace(
+        cfg.test_cfg, duration_thresh=DAEMON_DURATION_THRESH))
+    path = os.path.join(workdir, "production.json")
+    with open(path, "w") as f:
+        f.write(cfg.to_json())
+    return cfg, path
+
+
+def _feature_root(workdir: str, requests) -> str:
+    """The requests' features as ``DIR/{visual,audio,text}/{id}.npy`` (the
+    dataset's layout): clients then send video ids (``--feature_root``),
+    not ~100 MB of JSON per 1800 s video."""
+    import numpy as np
+
+    root = os.path.join(workdir, "features")
+    for m in ("visual", "audio", "text"):
+        os.makedirs(os.path.join(root, m), exist_ok=True)
+    for r, videos in enumerate(requests):
+        for i, v in enumerate(videos):
+            v["video_id"] = f"r{r}v{i}"
+            for m in ("visual", "audio", "text"):
+                np.save(os.path.join(root, m, f"{v['video_id']}.npy"), v[m])
+    return root
+
+
+def _http(url: str, payload: dict | None = None, timeout: float = 300.0):
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return r.status, json.loads(r.read())
+
+
+def _served(cfg, args):
+    """The daemon of ``args`` in this process, serving on a thread:
+    (base URL, server, scorer, thread)."""
+    import threading
+
+    from repurpose_tpu_torch import serve
+
+    server, scorer, platform, name = serve.make_server(cfg, args)
+    check(platform == "cuda" and name == _card_name(), f"daemon on {platform} {name}")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    return f"http://127.0.0.1:{server.server_address[1]}", server, scorer, thread
+
+
+def _card_name() -> str:
+    import torch
+
+    return torch.cuda.get_device_name(0)
+
+
+def _shut(server, scorer, thread) -> None:
+    server.shutdown()
+    scorer.stop()
+    scorer.join(timeout=60)
+    server.server_close()
+    thread.join(timeout=60)
+    check(not scorer.is_alive() and not thread.is_alive(), "the daemon did not stop")
+
+
+def phase_daemon(card: str, workdir: str) -> dict:
+    """The serving daemon (``python -m repurpose_tpu_torch.serve``) at the
+    production width (d_model 512, 16 layers, bf16, buckets 256-2048), on
+    seeded weights written as a ``.pth``, features served by video id:
+    (a) its classes in this process: requests of 4-8 videos of 200-1800 s,
+    one client at a time, each answer equal bit for bit to in-process
+    ``score_videos`` on the same videos, every attention launch the
+    tensor-core forward; latency and videos/s per request; (b) 4 concurrent
+    clients, unpacked and ``--pack``: every client answered in order,
+    ``scored_total`` adding up, each video within ``DAEMON_TOP_SCORE_TOL`` of
+    its sequential answer; (c) the module as a subprocess with ``--warmup``:
+    its readiness line, one ``/score``, ``/healthz`` and exit code 0 on
+    SIGTERM."""
+    import threading
+
+    import torch
+
+    from repurpose_tpu_torch import serve
+    from repurpose_tpu_torch.models import build_model
+
+    cfg, cfg_json = _daemon_config(workdir)
+    pth = os.path.join(workdir, "weights.pth")
+    torch.save({"model": build_model(cfg.model, "cpu", seed=SEED).state_dict(), "epoch": 0,
+                "loss": 0.0}, pth)
+    requests = _requests(cfg.model, 8)
+    features = _feature_root(workdir, requests)
+    flags = ["--torch_ckpt", pth, "--port", "0", "--feature_root", features]
+    ids = [[v["video_id"] for v in videos] for videos in requests]
+
+    # (a) one client at a time, against score_videos in this process; warmed
+    # up, so that the latencies are the steady state's
+    base, server, scorer, thread = _served(cfg, serve.parse_args(flags + ["--warmup"]))
+    sequential, latencies = {}, []
+    try:
+        reset_launches()
+        for r, videos in enumerate(requests[:4]):
+            t0 = time.perf_counter()
+            status, body = _http(base + "/score", {"videos": [{"video_id": i} for i in ids[r]]})
+            latencies.append((time.perf_counter() - t0, len(videos)))
+            check(status == 200, f"daemon request {r}: {status}")
+            want = [serve._json_result(x) for x in scorer.pipe.score_videos(
+                [{m: v[m] for m in ("video_id", "visual", "audio", "text")} for v in videos],
+                buckets=cfg.train.buckets, batch_size=8)]
+            check(body["results"] == want,
+                  f"daemon request {r}: answer differs from in-process score_videos")
+            sequential.update({x["video_id"]: x for x in body["results"]})
+        torch.cuda.synchronize()
+        launches = read_launches("flash_fwd", "flash_fwd_tc")
+        check(launches["flash_fwd_tc"] > 0 and launches["flash_fwd"] == launches["flash_fwd_tc"],
+              f"daemon: launches {launches} (every forward the tensor-core kernel)")
+        health = _http(base + "/healthz")[1]
+        check(health["scored_total"] == sum(len(v) for v in requests[:4]),
+              f"scored_total {health['scored_total']}")
+        for r in range(4, 8):  # the other requests' sequential answers, for (b)
+            body = _http(base + "/score", {"videos": [{"video_id": i} for i in ids[r]]})[1]
+            sequential.update({x["video_id"]: x for x in body["results"]})
+    finally:
+        _shut(server, scorer, thread)
+    ms = [t * 1e3 for t, _ in latencies]
+    rate = sum(n for _, n in latencies) / sum(t for t, _ in latencies)
+    print(f"[daemon] {card}: {len(ms)} requests of 4-8 videos, one client at a time, equal bit "
+          f"for bit to in-process score_videos; latency ms median {statistics.median(ms):.1f} "
+          f"[min {min(ms):.1f}, max {max(ms):.1f}], {rate:.2f} videos/s; launches "
+          f"{json.dumps(launches)}")
+
+    # (b) four concurrent clients, unpacked and packed
+    concurrent = {}
+    for pack in (False, True):
+        base, server, scorer, thread = _served(
+            cfg, serve.parse_args(flags + (["--pack"] if pack else [])))
+        try:
+            before = _http(base + "/healthz")[1]["scored_total"]
+            out, t0 = {}, time.perf_counter()
+
+            def client(r):
+                out[r] = _http(base + "/score",
+                               {"videos": [{"video_id": i} for i in ids[r]]})
+
+            threads = [threading.Thread(target=client, args=(r,)) for r in range(4, 8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            wall = time.perf_counter() - t0
+            check(sorted(out) == list(range(4, 8)), f"clients unanswered: {sorted(out)}")
+            worst, counts = 0.0, []
+            for r, (status, body) in out.items():
+                check(status == 200 and [x["video_id"] for x in body["results"]] == ids[r],
+                      f"concurrent client {r}: {status}, answers out of order")
+                for x in body["results"]:
+                    y = sequential[x["video_id"]]
+                    check(x["duration"] == y["duration"], "durations differ")
+                    top = abs(max(x["scores"], default=0.0) - max(y["scores"], default=0.0))
+                    worst = max(worst, top)
+                    n, m = len(x["scores"]), len(y["scores"])
+                    counts.append((n, m))
+                    check(top <= DAEMON_TOP_SCORE_TOL and abs(n - m) <= 0.25 * max(n, m) + 2,
+                          f"{x['video_id']}: top score off by {top:.4g}, clips {n} vs {m}")
+            total = _http(base + "/healthz")[1]["scored_total"] - before
+            check(total == sum(len(ids[r]) for r in range(4, 8)), f"scored_total {total}")
+        finally:
+            _shut(server, scorer, thread)
+        concurrent["packed" if pack else "unpacked"] = dict(
+            wall_s=wall, videos=total, videos_per_s=total / wall, max_top_score_diff=worst,
+            same_clip_counts=sum(n == m for n, m in counts), of=len(counts))
+        print(f"[daemon] {card}: 4 concurrent clients {'--pack' if pack else 'unpacked'}: "
+              f"{total} videos in {wall:.2f} s ({total / wall:.2f} videos/s), all answered "
+              f"in order; max |top score - sequential| {worst:.4g} <= "
+              f"{DAEMON_TOP_SCORE_TOL}; equal clip counts in "
+              f"{sum(n == m for n, m in counts)}/{len(counts)} videos")
+
+    # (c) the module as a subprocess, warmed up
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repurpose_tpu_torch.serve", "--config_path", cfg_json,
+         "--warmup", "--pack", *flags], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        ready_s = time.perf_counter() - t0
+        check("serving on http://" in line and f"platform=cuda {_card_name()}" in line,
+              f"readiness line {line!r}: {proc.stderr.read()[-2000:] if not line else ''}")
+        base = "http://127.0.0.1:" + line.split("http://")[1].split(" ")[0].rsplit(":", 1)[1]
+        t1 = time.perf_counter()
+        status, body = _http(base + "/score", {"videos": [{"video_id": i} for i in ids[0]]})
+        first_ms = (time.perf_counter() - t1) * 1e3
+        check(status == 200 and [x["video_id"] for x in body["results"]] == ids[0],
+              "subprocess /score failed")
+        status, health = _http(base + "/healthz")
+        check(status == 200 and health["platform"] == "cuda" and health["pack"] is True
+              and health["scored_total"] == len(ids[0]), f"/healthz {health}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"the daemon exited {rc} on SIGTERM: {proc.stderr.read()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    print(f"[daemon] {card}: python -m repurpose_tpu_torch.serve --warmup --pack: ready in "
+          f"{ready_s:.1f} s ({line.strip()}); first /score after warm-up {first_ms:.1f} ms; "
+          f"/healthz ok; SIGTERM exit 0")
+    return dict(launches=launches, latency_ms=ms, videos_per_s=rate, concurrent=concurrent,
+                ready_s=ready_s, first_score_ms=first_ms)
+
+
+def phase_campaign(card: str, workdir: str) -> dict:
+    """``python -m repurpose_tpu_torch.campaign --smoke 8`` on the card at the
+    production width (random weights of the config's seed): the packed
+    cross-check passes, the report is written, and the smoke split's
+    temporary directory is gone afterwards."""
+    _, cfg_json = _daemon_config(workdir)
+    tmp = os.path.join(workdir, "tmp")
+    os.makedirs(tmp, exist_ok=True)
+    report = os.path.join(workdir, "campaign_report.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repurpose_tpu_torch.campaign", "--config_path", cfg_json,
+         "--smoke", "8", "--report", report], cwd=ROOT, capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, TMPDIR=tmp))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"campaign exited {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(report) as f:
+        rep = json.load(f)
+    check(rep["eval_entries"] == 8 and rep["packed_crosscheck"]["passed"]
+          and "error" not in rep, f"campaign report {rep}")
+    check(rep["card"] == _card_name() and "nvidia_smi" in rep, "the report lacks the card")
+    left = [n for n in os.listdir(tmp) if n.startswith("campaign_smoke_")]
+    check(left == [], f"the smoke split was left behind: {left}")
+    print(f"[campaign] {card}: --smoke 8 in {wall:.1f} s (one process: start, build reuse, "
+          f"two scorings): mean precision@tIoU {rep['mean_precision_at_tiou']:.4f}, packed "
+          f"cross-check deltas {json.dumps(rep['packed_crosscheck']['abs_delta_by_threshold'])} "
+          f"within {rep['packed_crosscheck']['tolerance_per_threshold']}; report written; "
+          "temporary directory removed")
+    return dict(wall_s=wall, report=rep)
+
+
+def phase_trainer_flags(card: str, workdir: str) -> dict:
+    """``train --synthetic 12 --epochs 1 --profile --async-ckpt`` on the card
+    at the production config (the CLI's ``run``): the trace exists and the
+    step's host time is split by its largest CPU-side operations; the
+    asynchronous checkpoint restores bit for bit against a synchronous save
+    of the same state; ``load_batch`` takes the native route and equals
+    ``collate`` bit for bit on an on-disk split of the production widths."""
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch import native
+    from repurpose_tpu_torch.data.batching import collate
+    from repurpose_tpu_torch.data.dataset import RepurposeDataset
+    from repurpose_tpu_torch.data.synthetic import write_synthetic_dataset
+    from repurpose_tpu_torch.train import __main__ as cli
+    from repurpose_tpu_torch.train.checkpoint import Checkpointer
+    from repurpose_tpu_torch.train.loop import Trainer
+
+    cfg = _training_config()
+    run_dir = os.path.join(workdir, "run")
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run(cfg, cli.parse_args(["--synthetic", "12", "--epochs", "1", "--profile",
+                                           "--async-ckpt", "--workdir", run_dir]))
+    wall = time.perf_counter() - t0
+    launches = read_launches("flash_fwd_tc", "flash_bwd_stream_prep", "flash_bwd_dq_tc",
+                             "flash_bwd_dkv_tc")
+    check(all(n > 0 for n in launches.values()), f"trainer flags: launches {launches}")
+    steps = summary["step"]
+    trace = os.path.join(run_dir, "profile", "trace.json")
+    table = open(os.path.join(run_dir, "profile", "ops.txt")).read().splitlines()
+    check(os.path.getsize(trace) > 0 and len(table) > 5, "no profile written")
+    print(f"[trainer-flags] {card}: --profile --async-ckpt, {steps} packed [6, 2048] steps in "
+          f"{wall:.1f} s; trace {os.path.getsize(trace)} bytes; launches {json.dumps(launches)}")
+    # the host split: the operator table of the profiled epoch, by self CPU time
+    for row in table[:24]:
+        print(f"[train-host-split] {row}")
+    step_row = next((r for r in table if r.strip().startswith("train_step")), "")
+    print(f"[train-host-split] the annotated step: {step_row.strip()}")
+
+    # the async checkpoint against a synchronous save of the same state
+    trainer = Trainer(cfg, os.path.join(workdir, "restore"), cli.build_datasets(cfg, 12)[0],
+                      device="cuda")
+    trainer.checkpointer = Checkpointer(os.path.join(run_dir, "ckpt"))
+    check(trainer.resume() and trainer.state.step == steps, "async checkpoint did not restore")
+    sync_dir = os.path.join(workdir, "sync")
+    Checkpointer(sync_dir).save(steps, trainer.state, {"epoch": 1})
+    got = torch.load(os.path.join(run_dir, "ckpt", f"{steps}.pt"), map_location="cpu",
+                     weights_only=True)
+    want = torch.load(os.path.join(sync_dir, f"{steps}.pt"), map_location="cpu",
+                      weights_only=True)
+    for part in ("model", "optimizer"):
+        a = torch.utils._pytree.tree_flatten(got[part])[0]
+        b = torch.utils._pytree.tree_flatten(want[part])[0]
+        check(len(a) == len(b) and all(
+            torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b)),
+            f"async checkpoint's {part} differs from the synchronous save")
+
+    # the steady-state step's host split: warmed-up steps of the restored
+    # state under the profiler, CPU-side operations by self time
+    host = _host_split(trainer, card, os.path.join(workdir, "steady_profile"))
+    trainer.close()
+
+    # load_batch: the native route, equal to collate; each route timed on
+    # files already in the page cache (one read of each first)
+    check(native.available(), "the native feature loader did not build on the card's host")
+    split = write_synthetic_dataset(os.path.join(workdir, "split"), [300, 1200, 700, 1800],
+                                    cfg.model, seed=5)
+    ds = RepurposeDataset(split, validate=False, use_cache=False)
+    idx = [0, 1, 2, 3]
+    ds.load_batch(idx, cfg.train.buckets, 6)
+    collate([ds[i] for i in idx], cfg.train.buckets, 6)
+    t1 = time.perf_counter()
+    batch = ds.load_batch(idx, cfg.train.buckets, 6)
+    native_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    want_batch = collate([ds[i] for i in idx], cfg.train.buckets, 6)
+    numpy_ms = (time.perf_counter() - t1) * 1e3
+    check(batch is not None and all(
+        (a is None and b is None) or (a.dtype == b.dtype and np.array_equal(a, b))
+        for a, b in zip(batch, want_batch)), "load_batch differs from collate")
+    print(f"[trainer-flags] {card}: async checkpoint at step {steps} equals a synchronous save "
+          f"bit for bit; load_batch (native, csrc/npy_loader.cc) equals collate bit for bit "
+          f"on a [6, 2048] batch of 4 videos: {native_ms:.1f} ms native, {numpy_ms:.1f} ms numpy "
+          f"(host clock, files cached)")
+    return dict(launches=launches, steps=steps, wall_s=wall, host_split=host)
+
+
+def _host_split(trainer, card: str, logdir: str, warm: int = 3, steps: int = 4) -> dict:
+    """The production step's host time split by CPU-side operation: ``warm``
+    steps, then ``steps`` steps under ``utils.profiling.trace`` (each ending
+    in a synchronise), the operators by self CPU time per step against the
+    step's wall time and device busy time."""
+    import itertools
+
+    import torch
+
+    from repurpose_tpu_torch.utils.profiling import trace
+
+    batches = list(itertools.islice(trainer.train_loader.epoch(0), 2))
+    for i in range(warm):
+        trainer.train_step(trainer.state, trainer._device_batch(batches[i % len(batches)]))
+    torch.cuda.synchronize()
+    with trace(logdir) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            trainer.train_step(trainer.state, trainer._device_batch(batches[i % len(batches)]))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type.name == "CUDA") / 1e3 / steps
+    top = sorted((e for e in events if e.self_cpu_time_total > 0),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    rows = [dict(op=e.key, self_cpu_ms=e.self_cpu_time_total / 1e3 / steps,
+                 calls=e.count / steps) for e in top]
+    print(f"[host-split] {card}: packed [6, 2048] step, {steps} steps after {warm} warm-up, "
+          f"under the profiler: wall {wall_ms:.2f} ms a step, device busy {busy:.2f} ms; "
+          "CPU-side operations by self time per step:")
+    for r in rows:
+        print(f"[host-split]   {r['op']}: {r['self_cpu_ms']:.2f} ms, {r['calls']:.0f} calls")
+    return dict(wall_ms=wall_ms, busy_ms=busy, top=rows)
+
+
 def _nt_bound(q, kv):
     """Least time for the no-transpose forward on these inputs: the two
     products of every query row with the keys it needs (the valid keys; all
@@ -2501,9 +3049,19 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     long_grads = phase_long_gradients(card)
+    wide = phase_wide_heads()
     nt_variants = phase_nt_vs_plain()
     int8_variants = phase_int8_vs_plain()
     bench = phase_bench_tools(card)
+    extras = {}
+    for name, phase in (("daemon", phase_daemon), ("campaign", phase_campaign),
+                        ("trainer_flags", phase_trainer_flags)):
+        workdir = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_", dir=os.path.join(ROOT, "runs"))
+        try:
+            extras[name] = phase(card, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    daemon, flags = extras["daemon"], extras["trainer_flags"]
 
     def timed(row):  # a row's kernel times and yardsticks, for a kernels entry
         return {x: row[x] for x in ("max_abs_err", "ms", "min_ms", "max_ms", "plain_ms",
@@ -2530,7 +3088,8 @@ def main() -> int:
         gradients_bf16=(grad_launches["bfloat16"]["flash_fwd"],
                         grad_launches["bfloat16"]["flash_fwd_tc"]),
         bench_attention_fwd=(bench["bench_attention_fwd"]["flash_fwd"],
-                             bench["bench_attention_fwd"]["flash_fwd_tc"]))
+                             bench["bench_attention_fwd"]["flash_fwd_tc"]),
+        daemon=(daemon["launches"]["flash_fwd"], daemon["launches"]["flash_fwd_tc"]))
     check(all(n == tc for n, tc in dense_fwd.values()),
           f"a dense forward on the model's paths took the first design: {dense_fwd}")
     kernels = [dict(
@@ -2542,11 +3101,12 @@ def main() -> int:
         variant=fwd_head["name"], variants=fwd_tc_rows,
     ), dict(
         name="flash_fwd", route="cuda", source=source + "flash_fwd.cu",
-        replaces=f"{fa_line}227", design="first: float32, and bf16 at Dh 16, 32 and 128",
+        replaces=f"{fa_line}227", design="first: float32, and bf16 at Dh 16, 32, 128 and 256",
         launches=grad_launches["float32"]["flash_fwd"],
         launches_by_path=dict(gradients_float32=grad_launches["float32"]["flash_fwd"],
                               **{path: n - tc for path, (n, tc) in dense_fwd.items()}),
         **timed(fwd_first), variant=fwd_first["name"], variants=[fwd_first],
+        wide_heads=[r for r in wide if r["name"].startswith(("dense_", "model_route"))],
     )]
     # the dense backward: the tensor-core pair (bf16 at Dh 64, the training
     # path) and the first design (float32 and the other Dh)
@@ -2566,7 +3126,8 @@ def main() -> int:
             launches=trained["launches"][tc_name],
             launches_by_path=dict(training=trained["launches"][tc_name],
                                   gradients_bf16=grad_launches["bfloat16"][tc_name],
-                                  long_video_training=long_train[tc_name]),
+                                  long_video_training=long_train[tc_name],
+                                  trainer_flags=flags["launches"][tc_name]),
             max_abs_err=r["max_abs_err"], ms=r["ms"], min_ms=r["min_ms"], max_ms=r["max_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=bwd_head["library_ms"],
@@ -2580,11 +3141,12 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source + "flash_bwd.cu",
             replaces=f"{fa_line}{line}", also_replaces=[f"{fa_line}{n}" for n in also],
-            design="first: float32, and bf16 at Dh 16, 32 and 128",
+            design="first: float32, and bf16 at Dh 16, 32, 128 and 256",
             launches=first, launches_by_path=dict(gradients_float32=first),
             max_abs_err=r["max_abs_err"], ms=r["ms"], min_ms=r["min_ms"], max_ms=r["max_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=bwd_first["library_ms"], variant=bwd_first["name"],
+            wide_heads=[r for r in wide if r["name"].startswith("dense_")],
         ))
 
     # the streaming forward: the tensor-core kernel (bf16 at Dh 64, every
@@ -2609,11 +3171,12 @@ def main() -> int:
     kernels.append(dict(
         name="flash_fwd_stream", route="cuda", source=source + "flash_fwd_stream.cu",
         replaces=f"{fa_line}592", also_replaces=[f"{fa_line}512", f"{fa_line}657"],
-        design="first: float32, and bf16 at Dh 16, 32 and 128",
+        design="first: float32, and bf16 at Dh 16, 32, 128 and 256",
         launches=long_grads["float32"]["flash_fwd_stream"],
         launches_by_path=dict(
             long_video_gradients_float32=long_grads["float32"]["flash_fwd_stream"]),
         **timed(first_head), variant=first_head["name"], variants=first_rows,
+        wide_heads=[r for r in wide if r["name"].startswith("stream_")],
     ))
     long_bwd_head = next(r for r in long_bwd_variants if r["name"] == "unpacked_T32768")
     for name, key, replaces, also in (
@@ -2633,6 +3196,7 @@ def main() -> int:
             library_ms=long_bwd_head["library_ms"], variant=long_bwd_head["name"],
             variants=[dict(name=v["name"], **v[key], library_ms=v["library_ms"],
                            library_note=v["library_note"]) for v in long_bwd_variants],
+            wide_heads_first_design=[r for r in wide if r["name"].startswith("stream_")],
         ))
     r = long_bwd_head["prep"]
     kernels.append(dict(
@@ -2640,7 +3204,8 @@ def main() -> int:
         replaces=f"{fa_line}1271", also_replaces=[f"{fa_line}1253"],
         launches=long_train["flash_bwd_stream_prep"] + trained["launches"]["flash_bwd_stream_prep"],
         launches_by_path=dict(training=trained["launches"]["flash_bwd_stream_prep"],
-                              long_video_training=long_train["flash_bwd_stream_prep"]),
+                              long_video_training=long_train["flash_bwd_stream_prep"],
+                              trainer_flags=flags["launches"]["flash_bwd_stream_prep"]),
         max_abs_err=r["max_abs_err"], ms=r["ms"], min_ms=r["min_ms"], max_ms=r["max_ms"],
         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
         library_ms=None,
@@ -2666,7 +3231,7 @@ def main() -> int:
     kernels.append(dict(
         name="flash_fwd_nt", route="cuda", source=source + "flash_fwd_nt.cu",
         replaces="tools/bench_attention_fwd.py:73",
-        design="first: float32, and bf16 at Dh 16, 32 and 128",
+        design="first: float32, and bf16 at Dh 16, 32, 128 and 256",
         launches=bench["mha_nt_float32"]["flash_fwd_nt"],
         launches_by_path=dict(
             bench_attention_fwd_float32=bench["mha_nt_float32"]["flash_fwd_nt"]),

@@ -197,13 +197,19 @@ def _build(cls, raw: Mapping[str, Any], *, extra_keys: Sequence[str] = ()):
 
 
 def load_config(path_or_dict: str | Mapping[str, Any]) -> Config:
-    """Load a reference-schema YAML file (or an already-parsed dict).
+    """Load a reference-schema YAML file (or an already-parsed dict, or the
+    same schema as a ``.json`` file, which needs no PyYAML).
 
     The reference's ``distributed:`` section is accepted and ignored. An
     optional ``tpu:`` section may set mesh axes and override model/train
     knobs, exactly as in the JAX package."""
     if isinstance(path_or_dict, Mapping):
         raw = dict(path_or_dict)
+    elif str(path_or_dict).endswith(".json"):
+        import json
+
+        with open(path_or_dict) as f:
+            raw = json.load(f)
     else:
         import yaml  # only file loading needs PyYAML
 

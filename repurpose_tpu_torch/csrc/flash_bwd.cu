@@ -56,7 +56,7 @@
 // any layout. Unpacked, the select and the bias form are the same function.
 //
 // Every other instance (float32, which must keep float32 parity and so
-// cannot use TF32 tensor cores, and bf16 at Dh 16, 32 and 128) keeps the
+// cannot use TF32 tensor cores, and bf16 at Dh 16, 32, 128 and 256) keeps the
 // first design. The TPU kernels hold a whole [Tq, T] (dq) or [T, Tk] (dk/dv)
 // float32 slab in VMEM; a Hopper block has 227 KB of shared memory, so here
 // one block owns a 64-row query tile (dq) or a 64-row key tile (dk/dv) of
@@ -72,8 +72,8 @@
 //
 // Layout: q/k/v/g/o are read through (batch, token, head) strides with a
 // contiguous Dh axis and 16-byte row starts; lse is [B, H, T] float32;
-// dq/dk/dv are written [B, T, H, Dh] contiguous. Dh is 16, 32, 64 or 128; T is
-// any length >= 1 (the ragged edge is masked).
+// dq/dk/dv are written [B, T, H, Dh] contiguous. Dh is 16, 32, 64, 128 or 256;
+// T is any length >= 1 (the ragged edge is masked).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -130,9 +130,15 @@ __device__ __forceinline__ float round_bf16(float x) {
 template <typename T, int DH>
 struct Geo {
   static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  // keys per tile: 64, except float32 at Dh 128, where 32 keeps the dk/dv
-  // kernel's shared memory under 227 KB
-  static constexpr int BK = (kBf16 || DH <= 64) ? 64 : 32;
+  // keys per tile: 64, except where the kernels' shared memory would pass
+  // 227 KB: float32 at Dh 128 takes 32, float32 at Dh 256 8 (the dq kernel's
+  // float32 Q, G and accumulator alone take 192 KB there), bf16 at Dh 256 32
+  static constexpr int BK = DH <= 64 ? 64 : DH == 128 ? (kBf16 ? 64 : 32) : (kBf16 ? 32 : 8);
+  // The bf16 dk/dv kernel's four warps split the key tile into KG groups of
+  // 16 keys and Dh into WARPS / KG parts of DHW columns: each warp holds
+  // register accumulators of 16 keys x DHW (at most 128) columns
+  static constexpr int KG = kBf16 ? BK / 16 : WARPS;
+  static constexpr int DHW = DH / (WARPS / KG);
   // bf16 rows pad by 8 elements (wmma wants 32-byte aligned tile starts and a
   // stride that is a multiple of 8); float32 rows pad by 1 so the scalar
   // loops walk distinct banks
@@ -164,6 +170,7 @@ struct DqSmem {
   static constexpr size_t kLse = kQSeg + G::f32(BQ);
   static constexpr size_t kDelta = kLse + G::f32(BQ);
   static constexpr size_t kBytes = kDelta + G::f32(BQ);
+  static_assert(kBytes <= 227 * 1024, "dq: shared memory past the 227 KB a block may use");
 };
 
 // Shared memory of the dk/dv kernel. bf16 accumulates dk/dv in registers and
@@ -191,6 +198,7 @@ struct DkvSmem {
   static constexpr size_t kLse = kQSeg + G::f32(BQ);
   static constexpr size_t kDelta = kLse + G::f32(BQ);
   static constexpr size_t kBytes = kDelta + G::f32(BQ);
+  static_assert(kBytes <= 227 * 1024, "dk/dv: shared memory past the 227 KB a block may use");
 };
 
 // Last valid key + 1 of batch row `valid_row` (0 when none is valid).
@@ -255,20 +263,28 @@ __device__ void warp_abt(const T* sA, const T* sB, float* sC, int warp, int lane
   using G = Geo<T, DH>;
   if constexpr (G::kBf16) {
     using namespace nvcuda;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[DH / 16];
+    // A's fragments stay in registers across the key tile up to Dh 128; at
+    // Dh 256 (where the dq accumulators already hold 128 registers) each is
+    // loaded where it is used
+    constexpr int NA = DH <= 128 ? DH / 16 : 1;
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[NA];
+    if constexpr (NA > 1) {
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wmma::load_matrix_sync(a[kk], sA + warp * 16 * G::LD + kk * 16, G::LD);
+      for (int kk = 0; kk < NA; ++kk)
+        wmma::load_matrix_sync(a[kk], sA + warp * 16 * G::LD + kk * 16, G::LD);
+    }
 #pragma unroll
     for (int n = 0; n < G::BK / 16; ++n) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
+        if constexpr (NA == 1)
+          wmma::load_matrix_sync(a[0], sA + warp * 16 * G::LD + kk * 16, G::LD);
         // B^T as a column-major [Dh, 16] operand is B's own row-major tile
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
         wmma::load_matrix_sync(bt, sB + n * 16 * G::LD + kk * 16, G::LD);
-        wmma::mma_sync(acc, a[kk], bt, acc);
+        wmma::mma_sync(acc, a[NA == 1 ? 0 : kk], bt, acc);
       }
       wmma::store_matrix_sync(sC + warp * 16 * G::LDS + n * 16, acc, G::LDS,
                               wmma::mem_row_major);
@@ -507,10 +523,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Args a) {
     for (int i = tid; i < G::BK * G::LDA; i += THREADS) sAccK[i] = sAccV[i] = 0.f;
 
   using namespace nvcuda;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> accK[DH / 16], accV[DH / 16];
+  // bf16: this warp's 16 keys kg and DHW columns d0 of the accumulators
+  const int kg = warp % G::KG, d0 = warp / G::KG * G::DHW;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> accK[G::DHW / 16], accV[G::DHW / 16];
   if constexpr (G::kBf16) {
 #pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
+    for (int n = 0; n < G::DHW / 16; ++n) {
       wmma::fill_fragment(accK[n], 0.f);
       wmma::fill_fragment(accV[n], 0.f);
     }
@@ -539,19 +557,19 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Args a) {
 
     // dv[keys] += p^T . G and dk[keys] += ds^T . Q_s over this query tile
     if constexpr (G::kBf16) {
-      // this warp's 16 keys; p^T as a column-major [16 keys, 16 queries]
-      // operand is p's own row-major tile
+      // this warp's 16 keys and DHW columns; p^T as a column-major
+      // [16 keys, 16 queries] operand is p's own row-major tile
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pa, da;
-        wmma::load_matrix_sync(pa, sP + kk * 16 * G::LDP + warp * 16, G::LDP);
-        wmma::load_matrix_sync(da, sDS + kk * 16 * G::LDP + warp * 16, G::LDP);
+        wmma::load_matrix_sync(pa, sP + kk * 16 * G::LDP + kg * 16, G::LDP);
+        wmma::load_matrix_sync(da, sDS + kk * 16 * G::LDP + kg * 16, G::LDP);
 #pragma unroll
-        for (int n = 0; n < DH / 16; ++n) {
+        for (int n = 0; n < G::DHW / 16; ++n) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> gb, qb;
-          wmma::load_matrix_sync(gb, sG + kk * 16 * G::LD + n * 16, G::LD);
+          wmma::load_matrix_sync(gb, sG + kk * 16 * G::LD + d0 + n * 16, G::LD);
           wmma::mma_sync(accV[n], pa, gb, accV[n]);
-          wmma::load_matrix_sync(qb, sQ + kk * 16 * G::LD + n * 16, G::LD);
+          wmma::load_matrix_sync(qb, sQ + kk * 16 * G::LD + d0 + n * 16, G::LD);
           wmma::mma_sync(accK[n], da, qb, accK[n]);
         }
       }
@@ -572,10 +590,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Args a) {
   if constexpr (G::kBf16) {
     __syncthreads();  // the staging overlays tiles other warps may still read
 #pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
-      wmma::store_matrix_sync(sAccK + warp * 16 * G::LDA + n * 16, accK[n], G::LDA,
+    for (int n = 0; n < G::DHW / 16; ++n) {
+      wmma::store_matrix_sync(sAccK + kg * 16 * G::LDA + d0 + n * 16, accK[n], G::LDA,
                               wmma::mem_row_major);
-      wmma::store_matrix_sync(sAccV + warp * 16 * G::LDA + n * 16, accV[n], G::LDA,
+      wmma::store_matrix_sync(sAccV + kg * 16 * G::LDA + d0 + n * 16, accV[n], G::LDA,
                               wmma::mem_row_major);
     }
   }
@@ -607,6 +625,7 @@ int dispatch_dh(bool dq, int Dh, const Args& a, int B, cudaStream_t stream) {
       if constexpr (std::is_same<T, bf16>::value) return (int)cudaErrorInvalidValue;
       else return launch<T, 64>(dq, a, B, stream);
     case 128: return launch<T, 128>(dq, a, B, stream);
+    case 256: return launch<T, 256>(dq, a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

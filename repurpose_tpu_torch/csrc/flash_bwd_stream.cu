@@ -83,7 +83,7 @@
 //     dk/dv run at ~3.5x their bounds (PERF.md).
 //
 // Every other instance (float32, which must keep float32 parity and so
-// cannot use TF32 tensor cores, and bf16 at Dh 16, 32 and 128) keeps the
+// cannot use TF32 tensor cores, and bf16 at Dh 16, 32, 128 and 256) keeps the
 // first design, described next. The TPU
 // kernels hold [Tq, Dblk] query slabs and walk [k_block, Dblk] K/V chunks
 // (dq) or [Qc, Dblk] query chunks (dk/dv) with f32 VMEM scratch; here one
@@ -99,15 +99,17 @@
 // each q tile in shared memory after it lands (cp.async copies raw bytes) and
 // sums delta from the g tile and o in device memory; its bf16 accumulators
 // are staged for the store over the ring, and the dq kernel's over its score
-// tiles. float32 Dh 128 takes 32-key tiles, and float32 writes p and ds over
-// s and dp, to stay inside the 227 KB a block may use. This design has no
+// tiles (at Dh 256 over the ring and its score tiles). float32 Dh 128 and
+// bf16 Dh 256 take 32-key tiles, float32 Dh 256 8-key tiles and a one-stage
+// ring, and float32 writes p and ds over s and dp, to stay inside the 227 KB
+// a block may use (Geo has the reckoning). This design has no
 // bf16 Dh 64 instance: that shape takes the tensor-core kernels.
 //
 // Layout: q/k/v/g/o are read through (batch, token, head) strides with a
 // contiguous Dh axis and 16-byte row starts; lse is [B, H, T] float32;
 // dq/dk/dv are written [B, T, H, Dh] contiguous. Every offset that can pass
 // 2**31 (lse at b*H*T, the batch strides, b*T*H*Dh) is 64-bit. Dh is 16, 32,
-// 64 or 128; T is any length >= 1 (the ragged edge is masked).
+// 64, 128 or 256; T is any length >= 1 (the ragged edge is masked).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,7 +125,6 @@ namespace {
 
 constexpr int BQ = 64;      // query rows per tile: four warps of 16
 constexpr int TILE = 64;    // the tile of the packed bounds (packed_block_bounds at 64/64)
-constexpr int STAGES = 2;   // ring depth
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr float MASK_BIAS = -1e9f;  // NEG_INF of repurpose_tpu/ops/attention.py
@@ -186,10 +187,19 @@ __device__ __forceinline__ void cp_async_wait() {
 template <typename T, int DH>
 struct Geo {
   static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  // keys per tile: 64, except float32 at Dh 128, where 32 keeps the kernels'
-  // shared memory under 227 KB with a two-stage ring
-  static constexpr int BK = (kBf16 || DH <= 64) ? 64 : 32;
+  // keys per tile and ring depth: 64 keys and two stages, except where the
+  // kernels' shared memory would pass 227 KB: float32 at Dh 128 takes 32-key
+  // tiles; bf16 at Dh 256 32-key tiles; float32 at Dh 256 8-key tiles and
+  // one stage (its dk/dv kernel's ring of float32 64-row Q and G tiles
+  // alone takes 130 KB a stage)
+  static constexpr int BK = DH <= 64 ? 64 : DH == 128 ? (kBf16 ? 64 : 32) : (kBf16 ? 32 : 8);
+  static constexpr int STAGES = (!kBf16 && DH == 256) ? 1 : 2;
   static constexpr int PER = TILE / BK;  // key tiles per 64-key tile of the bounds
+  // The bf16 dk/dv kernel's four warps split the key tile into KG groups of
+  // 16 keys and Dh into WARPS / KG parts of DHW columns: each warp holds
+  // register accumulators of 16 keys x DHW (at most 128) columns
+  static constexpr int KG = kBf16 ? BK / 16 : WARPS;
+  static constexpr int DHW = DH / (WARPS / KG);
   // Q, G, K, V rows pad by 16 bytes: cp.async needs 16-byte aligned
   // destinations, wmma 32-byte aligned tile starts and a stride that is a
   // multiple of 8 elements
@@ -208,10 +218,12 @@ struct Geo {
 
 // Shared memory of the dq kernel: the query tile's Q and G, a ring of K/V
 // tiles and their key flags, the s / dp / ds tiles. bf16 accumulates dq in
-// registers and stages it for the store over s and dp, free after the sweep.
+// registers and stages it for the store over s and dp or, at Dh 256, over
+// the ring and the score tiles, all free after the sweep.
 template <typename T, int DH>
 struct DqSmem {
   using G = Geo<T, DH>;
+  static constexpr int STAGES = G::STAGES;
   static constexpr size_t kTileKV = G::tile(G::BK);  // one ring stage of K or V
   static constexpr size_t kMetaKV = G::f32(G::BK);   // one stage of key flags
   static constexpr size_t kQ = 0;
@@ -222,9 +234,10 @@ struct DqSmem {
   static constexpr size_t kDP = kS + G::f32(BQ * G::LDS);
   static constexpr size_t kDS = G::kBf16 ? kDP + G::f32(BQ * G::LDS) : kS;
   static constexpr size_t kTileEnd = kDP + G::f32(BQ * G::LDS) + G::pds();
-  static constexpr size_t kAcc = G::kBf16 ? kS : kTileEnd;
-  static_assert(!G::kBf16 || G::f32(BQ * G::LDA) <= 2 * G::f32(BQ * G::LDS),
-                "dq staging overflows the score tiles");
+  static constexpr bool kStageOverScores = G::f32(BQ * G::LDA) <= 2 * G::f32(BQ * G::LDS);
+  static constexpr size_t kAcc = !G::kBf16 ? kTileEnd : kStageOverScores ? kS : kK;
+  static_assert(!G::kBf16 || kAcc + G::f32(BQ * G::LDA) <= kTileEnd,
+                "dq staging overflows the ring and the score tiles");
   static constexpr size_t kKeyOk = G::kBf16 ? kTileEnd : kAcc + G::f32(BQ * G::LDA);
   static constexpr size_t kKeySeg = kKeyOk + STAGES * kMetaKV;  // both STAGES
   static constexpr size_t kQSeg = kKeySeg + STAGES * kMetaKV;
@@ -241,6 +254,7 @@ struct DqSmem {
 template <typename T, int DH>
 struct DkvSmem {
   using G = Geo<T, DH>;
+  static constexpr int STAGES = G::STAGES;
   static constexpr size_t kTileQ = G::tile(BQ);  // one ring stage of Q or G
   static constexpr size_t kMetaQ = G::f32(BQ);   // one stage of row segments or lse
   static constexpr size_t kK = 0;
@@ -330,20 +344,28 @@ __device__ void warp_abt(const T* sA, const T* sB, float* sC, int warp, int lane
   using G = Geo<T, DH>;
   if constexpr (G::kBf16) {
     using namespace nvcuda;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[DH / 16];
+    // A's fragments stay in registers across the key tile up to Dh 128; at
+    // Dh 256 (where the dq accumulators already hold 128 registers) each is
+    // loaded where it is used
+    constexpr int NA = DH <= 128 ? DH / 16 : 1;
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[NA];
+    if constexpr (NA > 1) {
 #pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk)
-      wmma::load_matrix_sync(a[kk], sA + warp * 16 * G::LD + kk * 16, G::LD);
+      for (int kk = 0; kk < NA; ++kk)
+        wmma::load_matrix_sync(a[kk], sA + warp * 16 * G::LD + kk * 16, G::LD);
+    }
 #pragma unroll
     for (int n = 0; n < G::BK / 16; ++n) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
+        if constexpr (NA == 1)
+          wmma::load_matrix_sync(a[0], sA + warp * 16 * G::LD + kk * 16, G::LD);
         // B^T as a column-major [Dh, 16] operand is B's own row-major tile
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
         wmma::load_matrix_sync(bt, sB + n * 16 * G::LD + kk * 16, G::LD);
-        wmma::mma_sync(acc, a[kk], bt, acc);
+        wmma::mma_sync(acc, a[NA == 1 ? 0 : kk], bt, acc);
       }
       wmma::store_matrix_sync(sC + warp * 16 * G::LDS + n * 16, acc, G::LDS,
                               wmma::mem_row_major);
@@ -508,8 +530,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_stream_kernel(Args a) {
   }
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int stage = (kt - kt_lo) & 1;
-    if (kt + 1 < kt_hi) {
+    const int stage = (kt - kt_lo) % G::STAGES;
+    if constexpr (G::STAGES == 1) {
+      if (kt > kt_lo) fetch(kt, 0);  // freed by the previous iteration's closing barrier
+      cp_async_wait<0>();
+    } else if (kt + 1 < kt_hi) {
       fetch(kt + 1, stage ^ 1);  // that stage was last read before the
       cp_async_wait<1>();        // previous iteration's closing barrier
     } else {
@@ -639,18 +664,23 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_stream_kernel(Args a) {
     for (int i = tid; i < G::BK * G::LDA; i += THREADS) sAccK[i] = sAccV[i] = 0.f;
 
   using namespace nvcuda;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> accK[DH / 16], accV[DH / 16];
+  // bf16: this warp's 16 keys kg and DHW columns d0 of the accumulators
+  const int kg = warp % G::KG, d0 = warp / G::KG * G::DHW;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> accK[G::DHW / 16], accV[G::DHW / 16];
   if constexpr (G::kBf16) {
 #pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
+    for (int n = 0; n < G::DHW / 16; ++n) {
       wmma::fill_fragment(accK[n], 0.f);
       wmma::fill_fragment(accV[n], 0.f);
     }
   }
 
   for (int qt = qt_lo; qt < qt_hi; ++qt) {
-    const int stage = (qt - qt_lo) & 1;
-    if (qt + 1 < qt_hi) {
+    const int stage = (qt - qt_lo) % G::STAGES;
+    if constexpr (G::STAGES == 1) {
+      if (qt > qt_lo) fetch(qt, 0);  // freed by the previous iteration's closing barrier
+      cp_async_wait<0>();
+    } else if (qt + 1 < qt_hi) {
       fetch(qt + 1, stage ^ 1);  // that stage was last read before the
       cp_async_wait<1>();        // previous iteration's closing barrier
     } else {
@@ -676,19 +706,19 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_stream_kernel(Args a) {
 
     // dv[keys] += p^T . G and dk[keys] += ds^T . Q_s over this query tile
     if constexpr (G::kBf16) {
-      // this warp's 16 keys; p^T as a column-major [16 keys, 16 queries]
-      // operand is p's own row-major tile
+      // this warp's 16 keys and DHW columns; p^T as a column-major
+      // [16 keys, 16 queries] operand is p's own row-major tile
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pa, da;
-        wmma::load_matrix_sync(pa, sP + kk * 16 * G::LDP + warp * 16, G::LDP);
-        wmma::load_matrix_sync(da, sDS + kk * 16 * G::LDP + warp * 16, G::LDP);
+        wmma::load_matrix_sync(pa, sP + kk * 16 * G::LDP + kg * 16, G::LDP);
+        wmma::load_matrix_sync(da, sDS + kk * 16 * G::LDP + kg * 16, G::LDP);
 #pragma unroll
-        for (int n = 0; n < DH / 16; ++n) {
+        for (int n = 0; n < G::DHW / 16; ++n) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> gb, qb;
-          wmma::load_matrix_sync(gb, sG + kk * 16 * G::LD + n * 16, G::LD);
+          wmma::load_matrix_sync(gb, sG + kk * 16 * G::LD + d0 + n * 16, G::LD);
           wmma::mma_sync(accV[n], pa, gb, accV[n]);
-          wmma::load_matrix_sync(qb, sQ + kk * 16 * G::LD + n * 16, G::LD);
+          wmma::load_matrix_sync(qb, sQ + kk * 16 * G::LD + d0 + n * 16, G::LD);
           wmma::mma_sync(accK[n], da, qb, accK[n]);
         }
       }
@@ -709,10 +739,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_stream_kernel(Args a) {
   }
   if constexpr (G::kBf16) {  // staged over the ring, free after the last barrier
 #pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
-      wmma::store_matrix_sync(sAccK + warp * 16 * G::LDA + n * 16, accK[n], G::LDA,
+    for (int n = 0; n < G::DHW / 16; ++n) {
+      wmma::store_matrix_sync(sAccK + kg * 16 * G::LDA + d0 + n * 16, accK[n], G::LDA,
                               wmma::mem_row_major);
-      wmma::store_matrix_sync(sAccV + warp * 16 * G::LDA + n * 16, accV[n], G::LDA,
+      wmma::store_matrix_sync(sAccV + kg * 16 * G::LDA + d0 + n * 16, accV[n], G::LDA,
                               wmma::mem_row_major);
     }
   }
@@ -833,6 +863,7 @@ int dispatch_dh(bool dq, int Dh, const Args& a, int B, cudaStream_t stream) {
       if constexpr (std::is_same<T, bf16>::value) return (int)cudaErrorInvalidValue;
       else return launch<T, 64>(dq, a, B, stream);
     case 128: return launch<T, 128>(dq, a, B, stream);
+    case 256: return launch<T, 256>(dq, a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,7 +6,7 @@
 // sequence-packed (`packed=True`) variant. Two designs, by dtype and head
 // width: bf16 at Dh 64 (the model's shape) takes `flash_fwd_tc_kernel`, the
 // tensor-core design of flash_fwd_tc.cuh; float32 (which must keep float32
-// parity, so no TF32 tensor cores) and bf16 at Dh 16, 32 and 128 keep the
+// parity, so no TF32 tensor cores) and bf16 at Dh 16, 32, 128 and 256 keep the
 // first design, `flash_fwd_kernel<T, DH>`, which has no bf16 Dh 64 instance.
 // In both a `seg_ids` pointer null or not selects the unpacked or the
 // packed variant.
@@ -53,7 +53,7 @@
 // instead. One head a block: two heads a block (one block an SM, the
 // producer and the bias shared) ran 1.17-1.25x slower on an H100 (PERF.md).
 //
-// The first design (float32; bf16 at Dh 16, 32, 128): one block per (64-row
+// The first design (float32; bf16 at Dh 16, 32, 128, 256): one block per (64-row
 // query tile, head, batch row), four warps of 16 query rows each, a sweep
 // over every 64-key tile up to kvl staged in shared memory, and running max /
 // running denominator / float32 output accumulator per row, with the divide
@@ -67,7 +67,7 @@
 // the three column slices of the [B, T, 3*H*Dh] QKV projection go in without
 // a copy; the innermost (Dh) axis is contiguous and every row starts on a
 // 16-byte boundary. out is [B, T, H*Dh] contiguous, lse [B, H, T] float32.
-// Dh is 16, 32, 64 or 128; T is any length >= 1.
+// Dh is 16, 32, 64, 128 or 256; T is any length >= 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,10 +82,8 @@
 namespace {
 
 constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per tile
 constexpr int WARPS = 4;     // each warp owns 16 query rows
 constexpr int THREADS = WARPS * 32;
-constexpr int LDS = BK + 4;  // row stride of the float32 score tile
 constexpr float MASK_BIAS = -1e9f;  // NEG_INF of repurpose_tpu/ops/attention.py
 constexpr float SKIP_LSE = 1e30f;
 constexpr float M_INIT = -1e30f;
@@ -114,6 +112,11 @@ __device__ __forceinline__ float round_bf16(float x) {
 template <typename T, int DH>
 struct Tiles {
   static constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  // keys per tile: 64, except float32 at Dh 256, where 32 keeps the block
+  // under the 227 KB of shared memory (its Q tile and float32 output
+  // accumulator alone take 130 KB)
+  static constexpr int BK = (kBf16 || DH <= 128) ? 64 : 32;
+  static constexpr int LDS = BK + 4;  // row stride of the float32 score tile
   // bf16 rows pad by 8 elements (16 bytes): wmma wants 32-byte aligned tile
   // starts and a stride that is a multiple of 8; float32 rows pad by 1 so the
   // scalar loops walk distinct banks.
@@ -135,17 +138,18 @@ struct Tiles {
   static constexpr size_t kRowM = kQSeg + align(sizeof(int) * BQ);
   static constexpr size_t kRowL = kRowM + align(sizeof(float) * BQ);
   static constexpr size_t kBytes = kRowL + align(sizeof(float) * BQ);
+  static_assert(kBytes <= 227 * 1024, "shared memory past the 227 KB a block may use");
 };
 
-// Copies a [64, DH] tile of rows row0.. of one head into shared memory,
+// Copies a [ROWS, DH] tile of rows row0.. of one head into shared memory,
 // zero-filling rows at or past T. With `scale` > 0 each element becomes
 // round(float(x) * scale), the TPU kernel's scaled q.
-template <typename T, int DH>
+template <typename T, int DH, int ROWS>
 __device__ void load_tile(T* dst, const T* src, long long row_stride, int row0,
                           int T_len, float scale) {
   using G = Tiles<T, DH>;
   constexpr int CH = DH / G::VEC;  // 16-byte chunks per row
-  for (int idx = threadIdx.x; idx < 64 * CH; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += THREADS) {
     const int r = idx / CH, ch = idx % CH;
     T* d = dst + r * G::LD + ch * G::VEC;
     if (row0 + r < T_len) {
@@ -173,7 +177,7 @@ __device__ void warp_scores(const T* sQ, const T* sK, float* sS, int warp, int l
     for (int kk = 0; kk < DH / 16; ++kk)
       wmma::load_matrix_sync(qa[kk], sQ + warp * 16 * G::LD + kk * 16, G::LD);
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
+    for (int n = 0; n < G::BK / 16; ++n) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
@@ -184,17 +188,17 @@ __device__ void warp_scores(const T* sQ, const T* sK, float* sS, int warp, int l
         wmma::load_matrix_sync(kb, sK + n * 16 * G::LD + kk * 16, G::LD);
         wmma::mma_sync(acc, qa[kk], kb, acc);
       }
-      wmma::store_matrix_sync(sS + warp * 16 * LDS + n * 16, acc, LDS,
+      wmma::store_matrix_sync(sS + warp * 16 * G::LDS + n * 16, acc, G::LDS,
                               wmma::mem_row_major);
     }
   } else {
     const int r = warp * 16 + lane / 2, half = lane & 1;
-    for (int i = 0; i < BK / 2; ++i) {
+    for (int i = 0; i < G::BK / 2; ++i) {
       const int c = 2 * i + half;
       float acc = 0.f;
 #pragma unroll 8
       for (int d = 0; d < DH; ++d) acc += to_f(sQ[r * G::LD + d]) * to_f(sK[c * G::LD + d]);
-      sS[r * LDS + c] = acc;
+      sS[r * G::LDS + c] = acc;
     }
   }
 }
@@ -209,9 +213,9 @@ __device__ void warp_pv(const T* sP, const T* sV, float* sO, float alpha, int wa
     using namespace nvcuda;
     for (int i = 0; i < DH / 2; ++i) sO[r * G::LDO + 2 * i + half] *= alpha;
     __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa[BK / 16];
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa[G::BK / 16];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
+    for (int kk = 0; kk < G::BK / 16; ++kk)
       wmma::load_matrix_sync(pa[kk], sP + warp * 16 * G::LDP + kk * 16, G::LDP);
 #pragma unroll
     for (int n = 0; n < DH / 16; ++n) {
@@ -219,7 +223,7 @@ __device__ void warp_pv(const T* sP, const T* sV, float* sO, float alpha, int wa
       float* o = sO + warp * 16 * G::LDO + n * 16;
       wmma::load_matrix_sync(acc, o, G::LDO, wmma::mem_row_major);
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
+      for (int kk = 0; kk < G::BK / 16; ++kk) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
         wmma::load_matrix_sync(vb, sV + kk * 16 * G::LD + n * 16, G::LD);
         wmma::mma_sync(acc, pa[kk], vb, acc);
@@ -231,7 +235,7 @@ __device__ void warp_pv(const T* sP, const T* sV, float* sO, float alpha, int wa
       const int c = 2 * i + half;
       float acc = 0.f;
 #pragma unroll 8
-      for (int j = 0; j < BK; ++j) acc += to_f(sP[r * G::LDP + j]) * to_f(sV[j * G::LD + c]);
+      for (int j = 0; j < G::BK; ++j) acc += to_f(sP[r * G::LDP + j]) * to_f(sV[j * G::LD + c]);
       sO[r * G::LDO + c] = sO[r * G::LDO + c] * alpha + acc;
     }
   }
@@ -279,7 +283,7 @@ __global__ void __launch_bounds__(THREADS)
   const int kvl = s_kvl;
 
   if (q0 < kvl) {
-    load_tile<T, DH>(sQ, q + b * st.qb + h * st.qh, st.qt, q0, T_len, scale);
+    load_tile<T, DH, BQ>(sQ, q + b * st.qb + h * st.qh, st.qt, q0, T_len, scale);
     for (int i = tid; i < BQ; i += THREADS)
       qSeg[i] = (seg_row && q0 + i < T_len) ? seg_row[q0 + i] : 0;
     for (int i = tid; i < BQ * G::LDO; i += THREADS) sO[i] = 0.f;
@@ -288,13 +292,13 @@ __global__ void __launch_bounds__(THREADS)
     // row r of the warp's 16; lane parity picks the even or odd columns.
     const int r = warp * 16 + lane / 2, half = lane & 1;
     float m_i = M_INIT, l_i = 0.f;
-    const int n_tiles = (kvl + BK - 1) / BK;
+    const int n_tiles = (kvl + G::BK - 1) / G::BK;
     for (int kt = 0; kt < n_tiles; ++kt) {
-      const int j0 = kt * BK;
+      const int j0 = kt * G::BK;
       __syncthreads();  // the previous tile's K/V are no longer read
-      load_tile<T, DH>(sK, k + b * st.kb + h * st.kh, st.kt, j0, T_len, 0.f);
-      load_tile<T, DH>(sV, v + b * st.vb + h * st.vh, st.vt, j0, T_len, 0.f);
-      for (int c = tid; c < BK; c += THREADS) {
+      load_tile<T, DH, G::BK>(sK, k + b * st.kb + h * st.kh, st.kt, j0, T_len, 0.f);
+      load_tile<T, DH, G::BK>(sV, v + b * st.vb + h * st.vh, st.vt, j0, T_len, 0.f);
+      for (int c = tid; c < G::BK; c += THREADS) {
         const int j = j0 + c;
         keyOk[c] = j < T_len ? (valid_row[j] ? 1 : 0) : -1;  // -1: no such key
         keySeg[c] = (seg_row && j < T_len) ? seg_row[j] : 0;
@@ -305,16 +309,16 @@ __global__ void __launch_bounds__(THREADS)
       __syncwarp();
 
       const int qs = qSeg[r];
-      float sv[BK / 2];
+      float sv[G::BK / 2];
       float tmax = -CUDART_INF_F;
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
+      for (int i = 0; i < G::BK / 2; ++i) {
         const int c = 2 * i + half;
         const int ok = keyOk[c];
         float s = -CUDART_INF_F;
         if (ok >= 0) {
           const bool allowed = ok && (!seg_row || keySeg[c] == qs);
-          s = sS[r * LDS + c] + (allowed ? 0.f : MASK_BIAS);
+          s = sS[r * G::LDS + c] + (allowed ? 0.f : MASK_BIAS);
           if (sm_bf16) s = round_bf16(s);
         }
         sv[i] = s;
@@ -325,7 +329,7 @@ __global__ void __launch_bounds__(THREADS)
       const float alpha = expf(m_i - m_new);
       float rowsum = 0.f;
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
+      for (int i = 0; i < G::BK / 2; ++i) {
         float p = 0.f;
         if (sv[i] != -CUDART_INF_F)
           p = sm_bf16 ? round_bf16(expf(round_bf16(sv[i] - m_new))) : expf(sv[i] - m_new);
@@ -397,6 +401,8 @@ int dispatch_dh(int Dh, const void* q, const void* k, const void* v, Strides st,
                              sm_bf16, stream);
     case 128:
       return launch<T, 128>(q, k, v, st, key_valid, seg_ids, out, lse, B, T_len, H, scale, sm_bf16, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, st, key_valid, seg_ids, out, lse, B, T_len, H, scale, sm_bf16, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

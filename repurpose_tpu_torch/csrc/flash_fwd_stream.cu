@@ -16,7 +16,7 @@
 // takes the tensor-core design of flash_fwd_tc.cuh, whose one kernel,
 // flash_fwd.cu's `flash_fwd_tc_kernel`, serves the dense and the long-T
 // forward, each handed its own sweep; float32 (which must keep float32
-// parity, so no TF32 tensor cores) and bf16 at Dh 16, 32 and 128 keep the
+// parity, so no TF32 tensor cores) and bf16 at Dh 16, 32, 128 and 256 keep the
 // first design, `flash_fwd_stream_kernel<T, DH>` of this file, which has no
 // bf16 Dh 64 instance.
 //
@@ -64,7 +64,7 @@
 // products, takes the time. The dense forward launches the same kernel
 // over the dense sweep (`segment_tile_bounds`) instead of this one's.
 //
-// The first design (float32; bf16 at Dh 16, 32, 128): one block per (64-row
+// The first design (float32; bf16 at Dh 16, 32, 128, 256): one block per (64-row
 // query tile, head, batch row), four warps of 16 query rows each, the online
 // softmax with the running max / denominator per row and the output
 // accumulator in float32 shared memory, the divide deferred to the end. K/V
@@ -79,7 +79,7 @@
 // the innermost (Dh) axis is contiguous and every row starts on a 16-byte
 // boundary. out is [B, T, H*Dh] contiguous, lse [B, H, T] float32. Every
 // offset that can pass 2**31 (lse at b*H*T, the QKV batch stride) is 64-bit.
-// Dh is 16, 32, 64 or 128; T is any length >= 1.
+// Dh is 16, 32, 64, 128 or 256; T is any length >= 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,11 +92,10 @@
 namespace {
 
 constexpr int BQ = 64;       // query rows per block
-constexpr int BK = 64;       // keys per tile
+constexpr int TILE = 64;     // the key tile of the sweep (packed_block_bounds at 64/64)
 constexpr int STAGES = 2;    // K/V ring depth
 constexpr int WARPS = 4;     // each warp owns 16 query rows
 constexpr int THREADS = WARPS * 32;
-constexpr int LDS = BK + 4;  // row stride of the float32 score tile
 constexpr float MASK_BIAS = -1e9f;  // NEG_INF of repurpose_tpu/ops/attention.py
 constexpr float SKIP_LSE = 1e30f;
 constexpr float M_INIT = -1e30f;
@@ -141,6 +140,11 @@ __device__ __forceinline__ void cp_async_wait() {
 template <typename T, int DH>
 struct Tiles {
   static constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  // keys per ring stage: 64, except at Dh 256, where a two-stage ring of
+  // 64-key K/V tiles does not fit in 227 KB: 32 (bf16) and 16 (float32)
+  static constexpr int BK = DH <= 128 ? 64 : (kBf16 ? 32 : 16);
+  static constexpr int PER = TILE / BK;  // ring stages per 64-key tile of the sweep
+  static constexpr int LDS = BK + 4;     // row stride of the float32 score tile
   // Rows of the Q/K/V tiles pad by 16 bytes: cp.async needs 16-byte aligned
   // destinations, wmma 32-byte aligned tile starts and a stride that is a
   // multiple of 8 elements.
@@ -168,7 +172,7 @@ struct Tiles {
   static constexpr size_t kRowM = kQSeg + align(sizeof(int) * BQ);
   static constexpr size_t kRowL = kRowM + align(sizeof(float) * BQ);
   static constexpr size_t kBytes = kRowL + align(sizeof(float) * BQ);
-  static_assert(kBytes <= 232448, "shared memory past the 227 KB a block may use");
+  static_assert(kBytes <= 227 * 1024, "shared memory past the 227 KB a block may use");
 };
 
 // Copies the [64, DH] q tile of rows row0.. into shared memory, each element
@@ -195,14 +199,14 @@ __device__ void load_q_tile(T* dst, const T* src, long long row_stride, int row0
   }
 }
 
-// Starts the cp.async copies of the [64, DH] K or V tile of rows row0..;
+// Starts the cp.async copies of the [BK, DH] K or V tile of rows row0..;
 // rows at or past T are zero-filled.
 template <typename T, int DH>
 __device__ void start_kv_tile_copy(T* dst, const T* src, long long row_stride, int row0,
                               int T_len) {
   using G = Tiles<T, DH>;
   constexpr int CH = DH / G::VEC;
-  for (int idx = threadIdx.x; idx < BK * CH; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < G::BK * CH; idx += THREADS) {
     const int r = idx / CH, ch = idx % CH;
     const bool outside = row0 + r >= T_len;
     const T* s = src + (long long)(outside ? 0 : row0 + r) * row_stride + ch * G::VEC;
@@ -221,7 +225,7 @@ __device__ void warp_scores(const T* sQ, const T* sK, float* sS, int warp, int l
     for (int kk = 0; kk < DH / 16; ++kk)
       wmma::load_matrix_sync(qa[kk], sQ + warp * 16 * G::LD + kk * 16, G::LD);
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
+    for (int n = 0; n < G::BK / 16; ++n) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
@@ -232,17 +236,17 @@ __device__ void warp_scores(const T* sQ, const T* sK, float* sS, int warp, int l
         wmma::load_matrix_sync(kb, sK + n * 16 * G::LD + kk * 16, G::LD);
         wmma::mma_sync(acc, qa[kk], kb, acc);
       }
-      wmma::store_matrix_sync(sS + warp * 16 * LDS + n * 16, acc, LDS,
+      wmma::store_matrix_sync(sS + warp * 16 * G::LDS + n * 16, acc, G::LDS,
                               wmma::mem_row_major);
     }
   } else {
     const int r = warp * 16 + lane / 2, half = lane & 1;
-    for (int i = 0; i < BK / 2; ++i) {
+    for (int i = 0; i < G::BK / 2; ++i) {
       const int c = 2 * i + half;
       float acc = 0.f;
 #pragma unroll 8
       for (int d = 0; d < DH; ++d) acc += to_f(sQ[r * G::LD + d]) * to_f(sK[c * G::LD + d]);
-      sS[r * LDS + c] = acc;
+      sS[r * G::LDS + c] = acc;
     }
   }
 }
@@ -257,9 +261,9 @@ __device__ void warp_pv(const T* sP, const T* sV, float* sO, float alpha, int wa
     using namespace nvcuda;
     for (int i = 0; i < DH / 2; ++i) sO[r * G::LDO + 2 * i + half] *= alpha;
     __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa[BK / 16];
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa[G::BK / 16];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
+    for (int kk = 0; kk < G::BK / 16; ++kk)
       wmma::load_matrix_sync(pa[kk], sP + warp * 16 * G::LDP + kk * 16, G::LDP);
 #pragma unroll
     for (int n = 0; n < DH / 16; ++n) {
@@ -267,7 +271,7 @@ __device__ void warp_pv(const T* sP, const T* sV, float* sO, float alpha, int wa
       float* o = sO + warp * 16 * G::LDO + n * 16;
       wmma::load_matrix_sync(acc, o, G::LDO, wmma::mem_row_major);
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
+      for (int kk = 0; kk < G::BK / 16; ++kk) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
         wmma::load_matrix_sync(vb, sV + kk * 16 * G::LD + n * 16, G::LD);
         wmma::mma_sync(acc, pa[kk], vb, acc);
@@ -279,7 +283,7 @@ __device__ void warp_pv(const T* sP, const T* sV, float* sO, float alpha, int wa
       const int c = 2 * i + half;
       float acc = 0.f;
 #pragma unroll 8
-      for (int j = 0; j < BK; ++j) acc += to_f(sP[r * G::LDP + j]) * to_f(sV[j * G::LD + c]);
+      for (int j = 0; j < G::BK; ++j) acc += to_f(sP[r * G::LDP + j]) * to_f(sV[j * G::LD + c]);
       sO[r * G::LDO + c] = sO[r * G::LDO + c] * alpha + acc;
     }
   }
@@ -316,25 +320,27 @@ __global__ void __launch_bounds__(THREADS)
   T* out_bh = out + (long long)b * T_len * D + h * DH;
   float* lse_bh = lse + ((long long)b * H + h) * T_len;
 
+  // the sweep in key tiles of BK: [0, ceil(kvl / BK)), packed bounded by the
+  // query tile's [lo, hi) in 64-key tiles
   const int kvl = kvl_rows[b];
-  int kt_lo = 0, kt_hi = (kvl + BK - 1) / BK;
+  int kt_lo = 0, kt_hi = (kvl + G::BK - 1) / G::BK;
   if (seg_row) {
     const long long n_qt = (T_len + BQ - 1) / BQ;
-    kt_lo = tile_lo[(long long)b * n_qt + qt];
-    kt_hi = min(tile_hi[(long long)b * n_qt + qt], kt_hi);
+    kt_lo = tile_lo[(long long)b * n_qt + qt] * G::PER;
+    kt_hi = min(tile_hi[(long long)b * n_qt + qt] * G::PER, kt_hi);
   }
   const bool live = q0 < kvl && kt_lo < kt_hi;
 
   // K/V tile kt (and its key flags) into ring stage `stage`
   auto fetch = [&](int kt, int stage) {
-    const int j0 = kt * BK;
+    const int j0 = kt * G::BK;
     start_kv_tile_copy<T, DH>(reinterpret_cast<T*>(smem + G::kK + stage * G::kTileKV),
                               k_bh, st.kt, j0, T_len);
     start_kv_tile_copy<T, DH>(reinterpret_cast<T*>(smem + G::kV + stage * G::kTileKV),
                               v_bh, st.vt, j0, T_len);
     int* keyOk = reinterpret_cast<int*>(smem + G::kKeyOk) + stage * G::kMeta;
     int* keySeg = reinterpret_cast<int*>(smem + G::kKeySeg) + stage * G::kMeta;
-    for (int c = tid; c < BK; c += THREADS) {
+    for (int c = tid; c < G::BK; c += THREADS) {
       const int j = j0 + c;
       keyOk[c] = j < T_len ? (valid_row[j] ? 1 : 0) : -1;  // -1: no such key
       keySeg[c] = (seg_row && j < T_len) ? seg_row[j] : 0;
@@ -371,16 +377,16 @@ __global__ void __launch_bounds__(THREADS)
       __syncwarp();
 
       const int qs = qSeg[r];
-      float sv[BK / 2];
+      float sv[G::BK / 2];
       float tmax = -CUDART_INF_F;
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
+      for (int i = 0; i < G::BK / 2; ++i) {
         const int c = 2 * i + half;
         const int ok = keyOk[c];
         float s = -CUDART_INF_F;
         if (ok >= 0) {
           const bool allowed = ok && (!seg_row || keySeg[c] == qs);
-          s = sS[r * LDS + c] + (allowed ? 0.f : MASK_BIAS);
+          s = sS[r * G::LDS + c] + (allowed ? 0.f : MASK_BIAS);
           if (sm_bf16) s = round_bf16(s);
         }
         sv[i] = s;
@@ -392,7 +398,7 @@ __global__ void __launch_bounds__(THREADS)
       const float m_sm = sm_bf16 ? round_bf16(m_new) : m_new;
       float rowsum = 0.f;
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
+      for (int i = 0; i < G::BK / 2; ++i) {
         float p = 0.f;
         if (sv[i] != -CUDART_INF_F)
           p = sm_bf16 ? round_bf16(expf(round_bf16(sv[i] - m_sm))) : expf(sv[i] - m_new);
@@ -473,6 +479,9 @@ int dispatch_dh(int Dh, const void* q, const void* k, const void* v, Strides st,
                              T_len, H, scale, sm_bf16, stream);
     case 128:
       return launch<T, 128>(q, k, v, st, key_valid, seg_ids, kvl, lo, hi, out, lse, B,
+                            T_len, H, scale, sm_bf16, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, st, key_valid, seg_ids, kvl, lo, hi, out, lse, B,
                             T_len, H, scale, sm_bf16, stream);
     default:
       return (int)cudaErrorInvalidValue;

@@ -8,10 +8,16 @@
   label file, keyed by config hash and label mtime;
 - precomputes per-second labels and regression offsets;
 - ``__getitem__`` slices by timeRange and truncates every stream to the
-  common length.
+  common length;
+- ``load_batch``: the whole-batch fast path, every sample's three feature
+  streams pread straight into the zero-padded batch buffers by the host
+  loader (``native.batch_load_npy``, the repository's
+  ``csrc/npy_loader.cc``); it gives ``collate``'s batch, and ``None`` where
+  it does not apply (no loader library, or a sample sliced by timeRange),
+  and the caller then collates samples read with numpy.
 
-The JAX package's native whole-batch loader (``load_batch``, a C++ pread
-library of that package) is not copied: batches come from ``collate``.
+``use_cache=False`` filters the label entries anew instead of reading or
+writing the filter cache.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ class RepurposeDataset:
         cfg: DatasetConfig,
         validate: bool = True,
         keep_gt_segments: bool = False,
+        use_cache: bool = True,
     ):
         self.cfg = cfg
         self.validate = validate
@@ -50,7 +57,10 @@ class RepurposeDataset:
         }
         with open(cfg.label_path) as f:
             original = json.load(f)
-        self.entries = self._filter_cached(original)
+        self.entries = (
+            self._filter_cached(original) if use_cache else self._filter(original)[0]
+        )
+        self._route_logged = False
         for e in self.entries:
             e["_labels"] = generate_time_status_list(
                 e["timeRangeOffset"], e["segmentsOffset"]
@@ -172,6 +182,64 @@ class RepurposeDataset:
         """Per-sample label lengths (upper bound of true sample length) — used
         by the loader for bucket-aware batch grouping."""
         return [len(e["_labels"]) for e in self.entries]
+
+    def _log_route(self, route: str) -> None:
+        if not self._route_logged:
+            self._route_logged = True
+            logger.info("batches load %s", route)
+
+    def load_batch(self, indices, buckets, batch_size: int | None = None):
+        """Whole-batch fast path: the three feature streams of every sample
+        pread directly into the zero-padded [B, T, D] batch buffers by the
+        host loader, one threaded call per modality. Returns a Batch, or
+        None when the fast path does not apply (loader library missing, or
+        a sample needs timeRange slicing)."""
+        from repurpose_tpu_torch import native
+        from repurpose_tpu_torch.data.batching import Batch, pick_bucket
+
+        if not native.available():
+            self._log_route("with numpy (the native loader is not built)")
+            return None
+        entries = [self.entries[i] for i in indices]
+        if any(e["timeRange"][0] != 0 for e in entries):
+            return None
+        self._log_route("through the native loader (csrc/npy_loader.cc)")
+        n = len(entries)
+        b = batch_size or n
+        # the label length bounds the sample; the true length is its min with
+        # each stream's rows, resolved after loading
+        t = pick_bucket(max(len(e["_labels"]) for e in entries), buckets)
+
+        arrays = {}
+        rows = {}
+        for m, fmt in self._fmt.items():
+            paths = [fmt.format(e["youtube_id"]) for e in entries]
+            info = native.probe_npy(paths[0])
+            if info is None:
+                return None
+            loaded = native.batch_load_npy(paths, t=t, d=info[1], n_threads=4)
+            if loaded is None:
+                return None
+            arr, r = loaded
+            if b > n:
+                arr = np.concatenate([arr, np.zeros((b - n, t, info[1]), np.float32)])
+            arrays[m], rows[m] = arr, r
+
+        mask = np.zeros((b, t), bool)
+        labels = np.zeros((b, t), np.float32)
+        segments = np.zeros((b, t, 2), np.float32)
+        durations = np.zeros((b,), np.int32)
+        for i, e in enumerate(entries):
+            ln = min(int(rows["visual"][i]), int(rows["audio"][i]),
+                     len(e["_labels"]), len(e["_offsets"]), t)
+            mask[i, :ln] = True
+            labels[i, :ln] = e["_labels"][:ln]
+            segments[i, :ln] = e["_offsets"][:ln]
+            durations[i] = ln
+            for m in arrays:  # zero the rows past the common length
+                arrays[m][i, ln:] = 0.0
+        return Batch(visual=arrays["visual"], audio=arrays["audio"], text=arrays["text"],
+                     mask=mask, labels=labels, segments=segments, durations=durations)
 
     def __getitem__(self, idx: int) -> dict:
         e = self.entries[idx]

@@ -8,7 +8,10 @@
   the smallest bucket; ``pack=True`` first-fit-decreasing packs each window
   into rows of the largest bucket instead;
 - a background thread keeps ``PREFETCH`` collated numpy batches ready while
-  the device computes; abandoning the iterator early shuts it down.
+  the device computes; abandoning the iterator early shuts it down;
+- unpacked batches come from the dataset's whole-batch ``load_batch`` where
+  it has one and it applies (``RepurposeDataset``: the native loader), else
+  from ``collate`` over the samples.
 
 The JAX loader's multi-host slicing (``process_index``/``process_count``) is
 not ported: the port trains on one card (ROADMAP).
@@ -112,6 +115,7 @@ class BatchLoader:
     def epoch(self, epoch: int = 0) -> Iterator[Batch]:
         """Iterate the epoch's batches, prefetched by a worker thread."""
         batches = self._epoch_batches(epoch)
+        load_batch = getattr(self.dataset, "load_batch", None)
         pad_b = self.batch_size
         q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
@@ -139,7 +143,10 @@ class BatchLoader:
                             [[remap[i] for i in row] for row in idxs], bucket, pad_b,
                         )
                     else:
-                        batch = collate([self.dataset[i] for i in idxs], (bucket,), pad_b)
+                        batch = load_batch(idxs, (bucket,), pad_b) if load_batch else None
+                        if batch is None:  # per-sample path
+                            batch = collate([self.dataset[i] for i in idxs], (bucket,),
+                                            pad_b)
                     if not put(batch):
                         return
                 put(None)

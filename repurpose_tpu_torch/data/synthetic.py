@@ -3,16 +3,19 @@
 Copied from ``repurpose_tpu/data/synthetic.py``: the same random draws from
 the same ``numpy`` generator give the same samples in both packages, so a
 seed names one corpus for both. ``SyntheticDataset`` holds samples in
-memory.
+memory; ``write_synthetic_dataset`` writes a corpus to disk in the layout
+``RepurposeDataset`` reads (the same bytes as the JAX package's writer).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Sequence
 
 import numpy as np
 
-from repurpose_tpu_torch.config import ModelConfig
+from repurpose_tpu_torch.config import DatasetConfig, ModelConfig
 from repurpose_tpu_torch.data.labels import (
     generate_regression_offsets,
     generate_time_status_list,
@@ -100,3 +103,33 @@ class SyntheticDataset:
     def lengths(self) -> list[int]:
         return [s["duration"] for s in self.samples]
 
+
+def write_synthetic_dataset(
+    root: str,
+    durations: Sequence[int],
+    model_cfg: ModelConfig,
+    seed: int = 0,
+) -> DatasetConfig:
+    """Materialize a synthetic dataset on disk; returns its DatasetConfig."""
+    rng = np.random.default_rng(seed)
+    dirs = {m: os.path.join(root, m) for m in ("visual", "audio", "text")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    entries = []
+    for dur in durations:
+        e = synthetic_entry(rng, dur)
+        t = int(dur) + 1
+        for m, dim in (("visual", model_cfg.vis_dim), ("audio", model_cfg.aud_dim),
+                       ("text", model_cfg.text_dim)):
+            np.save(os.path.join(dirs[m], f"{e['youtube_id']}.npy"),
+                    rng.normal(0, 1, (t, dim)).astype(np.float32))
+        entries.append(e)
+    label_path = os.path.join(root, "labels.json")
+    with open(label_path, "w") as f:
+        json.dump(entries, f)
+    return DatasetConfig(
+        label_path=label_path,
+        video_path=dirs["visual"],
+        audio_path=dirs["audio"],
+        text_path=dirs["text"],
+    )

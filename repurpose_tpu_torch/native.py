@@ -10,12 +10,21 @@ source or header rebuilds and an unchanged one is reused. ``build_all`` starts o
 
 Nothing here runs at import: the CPU tests import every module on a machine
 without ``nvcc``.
+
+The host library of the whole-batch feature loader is built here too: the
+repository's ``csrc/npy_loader.cc`` (read in place) compiled with the host's
+C++ compiler (``g++`` or ``c++``; ``nvcc``'s host compiler is one) into the
+same ``build/``, bound with ``ctypes`` (``probe_npy``, ``batch_load_npy``).
+Where no compiler or no build is possible, ``available()`` is False and the
+dataset reads features with numpy, as the JAX package does: this is host
+I/O, not a device kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import re
 import shutil
@@ -25,6 +34,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
+# the repository's host loader of .npy features, shared with the JAX package
+HOST_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "npy_loader.cc"
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+
+logger = logging.getLogger(__name__)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -185,3 +199,91 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _libs[name] = lib
         return lib
+
+
+# -- the host feature loader (csrc/npy_loader.cc) ----------------------------------
+
+_host: dict[str, ctypes.CDLL | None] = {}
+
+
+def _cxx() -> str | None:
+    return shutil.which("g++") or shutil.which("c++")
+
+
+def host_library() -> ctypes.CDLL | None:
+    """The loader library, built at first use (named by a hash of the source
+    and the flags); None where it cannot be built or loaded."""
+    with _lock:
+        if "npy" in _host:
+            return _host["npy"]
+        _host["npy"] = lib = _build_host()
+        return lib
+
+
+def _build_host() -> ctypes.CDLL | None:
+    cxx = _cxx()
+    if cxx is None or not HOST_SOURCE.exists():
+        logger.info("no C++ compiler or no %s: features load with numpy", HOST_SOURCE.name)
+        return None
+    h = hashlib.sha256(HOST_SOURCE.read_bytes() + " ".join(HOST_FLAGS).encode())
+    out = BUILD / f"npy_loader-{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *HOST_FLAGS, str(HOST_SOURCE), "-o", str(tmp)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            logger.warning("building %s failed: features load with numpy\n%s",
+                           HOST_SOURCE.name, proc.stderr[-500:])
+            return None
+        os.replace(tmp, out)
+    try:
+        lib = ctypes.CDLL(str(out))
+    except OSError as e:
+        logger.warning("%s unloadable (%s): features load with numpy", out.name, e)
+        return None
+    lib.npy_probe.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
+                              ctypes.POINTER(ctypes.c_int64)]
+    lib.npy_probe.restype = ctypes.c_int
+    lib.npy_batch_load_f32.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+    ]
+    lib.npy_batch_load_f32.restype = ctypes.c_int
+    return lib
+
+
+def available() -> bool:
+    """Whether the host feature loader is built and loaded."""
+    return host_library() is not None
+
+
+def probe_npy(path: str) -> tuple[int, int] | None:
+    """(rows, cols) of a float32 C-order 2-D .npy, or None on any mismatch."""
+    lib = host_library()
+    if lib is None:
+        return None
+    rows, cols = ctypes.c_int64(), ctypes.c_int64()
+    if lib.npy_probe(path.encode(), ctypes.byref(rows), ctypes.byref(cols)) != 0:
+        return None
+    return int(rows.value), int(cols.value)
+
+
+def batch_load_npy(paths: list[str], t: int, d: int, n_threads: int = 4):
+    """Loads the files into a zero-padded [len(paths), t, d] float32 batch
+    with threaded preads: (batch, rows per file), or None where the loader
+    refuses a file (the caller then reads with numpy)."""
+    import numpy as np
+
+    lib = host_library()
+    if lib is None:
+        return None
+    n = len(paths)
+    out = np.zeros((n, t, d), np.float32)
+    rows = np.zeros(n, np.int64)
+    arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+    rc = lib.npy_batch_load_f32(arr, n, out.ctypes.data_as(ctypes.c_void_p), t, d,
+                                rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                                n_threads)
+    return None if rc != 0 else (out, rows)

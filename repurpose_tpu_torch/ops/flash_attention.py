@@ -92,7 +92,7 @@ STREAM_MAX_T = 2048
 STREAM_TILE = 64  # query and key tile of csrc/flash_fwd_stream.cu
 M_INIT = -1e30  # initial running max of the stream recurrence (finite: see fa:647)
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 _SM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -106,7 +106,8 @@ def kernel_head_dim(device: torch.device | str, head_dim: int) -> int:
     for width in HEAD_DIMS:
         if width > head_dim:
             return width
-    raise ValueError(f"head dim {head_dim} is wider than every kernel instance {HEAD_DIMS}")
+    raise ValueError(f"head dim {head_dim} is wider than every kernel instance {HEAD_DIMS}: "
+                     f"the widest is {HEAD_DIMS[-1]}")
 
 
 def _scale(q: torch.Tensor, scale: float | None) -> float:

@@ -38,7 +38,7 @@ import torch
 
 from repurpose_tpu_torch import resolve_device
 from repurpose_tpu_torch.ops.attention import NEG_INF, mha_torch
-from repurpose_tpu_torch.ops.flash_attention import HEAD_DIMS, _kv_len, flash_forward
+from repurpose_tpu_torch.ops.flash_attention import _kv_len, flash_forward
 from repurpose_tpu_torch.tools import device_line, per_call_ms
 
 N_CHAIN = 100
@@ -49,6 +49,7 @@ KEYS_VALID = 1800  # keys at or past this index are masked in every row
 # group (heads_per_block * Dh) its shared memory holds.
 NT_HEADS_PER_BLOCK = (1, 2, 4)
 NT_MAX_GROUP_WIDTH = 256
+NT_HEAD_DIMS = (16, 32, 64, 128)  # the head widths of csrc/flash_fwd_nt.cu
 
 
 def mha_nt_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -82,10 +83,10 @@ def _check_inputs(q, k, v, key_valid, heads: int, heads_per_block: int) -> None:
         raise ValueError(f"D = {d} is not a multiple of heads = {heads}")
     dh = d // heads
     if (heads_per_block not in NT_HEADS_PER_BLOCK or heads % heads_per_block
-            or heads_per_block * dh > NT_MAX_GROUP_WIDTH or dh not in HEAD_DIMS):
+            or heads_per_block * dh > NT_MAX_GROUP_WIDTH or dh not in NT_HEAD_DIMS):
         raise ValueError(
             f"heads_per_block {heads_per_block} at Dh {dh}, {heads} heads: the kernel has "
-            f"heads_per_block in {NT_HEADS_PER_BLOCK} dividing the heads, Dh in {HEAD_DIMS} "
+            f"heads_per_block in {NT_HEADS_PER_BLOCK} dividing the heads, Dh in {NT_HEAD_DIMS} "
             f"and heads_per_block * Dh <= {NT_MAX_GROUP_WIDTH}")
     for name, x in (("k", k), ("v", v)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:

@@ -6,9 +6,14 @@
     python -m repurpose_tpu_torch.train --synthetic 8 --epochs 1 --device cpu
 
 ``--device`` defaults to ``cuda`` and raises without a card. ``main(argv)``
-parses the flags and loads the YAML config (PyYAML); ``run(cfg, args)`` takes
-a ``Config`` built in Python instead. Not ported yet (ROADMAP):
-``--wandb``, ``--profile``, ``--debug-viz`` and ``--async-ckpt``.
+parses the flags and loads the config (YAML, or the same schema as
+``.json``); ``run(cfg, args)`` takes a ``Config`` built in Python instead.
+
+``--profile`` records a ``torch.profiler`` trace of the first epoch into
+``workdir/profile`` (``trace.json`` and the operator table ``ops.txt``);
+``--async-ckpt`` writes checkpoints from a background thread;
+``--debug-viz`` renders prediction figures at each evaluation (matplotlib);
+``--wandb`` also logs to wandb, imported only then.
 """
 
 from __future__ import annotations
@@ -53,6 +58,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N synthetic videos instead of real features")
+    p.add_argument("--wandb", action="store_true", help="also log to wandb")
+    p.add_argument("--profile", action="store_true",
+                   help="record a torch.profiler trace of the first epoch")
+    p.add_argument("--debug-viz", action="store_true",
+                   help="render prediction figures at each eval")
+    p.add_argument("--async-ckpt", action="store_true",
+                   help="write checkpoints from a background thread")
     p.add_argument("--auto-resume", type=int, default=0, metavar="N",
                    help="on a crash, rebuild the trainer from the latest checkpoint "
                         "up to N times")
@@ -87,8 +99,11 @@ def run(cfg: Config, args: argparse.Namespace) -> dict:
         logging.info("warm start from reference checkpoint %s", args.torch_ckpt)
 
     def make_trainer():
-        return Trainer(cfg, workdir, train_ds, val_ds, test_ds,
-                       init_params=init_params, device=args.device)
+        trainer = Trainer(cfg, workdir, train_ds, val_ds, test_ds, init_params=init_params,
+                          device=args.device, use_wandb=args.wandb,
+                          async_checkpoints=args.async_ckpt)
+        trainer.debug_viz = args.debug_viz
+        return trainer
 
     def export_torch(trainer, summary):
         if not args.export_torch:
@@ -109,7 +124,15 @@ def run(cfg: Config, args: argparse.Namespace) -> dict:
     trainer = make_trainer()
     if args.resume:
         trainer.resume()
-    summary = trainer.fit(epochs=args.epochs)
+    if args.profile:
+        from repurpose_tpu_torch.utils.profiling import trace
+
+        with trace(os.path.join(workdir, "profile")):
+            summary = trainer.fit(epochs=trainer.start_epoch + 1)  # one epoch
+        if not summary.get("preempted") and (args.epochs or cfg.train.epochs) > trainer.start_epoch:
+            summary = trainer.fit(epochs=args.epochs)
+    else:
+        summary = trainer.fit(epochs=args.epochs)
     try:
         export_torch(trainer, summary)
     finally:

@@ -3,21 +3,25 @@
 
 - epoch loop over ``BatchLoader`` with a per-epoch reshuffle (packed or
   bucketed batches), one eager train step per batch;
-- per-layer gradient norms logged every ``grad_norm_freq`` steps, the
-  non-finite probe every ``finite_check_freq`` steps and before every save
-  (a poisoned state is never written);
+- per-layer gradient norms logged every ``grad_norm_freq`` steps, gradient
+  and parameter histograms on the first step and every ``hist_freq``
+  steps, the non-finite probe every ``finite_check_freq`` steps and before
+  every save (a poisoned state is never written);
 - the validation-loss probe every ``intra_epoch_eval_freq`` steps on at most
   10 val batches;
 - periodic checkpoints every ``save_epochs`` epochs, best-tIoU checkpoints in
   their own directory, ``resume`` (a mid-epoch save re-runs its epoch);
+  ``async_checkpoints`` writes them from a background thread;
 - SIGTERM: checkpoint with ``epoch_complete=False`` and return;
 - ``evaluate``: precision@tIoU through the port's ``InferencePipeline``,
-  handed the live weights;
+  handed the live weights, batches from the dataset's ``load_batch`` where
+  it applies; with ``debug_viz`` (``Trainer.debug_viz`` in ``fit``) the
+  per-sample figures and health log of ``utils/debug_viz.py``;
+- metrics to ``workdir/metrics.jsonl`` and, with ``use_wandb``, to wandb;
 - ``fit_with_auto_resume``: rebuild and resume after a crash.
 
 Not ported yet (ROADMAP): the mesh, ZeRO-1 and pipeline branches of the JAX
-Trainer, multi-host evaluation, gradient/parameter histograms, debug
-figures and wandb.
+Trainer and multi-host evaluation.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
+import json
 import logging
 import signal
 import time
@@ -45,9 +50,11 @@ from repurpose_tpu_torch.train.step import (
     kernel_layer_names,
     make_eval_step,
     make_train_step,
+    param_histograms,
 )
 from repurpose_tpu_torch.utils.logging_utils import MetricLogger
 from repurpose_tpu_torch.utils.metrics import calculate_tiou
+from repurpose_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -57,7 +64,9 @@ TIOU_THRESHOLDS = (0.5, 0.6, 0.7, 0.8, 0.9)
 class Trainer:
     """``device`` defaults to CUDA and raises when no card is visible; pass
     ``device="cpu"`` to train on the CPU. ``init_params`` is a state dict in
-    the reference's names (a warm start; loaded strictly)."""
+    the reference's names (a warm start; loaded strictly). ``use_wandb``
+    also logs to wandb; ``async_checkpoints`` overlaps checkpoint writes
+    with training."""
 
     def __init__(
         self,
@@ -68,6 +77,8 @@ class Trainer:
         test_ds=None,
         init_params=None,
         device: str | torch.device = "cuda",
+        use_wandb: bool = False,
+        async_checkpoints: bool = False,
     ):
         self.cfg = cfg
         self.workdir = workdir
@@ -109,14 +120,18 @@ class Trainer:
         self.train_step = make_train_step(cfg.model, tc, schedule)
         self.eval_step = make_eval_step(tc)
         # cadences: per-layer grad norms every 10 steps (reference
-        # main.py:345-367); the finite probe is the only periodic host sync
+        # main.py:345-367), histograms every 1000 (wandb.watch's default);
+        # the finite probe is the only periodic host sync
         self.grad_norm_freq = 10
+        self.hist_freq = 1000
         self.finite_check_freq = 50
         self._layer_names = kernel_layer_names(model)
 
-        self.checkpointer = Checkpointer(workdir + "/ckpt")
+        self.checkpointer = Checkpointer(workdir + "/ckpt", async_save=async_checkpoints)
         self._best_ckpt: Checkpointer | None = None  # lazy (workdir/ckpt_best)
-        self.metrics = MetricLogger(workdir)
+        self.metrics = MetricLogger(workdir, use_wandb=use_wandb,
+                                    config=json.loads(cfg.to_json()))
+        self.debug_viz = False  # fit()'s evaluations render debug figures
         eval_model_cfg = dataclasses.replace(
             cfg.model, dropout=0.0,
             attention_impl="auto" if cfg.model.attention_impl == "ring"
@@ -126,12 +141,27 @@ class Trainer:
         self.pipeline = InferencePipeline(
             eval_model_cfg, model.state_dict(), cfg.test_cfg, device=self.device
         )
+        self._eval_model_cfg = eval_model_cfg
+        self._debug_pipeline: InferencePipeline | None = None  # lazy, raw outputs
         self.best_tiou = 0.0
         self.best_epoch = -1
         self.start_epoch = 0
 
     def _device_batch(self, batch: Batch) -> Batch:
         return batch_to_device(batch, self.device)
+
+    @torch.no_grad()
+    def eval_forward(self, batch: Batch):
+        """Raw model outputs of a host batch, in eval mode, for debugging and
+        visualisation."""
+        model = self.state.model
+        was_training = model.training
+        model.eval()
+        try:
+            b = self._device_batch(batch)
+            return model(b.visual, b.audio, b.text, b.mask)
+        finally:
+            model.train(was_training)
 
     # -- checkpointing ---------------------------------------------------------
 
@@ -200,11 +230,15 @@ class Trainer:
     # -- evaluation ---------------------------------------------------------------
 
     def evaluate(self, dataset=None, max_videos: int | None = None,
-                 pack: bool | None = None) -> dict:
+                 pack: bool | None = None, debug_viz: bool = False,
+                 max_debug_samples: int = 10) -> dict:
         """Precision@tIoU over ``dataset`` (default: the test split).
         ``pack`` sequence-packs each bucket's videos (same results); it
         defaults to the training config's ``pack_sequences`` and needs a
-        dataset with ``lengths()``."""
+        dataset with ``lengths()``. ``debug_viz`` renders per-sample
+        prediction figures and a JSON health log (with the model-collapse
+        check) for the first ``max_debug_samples`` videos, from the same
+        forward as the scores (the pipeline's raw outputs)."""
         ds = dataset if dataset is not None else self.test_ds
         if ds is None:
             return {}
@@ -218,12 +252,27 @@ class Trainer:
         entries = getattr(ds, "entries", None)
         use_pack = self.cfg.train.pack_sequences if pack is None else pack
         use_pack = use_pack and hasattr(ds, "lengths")
-        gt_fifo: collections.deque = collections.deque()
+        meta_fifo: collections.deque = collections.deque()
+        debugger = None
+        pipeline = self.pipeline
+        if debug_viz:
+            from repurpose_tpu_torch.utils.debug_viz import ValidationDebugger
 
-        def gt_for(i, sample):
-            if entries is not None:  # the split's own annotations
-                return [list(s) for s in entries[i]["segmentsOffset"]]
-            return sample.get("gt_segments") or []
+            debugger = ValidationDebugger(self.workdir)
+            if self._debug_pipeline is None:
+                self._debug_pipeline = InferencePipeline(
+                    self._eval_model_cfg, params, self.cfg.test_cfg, raw_outputs=True,
+                    device=self.device)
+            pipeline = self._debug_pipeline
+
+        def meta_for(i, sample=None) -> dict:
+            # the ground truth from the split's own annotations where the
+            # dataset has them, whichever staging path ran
+            if entries is not None:
+                return {"video_id": entries[i]["youtube_id"],
+                        "gt": [list(s) for s in entries[i]["segmentsOffset"]]}
+            return {"video_id": str(sample.get("video_id", i)),
+                    "gt": sample.get("gt_segments") or []}
 
         def staged():
             if hasattr(ds, "lengths"):  # group per bucket, chunk within
@@ -236,30 +285,60 @@ class Trainer:
             else:
                 chunks = [idx[j : j + bs] for j in range(0, len(idx), bs)]
             for chunk in chunks:
-                samples = [ds[i] for i in chunk]
-                batch = collate(samples, buckets, bs)
-                gt_fifo.append([gt_for(i, s) for i, s in zip(chunk, samples)])
+                batch = ds.load_batch(chunk, buckets, bs) if hasattr(ds, "load_batch") else None
+                if batch is not None and entries is not None:
+                    metas = [meta_for(i) for i in chunk]
+                else:
+                    samples = [ds[i] for i in chunk]
+                    if batch is None:
+                        batch = collate(samples, buckets, bs)
+                    metas = [meta_for(i, s) for i, s in zip(chunk, samples)]
+                for j, m in enumerate(metas):  # per-video debug rows
+                    m.update(labels_row=batch.labels[j], segments_row=batch.segments[j],
+                             duration=int(batch.durations[j]))
+                meta_fifo.append(metas)
                 yield (batch.visual, batch.audio, batch.text, batch.mask,
-                       batch.durations, [str(s.get("video_id", i))
-                                         for i, s in zip(chunk, samples)])
+                       batch.durations, [m["video_id"] for m in metas])
 
         def staged_packed():
             lens = [int(t) for t in ds.lengths()]
             for batch, layout, gidx, samples in iter_packed_batches(
                 lambda i: ds[i], lens, buckets, bs, indices=idx
             ):
-                gt_fifo.append([gt_for(i, s) for i, s in zip(gidx, samples)])
-                yield batch, layout, [str(s.get("video_id", i))
-                                      for i, s in zip(gidx, samples)]
+                metas = []
+                for i, s in zip(gidx, samples):  # packed (row-major) order
+                    m = meta_for(i, s)
+                    d = min(int(s["duration"]), batch.visual.shape[1])
+                    m.update(labels_row=s.get("labels", np.zeros(d, np.float32)),
+                             segments_row=s.get("segments", np.zeros((d, 2), np.float32)),
+                             duration=d)
+                    metas.append(m)
+                meta_fifo.append(metas)
+                yield batch, layout, [m["video_id"] for m in metas]
 
-        stream = (self.pipeline.score_packed_stream(staged_packed(), params=params)
-                  if use_pack else self.pipeline.score_stream(staged(), params=params))
+        stream = (pipeline.score_packed_stream(staged_packed(), params=params)
+                  if use_pack else pipeline.score_stream(staged(), params=params))
         for results in stream:
-            for gt, r in zip(gt_fifo.popleft(), results):
-                tiou = calculate_tiou(gt, r["segments"].tolist(), TIOU_THRESHOLDS)
+            for m, r in zip(meta_fifo.popleft(), results):
+                tiou = calculate_tiou(m["gt"], r["segments"].tolist(), TIOU_THRESHOLDS)
                 for t in TIOU_THRESHOLDS:
                     sums[t] += tiou[t]
                 count += 1
+                if debugger is not None and len(debugger.samples) < max_debug_samples:
+                    d = m["duration"]
+                    x = np.asarray(r["raw_logits"], np.float64)
+                    e = np.exp(-np.abs(x))  # overflow-safe sigmoid
+                    debugger.add_sample(
+                        m["video_id"], probs=np.where(x >= 0, 1.0 / (1.0 + e), e / (1.0 + e)),
+                        offsets=np.asarray(r["raw_offsets"]),
+                        gt_labels=np.asarray(m["labels_row"])[:d],
+                        gt_offsets=np.asarray(m["segments_row"])[:d],
+                        pred_segments=r["segments"], gt_segments=m["gt"],
+                    )
+        if debugger is not None:
+            paths = debugger.render(max_debug_samples)
+            debugger.write_log()
+            self.metrics.log_images(paths, self.state.step)
         out = {f"tiou/{t}": (sums[t] / count if count else 0.0) for t in TIOU_THRESHOLDS}
         out["tiou/mean"] = float(np.mean([out[f"tiou/{t}"] for t in TIOU_THRESHOLDS]))
         return out
@@ -294,8 +373,12 @@ class Trainer:
             epoch_losses = []
             for i, batch in enumerate(self.train_loader.epoch(epoch)):
                 norms_now = i % self.grad_norm_freq == 0
-                m = self.train_step(self.state, self._device_batch(batch),
-                                    per_layer_grad_norms=norms_now)
+                # this step's result has step + 1, hence the off-by-one
+                hist_now = (self.state.step + 1) % self.hist_freq == 0 or self.state.step == 0
+                with annotate("train_step"):
+                    m = self.train_step(self.state, self._device_batch(batch),
+                                        per_layer_grad_norms=norms_now,
+                                        grad_histograms=hist_now)
                 step = self.state.step
                 epoch_losses.append(m["loss"])
                 if step % self.finite_check_freq == 1:
@@ -311,6 +394,12 @@ class Trainer:
                     record.update({f"grad_norm/{n}": norms[j]
                                    for j, n in enumerate(self._layer_names)})
                     self.metrics.log(record, step)
+                if hist_now:
+                    self.metrics.log_histograms(self._layer_names, m["hist/grads/counts"],
+                                                m["hist/grads/edges"], step, prefix="grads")
+                    ph = param_histograms(self.state.model)
+                    self.metrics.log_histograms(self._layer_names, ph["counts"], ph["edges"],
+                                                step, prefix="params")
                 if tc.intra_epoch_eval_freq and (i + 1) % tc.intra_epoch_eval_freq == 0:
                     val_loss = self._val_probe()
                     if val_loss is not None:
@@ -326,7 +415,8 @@ class Trainer:
             if (epoch + 1) % tc.save_epochs == 0:
                 self._save(epoch)
             if self.test_ds is not None and tc.eval_freq and (epoch + 1) % tc.eval_freq == 0:
-                final_eval = self.evaluate()
+                final_eval = (self.evaluate(debug_viz=True) if self.debug_viz
+                              else self.evaluate())
                 self.metrics.log(final_eval, self.state.step)
                 if final_eval.get("tiou/mean", 0.0) > self.best_tiou:
                     self.best_tiou = final_eval["tiou/mean"]
@@ -337,7 +427,13 @@ class Trainer:
                 "final_loss": epoch_loss, "step": self.state.step, **final_eval}
 
     def close(self) -> None:
-        self.metrics.close()
+        """Waits for checkpoint writes in flight and closes the logs."""
+        try:
+            self.checkpointer.close()
+            if self._best_ckpt is not None:
+                self._best_ckpt.close()
+        finally:
+            self.metrics.close()
 
 
 def fit_with_auto_resume(make_trainer, epochs: int | None = None, max_restarts: int = 3,

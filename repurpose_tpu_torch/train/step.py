@@ -10,8 +10,9 @@ Loss normalisation follows ``TrainConfig.loss_norm``: the reference divides
 the summed focal loss by the configured batch size; ``batch_size`` divides by
 the real videos in the batch (under packing, the segments, not the rows).
 
-Not ported yet: the gradient and parameter histograms of the JAX step
-(ROADMAP).
+The gradient histograms (``grad_histograms``) and ``param_histograms`` are
+the wandb.watch(model) equivalent: ``HIST_BINS`` bins per matrix parameter,
+with ``jnp.histogram``'s edges and counting rule (``histogram``).
 """
 
 from __future__ import annotations
@@ -93,6 +94,42 @@ def kernel_layer_names(model) -> list[str]:
     return [n for n, p in model.named_parameters() if p.ndim == 2]
 
 
+HIST_BINS = 64
+
+
+@torch.no_grad()
+def histogram(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(counts [HIST_BINS] float32, edges [HIST_BINS + 1] float32) of ``x``'s
+    values, as ``jnp.histogram(x.ravel(), HIST_BINS)`` computes them: edges
+    from min to max (widened by 0.5 each way when they meet) by
+    ``jnp.linspace``'s arithmetic, each value in the bin of the last edge at
+    or below it, the maximum in the last bin."""
+    x = x.detach().float().reshape(-1)
+    lo, hi = x.min(), x.max()
+    same = lo == hi
+    lo, hi = torch.where(same, lo - 0.5, lo), torch.where(same, hi + 0.5, hi)
+    step = torch.arange(HIST_BINS, dtype=torch.float32, device=x.device) / HIST_BINS
+    edges = torch.cat([lo * (1 - step) + hi * step, hi[None]])
+    idx = torch.searchsorted(edges, x, right=True)
+    idx = torch.where(x == edges[-1], HIST_BINS, idx)
+    counts = torch.bincount(idx, minlength=HIST_BINS + 1)[1:].float()
+    return counts, edges
+
+
+def _kernel_params(model) -> list[torch.nn.Parameter]:
+    return [p for p in model.parameters() if p.ndim == 2]
+
+
+@torch.no_grad()
+def param_histograms(model) -> dict:
+    """Per-matrix parameter histograms {counts [L, B], edges [L, B + 1]},
+    rows labelled by ``kernel_layer_names``: the parameter half of the
+    wandb.watch equivalent."""
+    hists = [histogram(p) for p in _kernel_params(model)]
+    return {"counts": torch.stack([c for c, _ in hists]),
+            "edges": torch.stack([e for _, e in hists])}
+
+
 def _chunk(batch: Batch, c: int, accum: int) -> Batch:
     """Rows c, c + accum, c + 2 * accum, ... (the JAX step's strided chunks)."""
     return Batch(*[None if x is None else x[c::accum] for x in batch])
@@ -101,12 +138,15 @@ def _chunk(batch: Batch, c: int, accum: int) -> Batch:
 def make_train_step(
     model_cfg: ModelConfig, train_cfg: TrainConfig, schedule: Callable | None = None
 ) -> Callable:
-    """``train_step(state, batch, per_layer_grad_norms=False) -> metrics``:
-    one Adam update of ``state`` on a device batch. ``metrics`` holds
-    device tensors (loss, cls_loss, n_real, grad_norm, and reg_loss with the
-    regression loss on), ``learning_rate`` as a float, and with
-    ``per_layer_grad_norms`` a stacked vector ``grad_norms/stacked`` labelled
-    by ``kernel_layer_names``."""
+    """``train_step(state, batch, per_layer_grad_norms=False,
+    grad_histograms=False) -> metrics``: one Adam update of ``state`` on a
+    device batch. ``metrics`` holds device tensors (loss, cls_loss, n_real,
+    grad_norm, and reg_loss with the regression loss on), ``learning_rate``
+    as a float, with ``per_layer_grad_norms`` a stacked vector
+    ``grad_norms/stacked`` and with ``grad_histograms``
+    ``hist/grads/counts`` [L, HIST_BINS] and ``hist/grads/edges``
+    [L, HIST_BINS + 1], both labelled by ``kernel_layer_names`` (a matrix
+    without a gradient counts as zeros, as the JAX step's zero gradient)."""
     accum = max(int(train_cfg.grad_accum_steps), 1)
     accum_dtype = (torch.bfloat16 if train_cfg.grad_accum_dtype == "bfloat16"
                    else torch.float32)
@@ -138,7 +178,8 @@ def make_train_step(
         aux_sum["n_real"] = n_real
         return aux_sum
 
-    def train_step(state: TrainState, batch: Batch, per_layer_grad_norms: bool = False):
+    def train_step(state: TrainState, batch: Batch, per_layer_grad_norms: bool = False,
+                   grad_histograms: bool = False):
         model, opt = state.model, state.optimizer
         model.train()
         gen = getattr(model, "dropout_generator", None)
@@ -166,6 +207,11 @@ def make_train_step(
                 else torch.zeros((), device=p.device)
                 for p in model.parameters() if p.ndim == 2
             ])
+        if grad_histograms:
+            hists = [histogram(p.grad if p.grad is not None else torch.zeros_like(p))
+                     for p in _kernel_params(model)]
+            metrics["hist/grads/counts"] = torch.stack([c for c, _ in hists])
+            metrics["hist/grads/edges"] = torch.stack([e for _, e in hists])
         if lr is not None:
             metrics["learning_rate"] = lr
         bad = ~(torch.isfinite(aux["loss"]) & torch.isfinite(metrics["grad_norm"]))

@@ -1,14 +1,17 @@
 """Head widths without a kernel instance run zero-padded on the card:
 ``FlashAttention`` pads a head of Dh not in ``HEAD_DIMS`` to the narrowest
-instance that holds it (``kernel_head_dim``: 8 -> 16, 48 -> 64) and hands
+instance that holds it (``kernel_head_dim``: 8 -> 16, 48 -> 64, 192 -> 256;
+past 256, the widest instance, it raises) and hands
 every wrapper the head's own scale 1/sqrt(Dh); the zero columns add nothing
 to q_s k^T, p v or rowsum(g o), and out and the gradients are cut back to
 Dh. The kernel wrappers stay strict and raise for such widths
 (tests/test_torch_flash_gpu.py).
 
-On the CPU the rule is checked, and the padded route (forced onto CPU
-tensors, where the wrappers run their plain versions) is held against
-``jax.grad`` through the JAX package's ``mha_xla`` at Dh 8 and 48. The tests
+On the CPU the rule is checked, the padded route (forced onto CPU tensors,
+where the wrappers run their plain versions) is held against ``jax.grad``
+through the JAX package's ``mha_xla`` at Dh 8, 48 and 192, and the plain
+versions at Dh 256 (the widest instance) against ``mha_pallas`` in interpret
+mode and ``jax.grad`` through it. The tests
 marked ``gpu`` skip (in their fixture) where no card is visible; on a
 machine with an H100:
 
@@ -39,7 +42,8 @@ def _assert_rel(got, want, rel, what):
 
 
 @pytest.mark.parametrize("dh,width", [(8, 16), (24, 32), (48, 64), (100, 128), (16, 16),
-                                      (32, 32), (64, 64), (128, 128)])
+                                      (32, 32), (64, 64), (128, 128), (129, 256),
+                                      (192, 256), (256, 256)])
 def test_cuda_heads_run_at_the_narrowest_kernel_width(dh, width):
     assert fa.kernel_head_dim("cuda", dh) == width
     assert fa.kernel_head_dim(torch.device("cuda", 0), dh) == width
@@ -47,12 +51,12 @@ def test_cuda_heads_run_at_the_narrowest_kernel_width(dh, width):
 
 
 def test_heads_wider_than_every_kernel_raise_on_cuda():
-    with pytest.raises(ValueError, match="wider than every kernel instance"):
-        fa.kernel_head_dim("cuda", 256)
-    assert fa.kernel_head_dim("cpu", 256) == 256
+    with pytest.raises(ValueError, match="wider than every kernel instance.*the widest is 256"):
+        fa.kernel_head_dim("cuda", 257)
+    assert fa.kernel_head_dim("cpu", 257) == 257
 
 
-@pytest.mark.parametrize("dh", [8, 48])
+@pytest.mark.parametrize("dh", [8, 48, 192])
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("backward", ["pallas", "xla"])
 def test_padded_heads_match_jax_mha(monkeypatch, dh, packed, backward):
@@ -112,6 +116,55 @@ def test_padded_heads_match_jax_mha(monkeypatch, dh, packed, backward):
         _assert_rel(a.grad.numpy(), np.asarray(b), F32_REL, f"d{name}")
 
 
+@pytest.mark.parametrize("packed", [False, True])
+def test_widest_instance_plain_versions_match_mha_pallas(packed):
+    """Dh 256 at T = 128 (no padding: the kernels' own width): the plain
+    forward's out and lse rows that attend a key, and the gradients of
+    sum(out * w) through the port's Function, against the JAX ``mha_pallas``
+    run in interpret mode (its Pallas forward and backward kernels) and
+    ``jax.grad`` through it; float32, 1e-5 x max |value|."""
+    import jax
+    import jax.numpy as jnp
+
+    from repurpose_tpu.ops.flash_attention import mha_pallas
+
+    t, dh = 128, 256
+    rng = np.random.default_rng(3 + packed)
+    q, k, v, w = (rng.normal(0, 1, (2, t, 2, dh)).astype(np.float32) for _ in range(4))
+    valid = np.zeros((2, t), bool)
+    seg = None
+    if packed:
+        seg = np.full((2, t), -1, np.int32)
+        for s, (a, b) in enumerate([(0, 40), (40, 90), (95, 120)]):
+            valid[0, a:b] = True
+            seg[0, a:b] = s
+        valid[1, :70], seg[1, :70] = True, 0
+    else:
+        valid[0, : t - 30] = True
+        valid[1, :50] = True
+        valid[1, 20:26] = False
+    w = w * valid[:, :, None, None]
+    jvalid, jseg = jnp.asarray(valid), None if seg is None else jnp.asarray(seg)
+
+    def attend(a, b, c):
+        return mha_pallas(a, b, c, jvalid, q_block=64, seg_ids=jseg)
+
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    want_out = np.asarray(attend(jq, jk, jv))
+    want = jax.grad(lambda a, b, c: jnp.sum(attend(a, b, c) * w), argnums=(0, 1, 2))(jq, jk, jv)
+    assert fa.kernel_head_dim("cuda", dh) == dh
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = fa.flash_attention(*leaves, torch.from_numpy(valid),
+                             None if seg is None else torch.from_numpy(seg), "float32")
+    (out * torch.from_numpy(w)).sum().backward()
+    live = np.arange(t)[None] < fa._kv_len(torch.from_numpy(valid)).numpy()
+    if packed:
+        live &= seg >= 0  # rows of padding attend no key
+    _assert_rel(out.detach().numpy()[live], want_out[live], F32_REL, "out")
+    for name, a, b in zip("qkv", leaves, want):
+        _assert_rel(a.grad.numpy(), np.asarray(b), F32_REL, f"d{name}")
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -126,7 +179,7 @@ def _close(got, want, rel, what):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [8, 48])
+@pytest.mark.parametrize("dh", [8, 48, 192])
 @pytest.mark.parametrize("t,dtype", [(300, torch.float32), (2200, torch.float32),
                                      (2200, torch.bfloat16)])
 def test_padded_heads_on_the_card_match_the_plain_attention(cuda, dh, t, dtype):

@@ -63,6 +63,21 @@ def test_bench_tool_entry_points_raise_without_cuda(tool):
         module.main([])
 
 
+@pytest.mark.parametrize("cli", ["serve", "campaign"])
+def test_serving_and_campaign_entry_points_raise_without_cuda(cli, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    import importlib
+
+    module = importlib.import_module(f"repurpose_tpu_torch.{cli}")
+    argv = ["--config_path", str(ROOT / "configs" / "repurpose.yaml")]
+    if cli == "campaign":
+        argv += ["--smoke", "2", "--report", str(tmp_path / "report.json")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main(argv)
+    assert list(tmp_path.iterdir()) == []  # nothing written before the raise
+
+
 def _run_smoke(cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
