@@ -110,10 +110,13 @@ verdict line):
       ``mha_nt`` launch the tensor-core kernel), then ``mha_nt`` on float32
       inputs of the tool's shape (the first design);
 10. wide heads: the Dh 256 instances of the first designs (the dense and the
-   streaming forward and backward) against their plain versions at
-   [2, 1024, 2, 256] and [1, 4096, 2, 256], unpacked and packed, bf16 and
-   float32, timed beside SDPA and the bound, and the model's route at
-   Dh 192 (zero-padded to 256) against the same call on the CPU;
+   streaming forward and backward) and the head-chunked instances
+   (csrc/flash_chunked.cu) at Dh 320, 512 and 1000 (zero-padded to 1024)
+   against their plain versions at [2, 1024, 2, Dh] and [1, 4096, 2, Dh],
+   unpacked and packed, bf16 and float32, each launch counted on its kernel,
+   timed beside SDPA and the bound, and the model's route at Dh 192
+   (zero-padded to 256) and Dh 1000 (T 1024 and 4096, the chunked kernels'
+   launches) against the same call on the CPU;
 11. the serving daemon (``python -m repurpose_tpu_torch.serve``) at the
    production width: its classes in this process, each answer equal bit for
    bit to ``score_videos`` one client at a time, every forward the
@@ -127,7 +130,14 @@ verdict line):
    trace and the host-time split of the profiled epoch by operator, the
    asynchronous checkpoint against a synchronous save bit for bit, and
    ``load_batch``'s native route against ``collate`` bit for bit;
-14. a JSON line listing every ported kernel, then the verdict line
+14. the fusion variants (``fusion: cross`` and ``bottleneck``) at the
+   flagship width, unpacked: ``score_videos`` in float32 on the card against
+   the CPU, then 3 bf16 train steps at [2, 2048], with times and peak memory;
+15. the utilities and CLIs: ``python -m repurpose_tpu_torch.preflight
+   --full`` (exit 0), the capacity model's estimate against the measured
+   peak at the packed [6, 2048] step and the [1, 32768] remat step, and
+   ``python -m repurpose_tpu_torch.analyze --synthetic 4``;
+16. a JSON line listing every ported kernel, then the verdict line
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -295,7 +305,8 @@ def _counted_wrappers() -> dict:
     the tensor-core kernel (bf16 at Dh 64; ``flash_fwd_tc`` and
     ``flash_fwd_stream_tc`` launch one kernel of csrc/flash_fwd.cu, on the
     dense and on the stream sweep), so the first design's launches are the
-    difference."""
+    difference; the ``*_chunked`` names count the head-chunked kernels
+    (past Dh 256), each also counted by its wrapper's own name."""
     from repurpose_tpu_torch.ops import flash_attention as fa
     from repurpose_tpu_torch.tools import bench_attention_fwd, bench_int8_matmul
 
@@ -307,6 +318,12 @@ def _counted_wrappers() -> dict:
             "flash_bwd_dq_stream": fa.flash_bwd_dq_stream,
             "flash_bwd_dkv_stream": fa.flash_bwd_dkv_stream,
             "flash_bwd_stream_prep": fa.flash_bwd_stream_prep,
+            "flash_fwd_chunked": fa.flash_fwd_chunked,
+            "flash_fwd_stream_chunked": fa.flash_fwd_stream_chunked,
+            "flash_bwd_dq_chunked": fa.flash_bwd_dq_chunked,
+            "flash_bwd_dkv_chunked": fa.flash_bwd_dkv_chunked,
+            "flash_bwd_dq_stream_chunked": fa.flash_bwd_dq_stream_chunked,
+            "flash_bwd_dkv_stream_chunked": fa.flash_bwd_dkv_stream_chunked,
             "flash_fwd_nt": bench_attention_fwd.mha_nt,
             "flash_fwd_nt_tc": bench_attention_fwd.flash_fwd_nt_tc,
             "int8_matmul": bench_int8_matmul.int8_matmul,
@@ -2207,56 +2224,87 @@ def phase_long_gradients(card: str) -> dict:
 # -- phase 9: the bench tools ---------------------------------------------------
 
 
-WIDE_DH = 256  # the widest kernel instance of the first designs
+WIDE_DH = 256  # the widest fixed-width kernel instance of the first designs
 WIDE_PADDED_DH = 192  # a head the model route zero-pads to WIDE_DH
+CHUNKED_DHS = (320, 512, 1000)  # heads on the head-chunked kernels (1000 padded to 1024)
+CHUNKED = {False: ("flash_fwd_chunked", "flash_bwd_dq_chunked", "flash_bwd_dkv_chunked"),
+           True: ("flash_fwd_stream_chunked", "flash_bwd_dq_stream_chunked",
+                  "flash_bwd_dkv_stream_chunked")}
+
+
+def _wide_inputs(var: dict, gen):
+    """q/k/v views of one [B, T, 3 * H * width] projection (width =
+    ``kernel_head_dim`` of the variant's Dh, the columns past Dh zero, as
+    ``FlashAttention`` pads), key_valid and seg_ids of the variant."""
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch.ops import flash_attention as fa
+
+    b, t, h, dh = var["shape"]
+    width = fa.kernel_head_dim("cuda", dh)
+    dtype = getattr(torch, var["dtype"])
+    qkv = torch.randn((b, t, 3, h, width), generator=gen, device="cuda")
+    qkv[..., dh:] = 0.0
+    qkv = qkv.view(b, t, 3 * h * width).to(dtype)
+    q, k, v = (z.view(b, t, h, width) for z in qkv.split(h * width, dim=-1))
+    seg = None
+    if var["packed"]:
+        durs = [int(d) for d in np.random.default_rng(SEED + 12 + t).integers(
+            t // 8, t // 2, size=4 * b)]
+        mask, seg_np, _ = _packed_layout(b, t, durs)
+        seg = torch.from_numpy(seg_np).cuda()
+    else:
+        mask = np.zeros((b, t), bool)
+        for i in range(b):
+            mask[i, : int((0.9 - 0.3 * i) * t)] = True
+        mask[:, t // 3: t // 3 + 50] = False
+    return q, k, v, torch.from_numpy(mask).cuda(), seg
 
 
 def phase_wide_heads() -> list[dict]:
-    """Wide heads: the Dh 256 instances of the first designs (csrc/flash_fwd.cu,
-    flash_fwd_stream.cu, flash_bwd.cu, flash_bwd_stream.cu) against their
-    plain versions, forward and backward, bf16 and float32: the dense
-    kernels at [2, 1024, 2, 256] unpacked and packed, the streaming ones at
-    [1, 4096, 2, 256] unpacked and packed, each under ``TOL`` / ``BWD_REL``;
-    each launch counted on the first design (never the tensor-core one).
-    Times per launch of a chain with the sweep made outside (the forward,
-    and the dq + dk/dv pair), SDPA forward and backward on the same mask,
-    and the bounds. Then the model's route at Dh 192 (``flash_attention``,
-    zero-padded to 256 with the head's own scale) on the card against the
-    same call on CPU tensors (the plain versions at Dh 192), out and
-    gradients."""
+    """Wide heads, forward and backward, bf16 and float32, against the plain
+    versions under ``TOL`` / ``BWD_REL``: the Dh 256 instances of the first
+    designs (csrc/flash_fwd.cu, flash_fwd_stream.cu, flash_bwd.cu,
+    flash_bwd_stream.cu) and the head-chunked instances
+    (csrc/flash_chunked.cu) at Dh 320, 512 and 1000 (zero-padded to 1024
+    with the head's own scale), the dense kernels at [2, 1024, 2, Dh] and
+    the streaming ones at [1, 4096, 2, Dh], unpacked and packed; each launch
+    counted on its kernel (never the tensor-core one; past Dh 256 on the
+    chunked one). Times per launch of a chain with the sweep made outside
+    (the forward; the dq + dk/dv pair at Dh 256, dq and dk/dv each past
+    it), SDPA forward and backward on the same mask, and the bounds. Then
+    the model's route (``flash_attention``) at Dh 192 (zero-padded to 256)
+    and at Dh 1000 (padded to 1024; T = 1024 and 4096) on the card against
+    the same call on CPU tensors (the plain versions at the unpadded
+    width), out and gradients, with its launches."""
     import numpy as np
     import torch
 
     from repurpose_tpu_torch.ops import flash_attention as fa
 
     variants = []
-    for dtype in ("bfloat16", "float32"):
-        for packed in (False, True):
-            variants.append(dict(name=f"dense_{'packed' if packed else 'unpacked'}_{dtype}",
-                                 shape=(2, 1024, 2, WIDE_DH), dtype=dtype, sm=dtype,
-                                 packed=packed, stream=False))
-            variants.append(dict(name=f"stream_{'packed' if packed else 'unpacked'}_{dtype}",
-                                 shape=(1, 4096, 2, WIDE_DH), dtype=dtype, sm=dtype,
-                                 packed=packed, stream=True))
+    for dh in (WIDE_DH, *CHUNKED_DHS):
+        tag = "" if dh == WIDE_DH else f"_Dh{dh}"
+        for dtype in ("bfloat16", "float32"):
+            for packed in (False, True):
+                kind = "packed" if packed else "unpacked"
+                variants.append(dict(name=f"dense_{kind}_{dtype}{tag}", dh=dh,
+                                     shape=(2, 1024, 2, dh), dtype=dtype, sm=dtype,
+                                     packed=packed, stream=False))
+                variants.append(dict(name=f"stream_{kind}_{dtype}{tag}", dh=dh,
+                                     shape=(1, 4096, 2, dh), dtype=dtype, sm=dtype,
+                                     packed=packed, stream=True))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    tc_names = ("flash_fwd_stream_tc", "flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+    all_chunked = CHUNKED[False] + CHUNKED[True]
     rows = []
     for var in variants:
-        b, t, h, dh = var["shape"]
-        dtype = getattr(torch, var["dtype"])
-        qkv = torch.randn((b, t, 3 * h * dh), generator=gen, device="cuda").to(dtype)
-        q, k, v = (z.view(b, t, h, dh) for z in qkv.split(h * dh, dim=-1))
-        seg = None
-        if var["packed"]:
-            durs = [int(d) for d in np.random.default_rng(SEED + 12 + t).integers(
-                t // 8, t // 2, size=4 * b)]
-            mask, seg_np, _ = _packed_layout(b, t, durs)
-            seg = torch.from_numpy(seg_np).cuda()
-        else:
-            mask = np.zeros((b, t), bool)
-            for i in range(b):
-                mask[i, : int((0.9 - 0.3 * i) * t)] = True
-            mask[:, t // 3: t // 3 + 50] = False
-        kv = torch.from_numpy(mask).cuda()
+        dh = var["dh"]
+        chunked = dh > WIDE_DH
+        q, k, v, kv, seg = _wide_inputs(var, gen)
+        dtype = q.dtype
+        scale = dh ** -0.5
         sm = var["sm"]
         fwd, fwd_ref = ((fa.flash_forward_stream, fa.flash_forward_stream_reference)
                         if var["stream"] else (fa.flash_forward, fa.flash_forward_reference))
@@ -2267,91 +2315,122 @@ def phase_wide_heads() -> list[dict]:
              fa.flash_bwd_dkv_reference))
         names = ("flash_fwd_stream", "flash_bwd_dq_stream", "flash_bwd_dkv_stream") \
             if var["stream"] else ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-        tc_names = ("flash_fwd_stream_tc", "flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
         reset_launches()
-        out, lse = fwd(q, k, v, kv, seg, sm)
-        g = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
-        g = g.masked_fill(~_grad_rows(kv, seg)[:, :, None, None], 0.0)
+        out, lse = fwd(q, k, v, kv, seg, sm, scale=scale)
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        g[..., dh:] = 0.0
+        g = g.to(dtype).masked_fill(~_grad_rows(kv, seg)[:, :, None, None], 0.0)
         args = (q, k, v, kv, out, lse, g, seg, sm)
-        got = dict(dq=dq_fn(*args))
-        got["dk"], got["dv"] = dkv_fn(*args)
+        got = dict(dq=dq_fn(*args, scale=scale))
+        got["dk"], got["dv"] = dkv_fn(*args, scale=scale)
         torch.cuda.synchronize()
-        launched = read_launches(*names, *tc_names)
+        launched = read_launches(*names, *tc_names, *all_chunked)
+        want_chunked = CHUNKED[var["stream"]] if chunked else ()
         check([launched[n] for n in names] == [1, 1, 1] and not any(
-            launched[n] for n in tc_names), f"wide {var['name']}: launches {launched}")
-        ref_out, ref_lse = fwd_ref(q, k, v, kv, seg, sm)
+            launched[n] for n in tc_names) and all(
+            launched[n] == (n in want_chunked) for n in all_chunked),
+            f"wide {var['name']}: launches {launched}")
+        ref_out, ref_lse = fwd_ref(q, k, v, kv, seg, sm, scale=scale)
         err, lse_err, atol, live = _hold_forward(f"wide {var['name']}", out, lse, ref_out,
                                                  ref_lse, kv, seg, var["dtype"])
         del ref_out, ref_lse
-        want = dict(dq=dq_ref(*args))
-        want["dk"], want["dv"] = dkv_ref(*args)
+        want = dict(dq=dq_ref(*args, scale=scale))
+        want["dk"], want["dv"] = dkv_ref(*args, scale=scale)
         rel = BWD_REL.get((var["dtype"], sm), BWD_REL_BF16)
         errs = _hold_backward(f"wide {var['name']}", got, want, rel, ~_grad_rows(kv, None))
         del want
         sweep = fa.attention_sweep(kv, seg, dense=not var["stream"])
-        chain = 4
-        f_ms = spread_ms(lambda: fwd(q, k, v, kv, seg, sm, sweep=sweep), reps=5, chain=chain)
-        b_ms = spread_ms(lambda: (dq_fn(*args, sweep=sweep), dkv_fn(*args, sweep=sweep)),
-                         reps=5, chain=chain)
-        f_lib = _sdpa_spread(q, k, v, kv, seg, reps=5, chain=chain)
-        b_lib, b_lib_note = _sdpa_bwd_ms(q, k, v, kv, seg, g, reps=5, chain=chain)
-        f_bound = _bound(q, kv, seg)
-        dq_bound, dkv_bound = _bwd_bound(q, kv, seg, 3, 1), _bwd_bound(q, kv, seg, 4, 2)
+        chain = 2 if chunked else 4
+        f_ms = spread_ms(lambda: fwd(q, k, v, kv, seg, sm, scale=scale, sweep=sweep), reps=5,
+                         chain=chain)
+        parts = {}
+        if chunked:  # each backward kernel on its own; the pair is their sum
+            for key, fn in (("dq", dq_fn), ("dkv", dkv_fn)):
+                parts[key] = spread_ms(lambda: fn(*args, scale=scale, sweep=sweep), reps=5,
+                                       chain=chain)
+            b_ms = {x: parts["dq"][x] + parts["dkv"][x] for x in ("ms", "min_ms", "max_ms")}
+        else:
+            b_ms = spread_ms(lambda: (dq_fn(*args, scale=scale, sweep=sweep),
+                                      dkv_fn(*args, scale=scale, sweep=sweep)), reps=5,
+                             chain=chain)
+        qd, kd, vd, gd = (x[..., :dh] for x in (q, k, v, g))  # the head's own width
+        f_lib = _sdpa_spread(qd, kd, vd, kv, seg, reps=5, chain=chain)
+        b_lib, b_lib_note = _sdpa_bwd_ms(qd, kd, vd, kv, seg, gd, reps=5, chain=chain)
+        f_bound = _bound(qd, kv, seg)
+        dq_bound, dkv_bound = _bwd_bound(qd, kv, seg, 3, 1), _bwd_bound(qd, kv, seg, 4, 2)
         row = dict(
-            name=var["name"], shape=list(var["shape"]), dtype=var["dtype"], softmax_dtype=sm,
-            packed=var["packed"], kernels=list(names), max_abs_err=err, lse_max_abs_err=lse_err,
+            name=var["name"], dh=dh, width=q.shape[-1], shape=list(var["shape"]),
+            dtype=var["dtype"], softmax_dtype=sm, packed=var["packed"],
+            kernels=list(want_chunked or names), max_abs_err=err, lse_max_abs_err=lse_err,
             out_atol=atol, max_abs_err_by_grad=errs, grad_tolerance=f"{rel} x max |plain|",
             ms=f_ms["ms"], min_ms=f_ms["min_ms"], max_ms=f_ms["max_ms"],
-            plain_ms=median_ms(lambda: fwd_ref(q, k, v, kv, seg, sm), reps=3, warmup=1),
+            plain_ms=median_ms(lambda: fwd_ref(q, k, v, kv, seg, sm, scale=scale), reps=3,
+                               warmup=1),
             library_ms=f_lib["ms"], bound_ms=f_bound[0], bound_by=f_bound[1],
             bwd_ms=b_ms["ms"], bwd_min_ms=b_ms["min_ms"], bwd_max_ms=b_ms["max_ms"],
-            bwd_plain_ms=median_ms(lambda: (dq_ref(*args), dkv_ref(*args)), reps=3, warmup=1),
+            bwd_plain_ms=median_ms(lambda: (dq_ref(*args, scale=scale),
+                                            dkv_ref(*args, scale=scale)), reps=3, warmup=1),
             bwd_library_ms=b_lib, bwd_library_note=b_lib_note,
             bwd_bound_ms=dq_bound[0] + dkv_bound[0],
             bwd_bound_by=dq_bound[1] if dq_bound[0] >= dkv_bound[0] else dkv_bound[1],
             chain=chain)
+        if chunked:  # each backward kernel's own numbers, for its kernels entry
+            for key, ref, bound, grads in (("dq", dq_ref, dq_bound, ("dq",)),
+                                           ("dkv", dkv_ref, dkv_bound, ("dk", "dv"))):
+                t_k = parts[key]
+                row[key] = dict(max_abs_err=max(errs[n] for n in grads), ms=t_k["ms"],
+                                min_ms=t_k["min_ms"], max_ms=t_k["max_ms"],
+                                plain_ms=median_ms(lambda: ref(*args, scale=scale), reps=3,
+                                                   warmup=1),
+                                bound_ms=bound[0], bound_by=bound[1])
         print(f"[wide-heads] {json.dumps(row)}")
         print(f"[wide-time] {var['name']}: forward {_triple(f_ms)} ms (SDPA "
               f"{f_lib['ms']:.4f}, bound {f_bound[0]:.4f}); dq + dk/dv {_triple(b_ms)} ms "
               f"(SDPA backward {b_lib}, bound {row['bwd_bound_ms']:.4f})")
         rows.append(row)
-        del q, k, v, kv, seg, out, lse, g, args, got, sweep, qkv
+        del q, k, v, kv, seg, out, lse, g, args, got, sweep
         torch.cuda.empty_cache()
 
-    # the model's route at Dh 192: zero-padded to 256 with the head's own scale
-    for dtype in (torch.bfloat16, torch.float32):
-        b, t, h, dh = 2, 1024, 2, WIDE_PADDED_DH
-        rng = np.random.default_rng(SEED + 13)
-        q, k, v, w = (torch.from_numpy(rng.normal(0, 1, (b, t, h, dh)).astype(np.float32))
-                      .to(dtype) for _ in range(4))
-        valid = torch.ones(b, t, dtype=torch.bool)
-        valid[1, t // 2:] = False
-        w = w * valid[:, :, None, None]
-        runs = []
-        for device in ("cuda", "cpu"):
-            reset_launches()
-            leaves = [x.to(device).requires_grad_() for x in (q, k, v)]
-            out = fa.flash_attention(*leaves, valid.to(device), None, "float32")
-            (out.float() * w.to(device).float()).sum().backward()
-            if device == "cuda":
-                torch.cuda.synchronize()
-                launched = read_launches("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-                check(launched == dict(flash_fwd=1, flash_bwd_dq=1, flash_bwd_dkv=1),
-                      f"wide Dh {dh} {dtype}: launches {launched}")
-            runs.append([x.detach().float().cpu() for x in (out, *(z.grad for z in leaves))])
-        rel = 1e-4 if dtype == torch.float32 else 1e-2
-        live = torch.arange(t)[None] < fa._kv_len(valid)
-        errs = {}
-        for name, got_x, want_x in zip(("out", "dq", "dk", "dv"), *runs):
-            scale = float(want_x[live].abs().max())
-            errs[name] = float((got_x[live] - want_x[live]).abs().max())
-            check(errs[name] <= rel * scale and bool(torch.isfinite(got_x).all()),
-                  f"wide Dh {dh} {dtype} {name}: max err {errs[name]:.3g} > {rel} x {scale:.3g}")
-        row = dict(name=f"model_route_Dh{dh}_{str(dtype).split('.')[-1]}",
-                   shape=[b, t, h, dh], padded_to=fa.kernel_head_dim("cuda", dh),
-                   max_abs_err_by_output=errs, tolerance=f"{rel} x max |cpu|")
-        print(f"[wide-heads] {json.dumps(row)}")
-        rows.append(row)
+    # the model's route: zero-padded to the kernel width with the head's own scale
+    for dh, t in ((WIDE_PADDED_DH, 1024), (1000, 1024), (1000, 4096)):
+        stream = t > fa.STREAM_MAX_T
+        names = (CHUNKED[stream] if dh > WIDE_DH else
+                 ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        for dtype in (torch.bfloat16, torch.float32):
+            b, h = (2, 2) if t <= 1024 else (1, 2)
+            rng = np.random.default_rng(SEED + 13)
+            q, k, v, w = (torch.from_numpy(rng.normal(0, 1, (b, t, h, dh)).astype(np.float32))
+                          .to(dtype) for _ in range(4))
+            valid = torch.ones(b, t, dtype=torch.bool)
+            valid[-1, t // 2:] = False
+            w = w * valid[:, :, None, None]
+            runs = []
+            for device in ("cuda", "cpu"):
+                reset_launches()
+                leaves = [x.to(device).requires_grad_() for x in (q, k, v)]
+                out = fa.flash_attention(*leaves, valid.to(device), None, "float32")
+                (out.float() * w.to(device).float()).sum().backward()
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    launched = read_launches(*names)
+                    check(launched == dict.fromkeys(names, 1),
+                          f"wide route Dh {dh} T {t} {dtype}: launches {launched}")
+                runs.append([x.detach().float().cpu() for x in (out, *(z.grad for z in leaves))])
+            rel = 1e-4 if dtype == torch.float32 else 1e-2
+            live = torch.arange(t)[None] < fa._kv_len(valid)
+            errs = {}
+            for name, got_x, want_x in zip(("out", "dq", "dk", "dv"), *runs):
+                scale = float(want_x[live].abs().max())
+                errs[name] = float((got_x[live] - want_x[live]).abs().max())
+                check(errs[name] <= rel * scale and bool(torch.isfinite(got_x).all()),
+                      f"wide route Dh {dh} T {t} {dtype} {name}: max err {errs[name]:.3g} > "
+                      f"{rel} x {scale:.3g}")
+            row = dict(name=f"model_route_Dh{dh}_T{t}_{str(dtype).split('.')[-1]}",
+                       shape=[b, t, h, dh], padded_to=fa.kernel_head_dim("cuda", dh),
+                       launches=launched, max_abs_err_by_output=errs,
+                       tolerance=f"{rel} x max |cpu|")
+            print(f"[wide-heads] {json.dumps(row)}")
+            rows.append(row)
     return rows
 
 
@@ -2698,6 +2777,164 @@ def phase_trainer_flags(card: str, workdir: str) -> dict:
           f"on a [6, 2048] batch of 4 videos: {native_ms:.1f} ms native, {numpy_ms:.1f} ms numpy "
           f"(host clock, files cached)")
     return dict(launches=launches, steps=steps, wall_s=wall, host_split=host)
+
+
+FUSION_VIDEOS = (400, 1100, 1900)  # seconds: buckets 512 and 2048 of the production config
+FUSION_LOGIT_REL = 1e-3  # card vs CPU, float32: see phase_fusion_variants
+
+
+def phase_fusion_variants(card: str) -> dict:
+    """The fusion variants (``fusion: cross`` and ``bottleneck``) at the
+    flagship width of configs/repurpose.yaml (d_model 512, 8 heads,
+    ``text_num_layers`` 3, ``cross_num_layers`` 3), unpacked: for each,
+    ``score_videos`` of three videos (buckets up to 2048) in float32 on the
+    card against the same call on the CPU, on the same weights: the raw
+    logits and offsets within ``FUSION_LOGIT_REL`` x max |CPU value| (float32
+    sums in another order through 12 (cross) or 18 (bottleneck) attention
+    layers; a wrong mask or a dropped modality moves them by O(1)), the same
+    clips; the request's time and peak memory on the card. Then 3 train
+    steps in bf16 with dropout 0.1 at [2, 2048]: finite losses, step time
+    and peak memory. No attention kernel runs here: the variants' attention
+    is plain einsum, as the JAX package leaves it to XLA."""
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch.data.batching import collate
+    from repurpose_tpu_torch.data.synthetic import synthetic_sample
+    from repurpose_tpu_torch.infer import InferencePipeline
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.train.state import TrainState, make_optimizer
+    from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
+
+    cfg = production_config()
+    buckets = cfg.train.buckets
+    test_cfg = dataclasses.replace(cfg.test_cfg, duration_thresh=DAEMON_DURATION_THRESH)
+    out = {}
+    for fusion in ("cross", "bottleneck"):
+        mc = dataclasses.replace(cfg.model, fusion=fusion, compute_dtype="float32")
+        rng = np.random.default_rng(SEED + 21)
+        videos = [dict(synthetic_sample(rng, d, mc), video_id=f"v{i}")
+                  for i, d in enumerate(FUSION_VIDEOS)]
+        sd = build_model(mc, "cpu", seed=SEED).state_dict()
+        card_pipe = InferencePipeline(mc, sd, test_cfg, raw_outputs=True, device="cuda")
+        card_pipe.score_videos(videos[:1], buckets, batch_size=2)  # first calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = card_pipe.score_videos(videos, buckets, batch_size=2)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        serve_peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        want = InferencePipeline(mc, sd, test_cfg, raw_outputs=True, device="cpu").score_videos(
+            videos, buckets, batch_size=2)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        errs = {}
+        for key in ("raw_logits", "raw_offsets"):
+            a = np.concatenate([r[key].ravel() for r in got])
+            w = np.concatenate([r[key].ravel() for r in want])
+            errs[key] = float(np.abs(a - w).max())
+            check(np.isfinite(a).all() and errs[key] <= FUSION_LOGIT_REL * float(np.abs(w).max()),
+                  f"{fusion}: {key} card vs CPU max err {errs[key]:.3g}")
+        check([r["video_id"] for r in got] == [r["video_id"] for r in want]
+              and all(len(a["scores"]) > 0 for a in got), f"{fusion}: served clips differ")
+        del card_pipe
+
+        tc = dataclasses.replace(cfg.train, batch_size=2, buckets=(2048,), pack_sequences=False)
+        mc16 = dataclasses.replace(cfg.model, fusion=fusion)
+        model = build_model(mc16, "cuda", seed=SEED)
+        gen = torch.Generator(device="cuda")
+        model.set_dropout_generator(gen)
+        optimizer, schedule = make_optimizer(model, tc, 3)
+        state = TrainState(model, optimizer)
+        step = make_train_step(mc16, tc, schedule)
+        samples = [synthetic_sample(rng, d, mc16) for d in (1800, 2047)]  # 2048 s: d + 1
+        batch = batch_to_device(collate(samples, tc.buckets, 2), "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            losses.append(float(step(state, batch)["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        train_peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)), f"{fusion}: train losses {losses}")
+        out[fusion] = dict(max_abs_err_card_vs_cpu=errs, tolerance=f"{FUSION_LOGIT_REL} x max",
+                           serve_ms=serve_ms, cpu_serve_ms=cpu_ms, serve_peak_bytes=serve_peak,
+                           losses=losses, step_ms=step_ms, train_peak_bytes=train_peak,
+                           params=sum(p.numel() for p in model.parameters()))
+        print(f"[fusion] {card}: {fusion}: score_videos of {list(FUSION_VIDEOS)} s float32 "
+              f"{serve_ms:.1f} ms on the card (CPU {cpu_ms:.1f} ms), peak "
+              f"{serve_peak / 1e9:.2f} GB, raw logits / offsets vs CPU max err "
+              f"{errs['raw_logits']:.3g} / {errs['raw_offsets']:.3g}; 3 bf16 train steps at "
+              f"[2, 2048]: losses {[round(x, 4) for x in losses]}, step "
+              f"{[round(x, 1) for x in step_ms]} ms, peak {train_peak / 1e9:.2f} GB")
+        del model, optimizer, state, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_utils_and_clis(card: str, workdir: str) -> dict:
+    """Item 12 on the card: ``python -m repurpose_tpu_torch.preflight --full``
+    as a subprocess (exit 0; every check passes); the capacity model's
+    estimate against the measured peak of a real step at the packed
+    [6, 2048] production step and the [1, 32768] remat step of
+    configs/longvideo.yaml (the estimate must not fall below the peak);
+    ``python -m repurpose_tpu_torch.analyze --synthetic 4`` as a subprocess
+    with this machine's installations (its JSON line names what it
+    skipped)."""
+    import torch
+
+    from repurpose_tpu_torch.utils.capacity import estimate_train_bytes, measured_memory
+
+    report = os.path.join(workdir, "preflight.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repurpose_tpu_torch.preflight", "--full", "--output-json",
+         report], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    preflight_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"preflight --full exited {proc.returncode}: "
+                                f"{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    with open(report) as f:
+        checks = json.load(f)
+    check(all(c["passed"] for c in checks) and len(checks) == 7, f"preflight: {checks}")
+    summary = proc.stdout[proc.stdout.index("=== preflight summary ==="):].strip()
+    print(f"[preflight] {card}: --full in {preflight_s:.1f} s, exit 0\n{summary}")
+
+    memory = {}
+    prod, longvideo = production_config(), longvideo_config()
+    for name, mc, tc, bucket in (
+            ("packed_6x2048", prod.model, prod.train, 2048),
+            ("remat_1x32768", longvideo.model, longvideo.train, 32768)):
+        torch.cuda.empty_cache()
+        mem = measured_memory(mc, tc, bucket)
+        est = estimate_train_bytes(mc, tc.batch_size, bucket)
+        ratio = est["total_bytes"] / mem["peak_bytes"]
+        check(est["total_bytes"] >= mem["peak_bytes"],
+              f"capacity {name}: estimate {est['total_bytes']} below the peak {mem['peak_bytes']}")
+        memory[name] = dict(measured=mem, estimate=est, ratio=ratio)
+        print(f"[capacity] {card}: {name} (remat={mc.remat}, packed={tc.pack_sequences}): "
+              f"measured peak {mem['peak_bytes'] / 1e9:.3f} GB, estimate "
+              f"{est['total_bytes'] / 1e9:.3f} GB (ratio {ratio:.3f}; state "
+              f"{est['state_bytes'] / 1e9:.3f}, activations {est['activation_bytes'] / 1e9:.3f}, "
+              f"inputs {est['input_bytes'] / 1e9:.3f}, weight copies "
+              f"{est['weight_copy_bytes'] / 1e9:.3f})")
+
+    out_dir = os.path.join(workdir, "analysis")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repurpose_tpu_torch.analyze", "--synthetic", "4",
+         "--output-dir", out_dir], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    analyze_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"analyze exited {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(line["videos"] == 4 and all(os.path.getsize(p) > 0 for p in line["artifacts"]),
+          f"analyze: {line}")
+    print(f"[analyze] {card}: --synthetic 4 in {analyze_s:.1f} s: separability "
+          f"{line['separability_acc']}, peak at zero {json.dumps(line['peak_at_zero'])}, "
+          f"artifacts {[os.path.basename(p) for p in line['artifacts']]}, skipped "
+          f"{[os.path.basename(p) for p in line['skipped']]}")
+    return dict(preflight=checks, preflight_s=preflight_s, memory=memory, analyze=line)
 
 
 def _host_split(trainer, card: str, logdir: str, warm: int = 3, steps: int = 4) -> dict:
@@ -3062,6 +3299,12 @@ def main() -> int:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     daemon, flags = extras["daemon"], extras["trainer_flags"]
+    fusion = phase_fusion_variants(card)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_utils_", dir=os.path.join(ROOT, "runs"))
+    try:
+        utils = phase_utils_and_clis(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     def timed(row):  # a row's kernel times and yardsticks, for a kernels entry
         return {x: row[x] for x in ("max_abs_err", "ms", "min_ms", "max_ms", "plain_ms",
@@ -3106,7 +3349,8 @@ def main() -> int:
         launches_by_path=dict(gradients_float32=grad_launches["float32"]["flash_fwd"],
                               **{path: n - tc for path, (n, tc) in dense_fwd.items()}),
         **timed(fwd_first), variant=fwd_first["name"], variants=[fwd_first],
-        wide_heads=[r for r in wide if r["name"].startswith(("dense_", "model_route"))],
+        wide_heads=[r for r in wide if r.get("dh") == WIDE_DH and r["name"].startswith("dense_")
+                    or r["name"].startswith(f"model_route_Dh{WIDE_PADDED_DH}_")],
     )]
     # the dense backward: the tensor-core pair (bf16 at Dh 64, the training
     # path) and the first design (float32 and the other Dh)
@@ -3146,7 +3390,8 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], min_ms=r["min_ms"], max_ms=r["max_ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=bwd_first["library_ms"], variant=bwd_first["name"],
-            wide_heads=[r for r in wide if r["name"].startswith("dense_")],
+            wide_heads=[r for r in wide if r.get("dh") == WIDE_DH
+                        and r["name"].startswith("dense_")],
         ))
 
     # the streaming forward: the tensor-core kernel (bf16 at Dh 64, every
@@ -3176,7 +3421,8 @@ def main() -> int:
         launches_by_path=dict(
             long_video_gradients_float32=long_grads["float32"]["flash_fwd_stream"]),
         **timed(first_head), variant=first_head["name"], variants=first_rows,
-        wide_heads=[r for r in wide if r["name"].startswith("stream_")],
+        wide_heads=[r for r in wide if r.get("dh") == WIDE_DH
+                    and r["name"].startswith("stream_")],
     ))
     long_bwd_head = next(r for r in long_bwd_variants if r["name"] == "unpacked_T32768")
     for name, key, replaces, also in (
@@ -3196,7 +3442,8 @@ def main() -> int:
             library_ms=long_bwd_head["library_ms"], variant=long_bwd_head["name"],
             variants=[dict(name=v["name"], **v[key], library_ms=v["library_ms"],
                            library_note=v["library_note"]) for v in long_bwd_variants],
-            wide_heads_first_design=[r for r in wide if r["name"].startswith("stream_")],
+            wide_heads_first_design=[r for r in wide if r.get("dh") == WIDE_DH
+                                     and r["name"].startswith("stream_")],
         ))
     r = long_bwd_head["prep"]
     kernels.append(dict(
@@ -3260,6 +3507,36 @@ def main() -> int:
                            route=v["routes"][key]["route"],
                            matmul_ms=v["matmul"]["ms"], **v[key]) for v in int8_variants],
         ))
+    # the head-chunked instances: launched by the model's route at Dh 1000
+    # (phase 10), held and timed on every chunked row; the head row is Dh 512
+    routes = [r for r in wide if r["name"].startswith("model_route_Dh1000_")]
+    timed_keys = ("max_abs_err", "ms", "min_ms", "max_ms", "plain_ms", "bound_ms", "bound_by")
+
+    def chunked_timing(row, part):  # the forward's numbers, or one backward kernel's
+        if part is None:
+            return {**{x: row[x] for x in timed_keys}, "library_ms": row["library_ms"]}
+        return {**{x: row[part][x] for x in timed_keys}, "library_ms": row["bwd_library_ms"]}
+
+    for stream, names in CHUNKED.items():
+        prefix = "stream_" if stream else "dense_"
+        rows = [r for r in wide if r.get("dh", 0) > WIDE_DH and r["name"].startswith(prefix)]
+        head = next(r for r in rows if r["name"] == f"{prefix}unpacked_bfloat16_Dh512")
+        fa_lines = ((592, [512, 657]), (859, [914, 992]), (1200, [])) if stream else (
+            (227, []), (783, []), (1109, [1149]))
+        for name, (line, also), part in zip(names, fa_lines, (None, "dq", "dkv")):
+            kernels.append(dict(
+                name=name, route="cuda", source=source + "flash_chunked.cu",
+                replaces=f"{fa_line}{line}", also_replaces=[f"{fa_line}{n}" for n in also],
+                design="head-chunked first design: every Dh past 256",
+                launches=sum(x["launches"].get(name, 0) for x in routes),
+                launches_by_path=dict(wide_head_model_route={
+                    x["name"]: x["launches"].get(name, 0) for x in routes}),
+                **chunked_timing(head, part),
+                library_note=None if part is None else
+                "SDPA's whole backward (dq, dk and dv), against this kernel alone",
+                variant=head["name"],
+                variants=[dict(name=x["name"], **chunked_timing(x, part)) for x in rows],
+            ))
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched: "
           + json.dumps({k["name"]: k["launches"] for k in kernels}))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")

@@ -6,6 +6,11 @@ the bucket set that minimises the total padded seconds for a given number of
 buckets (an exact dynamic program over lengths rounded up to ``ALIGN``).
 ``ALIGN`` = 128 keeps every bucket a multiple of the attention kernels'
 64-row tiles.
+
+Run as ``python -m repurpose_tpu_torch.data.buckets LABEL_JSON [--n N]
+[--align A]``: one JSON line with the suggested buckets, their padding waste
+and the config snippet to paste (the ``tpu:`` section that ``config.py``
+reads).
 """
 
 from __future__ import annotations
@@ -98,3 +103,29 @@ def suggest_buckets(
         j = int(parent[k][j])
         k -= 1
     return tuple(sorted(out))
+
+
+def main(argv: list[str] | None = None) -> None:
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="Suggest static sequence-length buckets from a label JSON.")
+    p.add_argument("label_json")
+    p.add_argument("--n", type=int, default=4)
+    p.add_argument("--align", type=int, default=ALIGN)
+    args = p.parse_args(argv)
+    lengths = lengths_from_label_json(args.label_json)
+    buckets = suggest_buckets(lengths, args.n, args.align)
+    waste = padding_waste(lengths, buckets)
+    total = sum(lengths)
+    print(json.dumps({
+        "videos": len(lengths),
+        "buckets": list(buckets),
+        "padding_waste_seconds": waste,
+        "padding_overhead": round(waste / max(total, 1), 4),
+        "config_snippet": {"tpu": {"buckets": list(buckets)}},
+    }))
+
+
+if __name__ == "__main__":
+    main()

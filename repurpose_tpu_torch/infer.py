@@ -25,7 +25,7 @@ import torch
 from repurpose_tpu_torch import resolve_device
 from repurpose_tpu_torch.config import ModelConfig, TestConfig
 from repurpose_tpu_torch.data.batching import iter_packed_batches, pick_bucket
-from repurpose_tpu_torch.models import build_model
+from repurpose_tpu_torch.models import build_model, require_unpacked
 from repurpose_tpu_torch.ops.decode import (
     DecodeResult,
     decode_batch,
@@ -119,6 +119,7 @@ class InferencePipeline:
     def _forward_and_decode_packed(self, params, batch, layout):
         # several videos per row with block-diagonal attention; the outputs
         # are unpacked to per-video rows on the device before the decode
+        require_unpacked(self.model)
         stage = self._to_device
         out = self._forward(
             params, stage(batch.visual), stage(batch.audio), stage(batch.text),

@@ -1,4 +1,6 @@
-"""Model factory of the port."""
+"""Model factory of the port: the concat-fusion MMCT (the default, the
+reference's model) and the fusion variants ``MMCTCross`` (``fusion:
+cross``) and ``MMCTBottleneck`` (``fusion: bottleneck``)."""
 
 from __future__ import annotations
 
@@ -18,11 +20,14 @@ from repurpose_tpu_torch.models.mmct import MMCT, MMCTOutput  # noqa: F401
 def init_weights(model: nn.Module, seed: int = 0) -> None:
     """The JAX init from a numpy seed: Xavier-uniform matrices (Flax's
     ``xavier_uniform`` over a kernel [in, out] is the same law over torch's
-    [out, in]), zero biases, unit LayerNorm scales."""
+    [out, in]), zero biases, unit LayerNorm scales, and the bottleneck
+    variant's ``bottleneck_tokens`` from a normal of std 0.02."""
     rng = np.random.default_rng(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.ndim == 2:
+            if name == "bottleneck_tokens":
+                p.copy_(torch.from_numpy(rng.normal(0.0, 0.02, p.shape).astype(np.float32)))
+            elif p.ndim == 2:
                 fan_out, fan_in = p.shape
                 lim = np.sqrt(6.0 / (fan_in + fan_out))
                 p.copy_(torch.from_numpy(
@@ -36,15 +41,32 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
 
 def build_model(
     cfg: ModelConfig, device: str | torch.device = "cuda", seed: int = 0
-) -> MMCT:
-    """The concat-fusion MMCT on ``device``, in eval mode, with weights drawn
+) -> nn.Module:
+    """The model ``cfg.fusion`` names (the concat-fusion MMCT, ``MMCTCross``
+    or ``MMCTBottleneck``) on ``device``, in eval mode, with weights drawn
     by ``init_weights(seed)``; load a state dict over them to serve trained
     weights. Raises for CUDA when no card is visible."""
-    if cfg.fusion != "concat":
-        raise NotImplementedError(
-            f"fusion={cfg.fusion!r} is not ported yet (ROADMAP.md, Queue 1 item 10)"
-        )
     dev = resolve_device(device)
-    model = MMCT(cfg)
+    if cfg.fusion == "cross":
+        from repurpose_tpu_torch.models.cross_modal import MMCTCross
+
+        model = MMCTCross(cfg)
+    elif cfg.fusion == "bottleneck":
+        from repurpose_tpu_torch.models.bottleneck import MMCTBottleneck
+
+        model = MMCTBottleneck(cfg)
+    else:
+        model = MMCT(cfg)
     init_weights(model, seed)
     return model.to(dev).eval()
+
+
+def require_unpacked(model: nn.Module) -> None:
+    """Raises ValueError for a fusion variant, which takes no sequence-packed
+    batch (no ``seg_ids`` / ``positions``), as the JAX variants take none."""
+    fusion = model.cfg.fusion
+    if fusion != "concat":
+        raise ValueError(
+            f"fusion={fusion!r} takes no sequence-packed batch (no seg_ids / positions, "
+            "as in the JAX package): set pack_sequences: false, or serve with pack=False"
+        )

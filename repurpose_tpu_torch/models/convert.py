@@ -5,8 +5,9 @@ state dict (``.pth``, or ``tests/golden/*.npz`` ``sd/*``) loads strictly with
 no conversion. ``state_dict_from_jax_params`` carries weights the other way,
 from the JAX package's param pytree (numpy leaves) to the port: it is the
 port's own copy of the mapping in ``export_reference_state_dict``
-(repurpose_tpu/models/torch_convert.py:150-184). Flax kernels are
-``[in, out]``; torch's Linear weights ``[out, in]``, hence the transposes.
+(repurpose_tpu/models/torch_convert.py:150-184), and it carries the fusion
+variants' params too. Flax kernels are ``[in, out]``; torch's Linear
+weights ``[out, in]``, hence the transposes.
 """
 
 from __future__ import annotations
@@ -33,8 +34,37 @@ def _ln(sd: dict, name: str, p: Mapping) -> None:
     sd[f"{name}.bias"] = _t(p["bias"])
 
 
+_HEAD_INDEX = {"norm": "0", "dense_0": "1", "dense_1": "4", "out": "7"}
+
+
+def _variant_state_dict(params: Mapping, prefix: str = "") -> dict:
+    """The fusion variants' params (``MMCTCross``, ``MMCTBottleneck``): their
+    modules carry the JAX tree's names, so each Dense (kernel, bias) becomes
+    a Linear, each LayerNorm (scale, bias) a LayerNorm and an array a
+    parameter of the same path; the heads take the reference's indices."""
+    sd: dict = {}
+    for key, sub in params.items():
+        name = prefix + key
+        if not isinstance(sub, Mapping):
+            sd[name] = _t(sub)
+        elif "kernel" in sub:
+            _lin(sd, name, sub)
+        elif "scale" in sub:
+            _ln(sd, name, sub)
+        elif key in ("cls_head", "reg_head"):
+            for jax_name, index in _HEAD_INDEX.items():
+                (_ln if jax_name == "norm" else _lin)(sd, f"{name}.{index}", sub[jax_name])
+        else:
+            sd.update(_variant_state_dict(sub, name + "."))
+    return sd
+
+
 def state_dict_from_jax_params(params: Mapping, max_len: int = 5000) -> dict:
-    """JAX MMCT params (numpy leaves) -> the port's state dict (float32)."""
+    """JAX model params (numpy leaves) -> the port's state dict (float32):
+    the concat MMCT's, or a fusion variant's (a tree without
+    ``input_projection``)."""
+    if "input_projection" not in params:
+        return _variant_state_dict(params)
     d_model = np.asarray(params["input_projection"]["kernel"]).shape[1]
     sd: dict = {}
     _lin(sd, "input_projection", params["input_projection"])

@@ -93,6 +93,11 @@ SIGNATURES = {
         ),
         "flash_bwd_stream_prep": ([_P] * 10 + [_I] * 4 + [ctypes.c_float, _P], _I),
     },
+    "flash_chunked": {
+        "flash_fwd_chunked": ([_P] * 12 + [_I] * 7 + [ctypes.c_float, _P], _I),
+        "flash_bwd_dq_chunked": ([_P] * 14 + [_I] * 7 + [ctypes.c_float, _P], _I),
+        "flash_bwd_dkv_chunked": ([_P] * 16 + [_I] * 7 + [ctypes.c_float, _P], _I),
+    },
     "flash_fwd_nt": {
         "flash_fwd_nt": (
             [_P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _P, _P,

@@ -53,6 +53,15 @@ width without a kernel instance to the next one (``kernel_head_dim``) and
 keeps the head's own scale 1/sqrt(Dh), which every wrapper takes as
 ``scale``; the zero columns add nothing to q_s k^T, p v or rowsum(g o).
 
+Heads wider than the widest fixed-width instance (``HEAD_DIMS[-1]`` = 256)
+run on the head-chunked instances of the first designs
+(``csrc/flash_chunked.cu``: ``flash_fwd_chunked``,
+``flash_fwd_stream_chunked``, ``flash_bwd_{dq,dkv}_chunked`` and
+``flash_bwd_{dq,dkv}_stream_chunked``), which walk the head in chunks of
+``CHUNK`` columns and keep their float32 accumulators in a workspace in
+device memory; ``kernel_head_dim`` pads such a head to a multiple of
+``CHUNK``, so every width runs on the card.
+
 Long sequences (T > ``STREAM_MAX_T``, the long-video buckets of
 ``configs/longvideo.yaml``) go to ``flash_forward_stream``, the counterpart of
 the three long-T TPU forwards (``_flash_fwd_stream_kernel``,
@@ -93,21 +102,27 @@ STREAM_TILE = 64  # query and key tile of csrc/flash_fwd_stream.cu
 M_INIT = -1e30  # initial running max of the stream recurrence (finite: see fa:647)
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
+CHUNK = 64  # head columns per chunk of the head-chunked kernels (csrc/flash_chunked.cu)
 _SM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def kernel_head_dim(device: torch.device | str, head_dim: int) -> int:
     """The width ``FlashAttention`` runs a head of ``head_dim`` at: on the
-    card the narrowest kernel instance in ``HEAD_DIMS`` that holds it (the
-    head is zero-padded to it), on the CPU ``head_dim`` itself (the plain
-    versions take every width). Raises past the widest instance."""
+    card the narrowest kernel instance in ``HEAD_DIMS`` that holds it and,
+    past the widest, the next multiple of ``CHUNK`` (the head-chunked
+    kernels; the head is zero-padded to it), on the CPU ``head_dim`` itself
+    (the plain versions take every width)."""
     if torch.device(device).type != "cuda" or head_dim in HEAD_DIMS:
         return head_dim
-    for width in HEAD_DIMS:
-        if width > head_dim:
-            return width
-    raise ValueError(f"head dim {head_dim} is wider than every kernel instance {HEAD_DIMS}: "
-                     f"the widest is {HEAD_DIMS[-1]}")
+    if head_dim > HEAD_DIMS[-1]:
+        return -(-head_dim // CHUNK) * CHUNK
+    return next(width for width in HEAD_DIMS if width > head_dim)
+
+
+def head_chunked(q: torch.Tensor) -> bool:
+    """Whether the kernels on CUDA tensors take their head-chunked instances
+    (csrc/flash_chunked.cu): every head wider than ``HEAD_DIMS[-1]``."""
+    return q.shape[-1] > HEAD_DIMS[-1]
 
 
 def _scale(q: torch.Tensor, scale: float | None) -> float:
@@ -154,8 +169,9 @@ def flash_forward_reference(
 
 def _check_cuda_inputs(q, k, v, key_valid, seg_ids) -> None:
     b, t, h, dh = q.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    if dh not in HEAD_DIMS and not (dh > HEAD_DIMS[-1] and dh % CHUNK == 0):
+        raise ValueError(f"head dim {dh}: neither in {HEAD_DIMS} nor a multiple of {CHUNK} "
+                         f"past {HEAD_DIMS[-1]} (the head-chunked kernels)")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"q/k/v dtype {q.dtype}: bfloat16 or float32 only")
     for name, x in (("k", k), ("v", v)):
@@ -216,7 +232,8 @@ def flash_fwd_dense(q, k, v, key_valid, seg_ids=None, softmax_dtype: str = "floa
     CUDA tensors: where ``stream_tc(q)`` the tensor-core kernel
     (``flash_fwd_tc``) on the dense sweep ``sweep`` (``attention_sweep``
     with ``dense=True``, made here when not given), else the first design of
-    csrc/flash_fwd.cu, which sweeps every key tile up to kvl. On CPU tensors
+    csrc/flash_fwd.cu, which sweeps every key tile up to kvl (past Dh 256
+    its head-chunked instance, ``flash_fwd_chunked``). On CPU tensors
     its plain version over every key (a given ``sweep`` is checked; on a
     row that attends a key the bounded sweep gives the same values).
     ``flash_forward`` takes it up to ``STREAM_MAX_T``."""
@@ -236,6 +253,10 @@ def flash_fwd_dense(q, k, v, key_valid, seg_ids=None, softmax_dtype: str = "floa
     if stream_tc(q):
         flash_fwd_tc(q, k, v, key_valid, seg_ids, _sweep_for(key_valid, seg_ids, sweep, dense=True),
                      out, lse, softmax_dtype, _scale(q, scale))
+    elif head_chunked(q):
+        flash_fwd_chunked(q, k, v, key_valid, seg_ids,
+                          _sweep_for(key_valid, seg_ids, sweep, dense=True), out, lse,
+                          softmax_dtype, _scale(q, scale))
     else:
         err = native.load("flash_fwd").flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -284,8 +305,53 @@ def _fwd_tc_launch(q, k, v, key_valid, seg_ids, sweep, out, lse, softmax_dtype: 
         raise RuntimeError(f"flash_fwd_tc kernel launch failed: CUDA error {err}")
 
 
+def _workspace(q: torch.Tensor) -> torch.Tensor:
+    """The float32 accumulator workspace [B, H, Tp, Dh] of a head-chunked
+    kernel, Tp = T rounded up to 64 (every row is written before it is
+    read)."""
+    b, t, h, dh = q.shape
+    tp = -(-t // STREAM_TILE) * STREAM_TILE
+    return torch.empty((b, h, tp, dh), dtype=torch.float32, device=q.device)
+
+
+def _fwd_chunked_launch(q, k, v, key_valid, seg_ids, sweep: AttentionSweep, out, lse,
+                        softmax_dtype: str, scale: float, stream: bool) -> None:
+    """Calls ``flash_fwd_chunked`` of csrc/flash_chunked.cu on the checked
+    inputs of a forward wrapper and ``sweep``: with ``stream`` the stream
+    forward's sweep and rounding points, else the dense forward's."""
+    import ctypes
+
+    from repurpose_tpu_torch import native
+
+    b, t, h, dh = q.shape
+    strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v) for i in range(3)))
+    workspace = _workspace(q)
+    err = native.load("flash_chunked").flash_fwd_chunked(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, key_valid.data_ptr(), _ptr(seg_ids),
+        sweep.kvl.data_ptr(), _ptr(sweep.lo), _ptr(sweep.hi), out.data_ptr(), lse.data_ptr(),
+        workspace.data_ptr(), b, t, h, dh, int(q.dtype == torch.bfloat16),
+        int(softmax_dtype == "bfloat16"), int(stream), scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_chunked kernel launch failed: CUDA error {err}")
+
+
+def flash_fwd_chunked(q, k, v, key_valid, seg_ids, sweep: AttentionSweep, out, lse,
+                      softmax_dtype: str, scale: float) -> None:
+    """Launches the head-chunked dense forward (``flash_fwd_chunked_kernel``
+    of csrc/flash_chunked.cu, every Dh past 256) on the checked inputs of
+    ``flash_fwd_dense`` into ``out`` / ``lse``; counted in
+    ``flash_fwd_chunked.launches`` (the caller counts it in
+    ``flash_forward.launches`` too)."""
+    _fwd_chunked_launch(q, k, v, key_valid, seg_ids, sweep, out, lse, softmax_dtype, scale,
+                        stream=False)
+    flash_fwd_chunked.launches += 1
+
+
 flash_forward.launches = 0  # kernel launches; the plain CPU path does not count
 flash_fwd_tc.launches = 0  # the part of the above on the tensor-core kernel
+flash_fwd_chunked.launches = 0  # the part of the above on the head-chunked kernel
 
 
 # -- the sweep: kvl and the key-tile bounds, made once per batch -------------------
@@ -546,7 +612,19 @@ def flash_fwd_stream_tc(q, k, v, key_valid, seg_ids, sweep: AttentionSweep, out,
     flash_fwd_stream_tc.launches += 1
 
 
+def flash_fwd_stream_chunked(q, k, v, key_valid, seg_ids, sweep: AttentionSweep, out, lse,
+                             softmax_dtype: str, scale: float) -> None:
+    """Launches the head-chunked streaming forward (``flash_fwd_chunked_kernel``
+    of csrc/flash_chunked.cu with the stream sweep) on the checked inputs of
+    ``flash_forward_stream``; counted in ``flash_fwd_stream_chunked.launches``
+    (the caller counts it in ``flash_forward_stream.launches`` too)."""
+    _fwd_chunked_launch(q, k, v, key_valid, seg_ids, sweep, out, lse, softmax_dtype, scale,
+                        stream=True)
+    flash_fwd_stream_chunked.launches += 1
+
+
 flash_fwd_stream_tc.launches = 0  # kernel launches; the plain CPU path does not count
+flash_fwd_stream_chunked.launches = 0
 
 
 def flash_forward_stream(
@@ -557,7 +635,8 @@ def flash_forward_stream(
     """The streaming forward, same contract as ``flash_forward``: a kernel
     on CUDA tensors (counted in ``flash_forward_stream.launches``), the
     tensor-core one (``flash_fwd_stream_tc``) where ``stream_tc(q)``, else
-    the first design of csrc/flash_fwd_stream.cu;
+    the first design of csrc/flash_fwd_stream.cu (past Dh 256 its
+    head-chunked instance, ``flash_fwd_stream_chunked``);
     ``flash_forward_stream_reference`` on CPU ones. Each takes kvl and,
     packed, the tile bounds from ``sweep`` (the stream sweep of
     ``attention_sweep``, made here when not given: the TPU kernels'
@@ -578,6 +657,9 @@ def flash_forward_stream(
     if stream_tc(q):
         flash_fwd_stream_tc(q, k, v, key_valid, seg_ids, sweep, out, lse, softmax_dtype,
                             _scale(q, scale))
+    elif head_chunked(q):
+        flash_fwd_stream_chunked(q, k, v, key_valid, seg_ids, sweep, out, lse, softmax_dtype,
+                                 _scale(q, scale))
     else:
         err = native.load("flash_fwd_stream").flash_fwd_stream(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -708,6 +790,73 @@ def _bwd_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
+def _bwd_chunked_launch(name: str, q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype,
+                        scale, outs, sweep: AttentionSweep | None, stream: bool) -> None:
+    """Checks the inputs and launches ``name`` (``flash_bwd_dq_chunked`` or
+    ``flash_bwd_dkv_chunked`` of csrc/flash_chunked.cu) into the
+    preallocated ``outs``, with a float32 workspace per output: with
+    ``stream`` on the stream sweep ``sweep`` in the bias form, else as the
+    dense backward (every key to kvl; select form when packed). ``sweep`` is
+    made here when None."""
+    import ctypes
+
+    _check_bwd_inputs(q, k, v, key_valid, o, lse, g, seg_ids)
+    from repurpose_tpu_torch import native
+
+    b, t, h, dh = q.shape
+    key_valid = key_valid.contiguous()
+    if seg_ids is not None:
+        seg_ids = seg_ids.contiguous()
+    sweep = _sweep_for(key_valid, seg_ids, sweep, dense=not stream)
+    strides = (ctypes.c_longlong * 15)(
+        *(x.stride(i) for x in (q, k, v, g, o) for i in range(3))
+    )
+    workspaces = [_workspace(q) for _ in outs]
+    err = getattr(native.load("flash_chunked"), name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), o.data_ptr(), strides,
+        key_valid.data_ptr(), _ptr(seg_ids), sweep.kvl.data_ptr(), _ptr(sweep.lo),
+        _ptr(sweep.hi), lse.data_ptr(), *(x.data_ptr() for x in outs),
+        *(x.data_ptr() for x in workspaces), b, t, h, dh, int(q.dtype == torch.bfloat16),
+        int(softmax_dtype == "bfloat16"), int(stream), _scale(q, scale),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def flash_bwd_dq_chunked(*args, dq, sweep=None) -> None:
+    """Launches the head-chunked dq kernel (``flash_bwd_dq_chunked_kernel``
+    of csrc/flash_chunked.cu, every Dh past 256) as the dense backward on
+    ``args`` (``flash_bwd_dq``'s, the scale last) into ``dq``; counted in
+    ``flash_bwd_dq_chunked.launches`` (the caller counts it in
+    ``flash_bwd_dq.launches`` too)."""
+    _bwd_chunked_launch("flash_bwd_dq_chunked", *args, (dq,), sweep, stream=False)
+    flash_bwd_dq_chunked.launches += 1
+
+
+def flash_bwd_dkv_chunked(*args, dk, dv, sweep=None) -> None:
+    """The head-chunked dk/dv kernel (``flash_bwd_dkv_chunked_kernel``) as
+    the dense backward, as ``flash_bwd_dq_chunked``; counted in
+    ``flash_bwd_dkv_chunked.launches``."""
+    _bwd_chunked_launch("flash_bwd_dkv_chunked", *args, (dk, dv), sweep, stream=False)
+    flash_bwd_dkv_chunked.launches += 1
+
+
+def flash_bwd_dq_stream_chunked(*args, dq, sweep=None) -> None:
+    """The head-chunked dq kernel as the streaming backward (the stream
+    sweep, the bias form); counted in ``flash_bwd_dq_stream_chunked.launches``
+    (the caller counts it in ``flash_bwd_dq_stream.launches`` too)."""
+    _bwd_chunked_launch("flash_bwd_dq_chunked", *args, (dq,), sweep, stream=True)
+    flash_bwd_dq_stream_chunked.launches += 1
+
+
+def flash_bwd_dkv_stream_chunked(*args, dk, dv, sweep=None) -> None:
+    """The head-chunked dk/dv kernel as the streaming backward; counted in
+    ``flash_bwd_dkv_stream_chunked.launches``."""
+    _bwd_chunked_launch("flash_bwd_dkv_chunked", *args, (dk, dv), sweep, stream=True)
+    flash_bwd_dkv_stream_chunked.launches += 1
+
+
 def flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids=None,
                  softmax_dtype: str = "float32", prep: StreamPrep | None = None, *,
                  scale: float | None = None, sweep: AttentionSweep | None = None) -> torch.Tensor:
@@ -715,8 +864,9 @@ def flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids=None,
     any T: on CUDA tensors a kernel of csrc/flash_bwd.cu (counted in
     ``flash_bwd_dq.launches``), the tensor-core one (``flash_bwd_dq_tc``) on
     ``prep`` (the outputs of ``flash_bwd_stream_prep`` with ``dense=True``,
-    run here on ``sweep`` when not given) where ``stream_tc(q)``;
-    ``flash_bwd_dq_reference`` on CPU ones. ``flash_backward`` takes it up
+    run here on ``sweep`` when not given) where ``stream_tc(q)``, the
+    head-chunked one (``flash_bwd_dq_chunked``, on ``sweep``'s kvl) past Dh
+    256; ``flash_bwd_dq_reference`` on CPU ones. ``flash_backward`` takes it up
     to ``STREAM_MAX_T``."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dq"):
@@ -726,6 +876,8 @@ def flash_bwd_dq(q, k, v, key_valid, o, lse, g, seg_ids=None,
         if prep is None:
             prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=True, sweep=sweep)
         flash_bwd_dq_tc(q, k, v, g, softmax_dtype, scale, prep, dq)
+    elif head_chunked(q):
+        flash_bwd_dq_chunked(*args, scale, dq=dq, sweep=sweep)
     else:
         _bwd_launch("flash_bwd_dq", *args, scale, (dq,))
     flash_bwd_dq.launches += 1
@@ -749,6 +901,8 @@ def flash_bwd_dkv(q, k, v, key_valid, o, lse, g, seg_ids=None,
         if prep is None:
             prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=True, sweep=sweep)
         flash_bwd_dkv_tc(q, k, v, g, softmax_dtype, scale, prep, dk, dv)
+    elif head_chunked(q):
+        flash_bwd_dkv_chunked(*args, scale, dk=dk, dv=dv, sweep=sweep)
     else:
         _bwd_launch("flash_bwd_dkv", *args, scale, (dk, dv))
     flash_bwd_dkv.launches += 1
@@ -777,6 +931,8 @@ flash_bwd_dq.launches = 0  # kernel launches; the plain CPU path does not count
 flash_bwd_dkv.launches = 0
 flash_bwd_dq_tc.launches = 0  # the part of the above on the tensor-core kernels
 flash_bwd_dkv_tc.launches = 0  # (the stream wrappers' launches of them are not counted here)
+flash_bwd_dq_chunked.launches = 0  # the part of the above on the head-chunked kernels
+flash_bwd_dkv_chunked.launches = 0
 
 
 # -- long T: the streaming backward ----------------------------------------------
@@ -1061,6 +1217,8 @@ def flash_bwd_dq_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
             prep = flash_bwd_stream_prep(*args[:-1], scale=scale, sweep=sweep)
         _tc_launch("flash_bwd_dq_tc", q, k, v, g, softmax_dtype, scale, prep, (dq,),
                    dense=False)
+    elif head_chunked(q):
+        flash_bwd_dq_stream_chunked(*args, scale, dq=dq, sweep=sweep)
     else:
         _bwd_launch("flash_bwd_dq_stream", *args, scale, (dq,), sweep)
     flash_bwd_dq_stream.launches += 1
@@ -1085,6 +1243,8 @@ def flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
             prep = flash_bwd_stream_prep(*args[:-1], scale=scale, sweep=sweep)
         _tc_launch("flash_bwd_dkv_tc", q, k, v, g, softmax_dtype, scale, prep, (dk, dv),
                    dense=False)
+    elif head_chunked(q):
+        flash_bwd_dkv_stream_chunked(*args, scale, dk=dk, dv=dv, sweep=sweep)
     else:
         _bwd_launch("flash_bwd_dkv_stream", *args, scale, (dk, dv), sweep)
     flash_bwd_dkv_stream.launches += 1
@@ -1093,6 +1253,8 @@ def flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
 
 flash_bwd_dq_stream.launches = 0  # kernel launches; the plain CPU path does not count
 flash_bwd_dkv_stream.launches = 0
+flash_bwd_dq_stream_chunked.launches = 0  # the part of the above on the head-chunked kernels
+flash_bwd_dkv_stream_chunked.launches = 0
 flash_bwd_stream_prep.launches = 0
 
 
@@ -1117,8 +1279,8 @@ def flash_backward(q, k, v, key_valid, o, lse, g, seg_ids=None,
         dq = flash_bwd_dq_stream(*args, prep, scale=scale, sweep=sweep)
         dk, dv = flash_bwd_dkv_stream(*args, prep, scale=scale, sweep=sweep)
     else:
-        dq = flash_bwd_dq(*args, prep, scale=scale)
-        dk, dv = flash_bwd_dkv(*args, prep, scale=scale)
+        dq = flash_bwd_dq(*args, prep, scale=scale, sweep=sweep)
+        dk, dv = flash_bwd_dkv(*args, prep, scale=scale, sweep=sweep)
     return dq, dk, dv
 
 

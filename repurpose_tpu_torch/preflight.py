@@ -1,0 +1,219 @@
+"""Pre-flight checks before training (root ``preflight.py``, the reference's
+test_multi_gpu.py that its launch scripts run first), for one card:
+
+1. the device inventory: the card's name, the device count and the power
+   limit (``nvidia-smi``);
+2. the kernel build: every ``csrc/*.cu`` compiled and loaded
+   (``native.build_all``);
+3. a collective self-check: ``all_reduce`` over a process group of one
+   (NCCL on the card, gloo on the CPU) equals the device count;
+4. the reduced model (2 layers at the flagship width) and one train step on
+   synthetic data;
+5. the capacity model: the estimated peak of the flagship train step per
+   bucket against the device's memory, and the largest safe bucket;
+6. with ``--full``: the flagship forward at bucket 2048, and the measured
+   peak of the packed [6, 2048] production step beside its estimate.
+
+Run as ``python -m repurpose_tpu_torch.preflight [--full] [--output-json
+PATH] [--device cuda|cpu]``. It prints a summary line per check and exits 0
+only if every check passed. On the CPU (``--device cpu``) the kernel build
+is not needed (the wrappers run their plain versions) and the capacity model
+reads the host's memory. The JAX package's pipeline-parallel check needs two
+or more devices and waits for the port's parallel layer (ROADMAP.md, Queue
+1 item 9).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+
+def _production_model():
+    """The flagship model of ``configs/repurpose.yaml``: bf16 activations,
+    the kernels' attention."""
+    from repurpose_tpu_torch.config import ModelConfig
+
+    return ModelConfig(attention_impl="auto", compute_dtype="bfloat16")
+
+
+def check_devices(dev) -> str:
+    import torch
+
+    if dev.type != "cuda":
+        return f"cpu ({os.cpu_count()} cores)"
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()
+    print(f"  {smi[dev.index or 0].strip()}")
+    return f"{torch.cuda.device_count()} x {torch.cuda.get_device_name(dev)}"
+
+
+def check_build(dev) -> str:
+    if dev.type != "cuda":
+        return "not needed on the CPU: the kernel wrappers run their plain versions"
+    from repurpose_tpu_torch import native
+
+    names = native.build_all()
+    for n in names:
+        native.load(n)
+    return f"{len(names)} sources built and loaded ({', '.join(names)})"
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_collectives(dev) -> str:
+    """all_reduce of a one over a process group of this process alone, on
+    one device: the sum is the device count of the group, 1."""
+    import torch
+    import torch.distributed as dist
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        x = torch.ones(1, device=dev)
+        dist.all_reduce(x)
+        total, devices = int(x.item()), dist.get_world_size()
+    finally:
+        dist.destroy_process_group()
+    if total != devices:
+        raise RuntimeError(f"all_reduce gave {total}, not the device count {devices}")
+    return f"{backend} all_reduce={total}"
+
+
+def check_train_step(dev) -> str:
+    from repurpose_tpu_torch.config import TrainConfig
+    from repurpose_tpu_torch.data.batching import collate
+    from repurpose_tpu_torch.data.synthetic import SyntheticDataset
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.train.state import TrainState, make_optimizer
+    from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
+
+    mc = dataclasses.replace(_production_model(), self_num_layers=2)
+    tc = TrainConfig(batch_size=2, buckets=(256,))
+    ds = SyntheticDataset([100, 150], mc, seed=0)
+    batch = batch_to_device(collate([ds[0], ds[1]], tc.buckets, 2), dev)
+    model = build_model(mc, dev, seed=0)
+    optimizer, schedule = make_optimizer(model, tc, 1)
+    metrics = make_train_step(mc, tc, schedule)(TrainState(model, optimizer), batch)
+    loss = float(metrics["loss"])
+    if not 0 < loss < 1e9:
+        raise RuntimeError(f"loss {loss}")
+    return f"loss={loss:.2f}"
+
+
+def _memory_bytes(dev) -> float:
+    """The device's memory: the card's, or the host's on the CPU."""
+    from repurpose_tpu_torch.utils.capacity import device_memory_bytes
+
+    if dev.type == "cuda":
+        return device_memory_bytes(dev)
+    return float(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
+
+
+def check_capacity(dev) -> str:
+    from repurpose_tpu_torch.config import TrainConfig
+    from repurpose_tpu_torch.utils.capacity import capacity_table, max_safe_bucket
+
+    mc, tc = _production_model(), TrainConfig()
+    mem = _memory_bytes(dev)
+    print(f"  memory/device: {mem / 1e9:.1f} GB (flagship, batch {tc.batch_size})")
+    for row in capacity_table(mc, tc.batch_size, tc.buckets, mem):
+        print(f"    bucket {row['bucket']:>5}: est {row['est_gb']:>6.2f} GB "
+              f"-> {'fits' if row['fits'] else 'DOES NOT FIT'}")
+    best = max_safe_bucket(mc, tc.batch_size, mem)
+    remat_best = max_safe_bucket(dataclasses.replace(mc, remat=True), tc.batch_size, mem)
+    accum_best = max_safe_bucket(mc, tc.batch_size, mem, grad_accum_steps=tc.batch_size,
+                                 grad_accum_dtype="bfloat16")
+    print(f"    max safe bucket: {best} (remat=true extends to {remat_best}; "
+          f"grad_accum_steps={tc.batch_size} + bf16 accumulators to {accum_best})")
+    return f"max_bucket={best} remat_max={remat_best} accum_max={accum_best}"
+
+
+def check_flagship_forward(dev) -> str:
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch.models import build_model
+
+    mc = _production_model()
+    rng = np.random.default_rng(0)
+    t = 2048
+    feats = [torch.from_numpy(rng.normal(0, 1, (1, t, n)).astype(np.float32)).to(dev)
+             for n in (mc.vis_dim, mc.aud_dim, mc.text_dim)]
+    mask = torch.ones(1, t, dtype=torch.bool, device=dev)
+    with torch.no_grad():
+        out = build_model(mc, dev, seed=0)(*feats, mask)
+    if not all(bool(torch.isfinite(x).all()) for x in out):
+        raise RuntimeError("non-finite outputs")
+    return f"out={[tuple(x.shape) for x in out]}"
+
+
+def check_measured_memory(dev) -> str:
+    from repurpose_tpu_torch.config import TrainConfig
+    from repurpose_tpu_torch.utils.capacity import estimate_train_bytes, measured_memory
+
+    mc, tc = _production_model(), TrainConfig(batch_size=6, pack_sequences=True)
+    mem = measured_memory(mc, tc, 2048, dev)
+    est = estimate_train_bytes(mc, 6, 2048)["total_bytes"]
+    if est < mem["peak_bytes"]:
+        raise RuntimeError(f"estimate {est / 1e9:.2f} GB below the measured peak "
+                           f"{mem['peak_bytes'] / 1e9:.2f} GB")
+    return (f"measured peak {mem['peak_bytes'] / 1e9:.2f} GB, estimate {est / 1e9:.2f} GB "
+            f"(ratio {est / mem['peak_bytes']:.2f})")
+
+
+CHECKS = [("devices", check_devices), ("kernel build", check_build),
+          ("collective self-check", check_collectives),
+          ("reduced model + train step", check_train_step),
+          ("device memory capacity model", check_capacity)]
+FULL_CHECKS = [("flagship forward (bucket 2048)", check_flagship_forward),
+               ("flagship measured memory (packed [6, 2048])", check_measured_memory)]
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(description="Pre-flight checks before training.")
+    p.add_argument("--full", action="store_true",
+                   help="also run the flagship forward and measure the step's memory")
+    p.add_argument("--output-json", default=None, help="also write the results as JSON")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = p.parse_args(argv)
+
+    from repurpose_tpu_torch import resolve_device
+
+    dev = resolve_device(args.device)
+    results: list[tuple[str, bool, str]] = []
+    for name, fn in CHECKS + (FULL_CHECKS if args.full else []):
+        t0 = time.time()
+        try:
+            detail = fn(dev) or ""
+            results.append((name, True, f"{detail} ({time.time() - t0:.1f}s)"))
+        except Exception as e:  # a failed check is reported, and fails the run
+            results.append((name, False, f"{type(e).__name__}: {e}"))
+
+    print("\n=== preflight summary ===")
+    ok = True
+    for name, passed, detail in results:
+        print(f"  [{'PASS' if passed else 'FAIL'}] {name}: {detail}")
+        ok &= passed
+    if args.output_json:
+        with open(args.output_json, "w") as f:
+            json.dump([{"check": n, "passed": p, "detail": d} for n, p, d in results], f,
+                      indent=2)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

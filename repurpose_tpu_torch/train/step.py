@@ -24,6 +24,7 @@ import torch
 
 from repurpose_tpu_torch.config import ModelConfig, TrainConfig
 from repurpose_tpu_torch.data.batching import Batch
+from repurpose_tpu_torch.models import require_unpacked
 from repurpose_tpu_torch.ops.losses import masked_cls_loss, masked_reg_loss
 from repurpose_tpu_torch.train.state import TrainState
 
@@ -61,10 +62,10 @@ def loss_denominator(train_cfg: TrainConfig, batch: Batch):
 def loss_fn(model, train_cfg: TrainConfig, batch: Batch, norm_override=None):
     """(total loss, aux metrics) of one forward; the model's mode (train or
     eval) decides whether dropout is on."""
-    packed_kw = (
-        {"seg_ids": batch.seg_ids, "positions": batch.positions}
-        if batch.seg_ids is not None else {}
-    )
+    packed_kw = {}
+    if batch.seg_ids is not None:
+        require_unpacked(model)
+        packed_kw = {"seg_ids": batch.seg_ids, "positions": batch.positions}
     out = model(batch.visual, batch.audio, batch.text, batch.mask, **packed_kw)
     cls_loss = masked_cls_loss(out.cls_logits, batch.labels, batch.mask)
     n_real, norm = loss_denominator(train_cfg, batch)

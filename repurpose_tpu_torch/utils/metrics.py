@@ -1,6 +1,8 @@
 """Precision@tIoU, the metric that picks the best checkpoint
 (``calculate_tiou`` of ``repurpose_tpu/utils/metrics.py``; host-side numpy
-on the short per-video lists after decode and Soft-NMS)."""
+on the short per-video lists after decode and Soft-NMS), and the
+reference's per-second AP and recall (``calculate_ap``,
+``calculate_recall``: BASELINE.md's secondary metrics)."""
 
 from __future__ import annotations
 
@@ -46,3 +48,42 @@ def calculate_tiou(
         else np.zeros(n_pred)
     )
     return {t: float(np.mean(max_iou >= t)) for t in tiou_thresholds}
+
+
+def _mark_seconds(segments: Sequence[Segment], n: int) -> np.ndarray:
+    """Per-second 0/1 coverage of predicted segments over an n-second timeline,
+    with the reference's inclusive end and boundary clamping."""
+    marked = np.zeros(n, dtype=np.int64)
+    for seg in segments:
+        start = int(seg[0]) if int(seg[0]) >= 0 else 0
+        end = int(seg[1]) if int(seg[1]) < n else n - 1
+        if end >= start:
+            marked[start : end + 1] = 1
+    return marked
+
+
+def calculate_ap(segments: Sequence[Segment], labels: Sequence[int]) -> float:
+    """Per-second interpolated average precision of the predicted coverage
+    against per-second 0/1 labels (0 when no second is positive)."""
+    labels_arr = np.asarray(labels, dtype=np.int64)
+    n = labels_arr.shape[0]
+    n_pos = int(labels_arr.sum())
+    if n_pos == 0:
+        return 0.0
+    preds = _mark_seconds(segments, n)
+    tp = (preds == 1) & (labels_arr == 1)
+    cum_pos = np.cumsum(tp)
+    precision_at_hits = cum_pos[tp] / (np.nonzero(tp)[0] + 1)
+    return float(precision_at_hits.sum() / n_pos)
+
+
+def calculate_recall(segments: Sequence[Segment], labels: Sequence[int]) -> float:
+    """Per-second recall of the predicted coverage (0 when no second is
+    positive)."""
+    labels_arr = np.asarray(labels, dtype=np.int64)
+    n_pos = int(labels_arr.sum())
+    if n_pos == 0:
+        return 0.0
+    preds = _mark_seconds(segments, labels_arr.shape[0])
+    tp = int(((preds == 1) & (labels_arr == 1)).sum())
+    return tp / n_pos

@@ -1,7 +1,9 @@
 """Head widths without a kernel instance run zero-padded on the card:
 ``FlashAttention`` pads a head of Dh not in ``HEAD_DIMS`` to the narrowest
 instance that holds it (``kernel_head_dim``: 8 -> 16, 48 -> 64, 192 -> 256;
-past 256, the widest instance, it raises) and hands
+past 256, the widest fixed-width instance, to the next multiple of
+``CHUNK`` = 64, which the head-chunked kernels of csrc/flash_chunked.cu run:
+257 -> 320, 1000 -> 1024) and hands
 every wrapper the head's own scale 1/sqrt(Dh); the zero columns add nothing
 to q_s k^T, p v or rowsum(g o), and out and the gradients are cut back to
 Dh. The kernel wrappers stay strict and raise for such widths
@@ -10,7 +12,8 @@ Dh. The kernel wrappers stay strict and raise for such widths
 On the CPU the rule is checked, the padded route (forced onto CPU tensors,
 where the wrappers run their plain versions) is held against ``jax.grad``
 through the JAX package's ``mha_xla`` at Dh 8, 48 and 192, and the plain
-versions at Dh 256 (the widest instance) against ``mha_pallas`` in interpret
+versions at Dh 256 (the widest fixed-width instance) and at Dh 320 and 512
+(the head-chunked kernels' widths) against ``mha_pallas`` in interpret
 mode and ``jax.grad`` through it. The tests
 marked ``gpu`` skip (in their fixture) where no card is visible; on a
 machine with an H100:
@@ -43,17 +46,12 @@ def _assert_rel(got, want, rel, what):
 
 @pytest.mark.parametrize("dh,width", [(8, 16), (24, 32), (48, 64), (100, 128), (16, 16),
                                       (32, 32), (64, 64), (128, 128), (129, 256),
-                                      (192, 256), (256, 256)])
+                                      (192, 256), (256, 256), (257, 320), (320, 320),
+                                      (512, 512), (1000, 1024)])
 def test_cuda_heads_run_at_the_narrowest_kernel_width(dh, width):
     assert fa.kernel_head_dim("cuda", dh) == width
     assert fa.kernel_head_dim(torch.device("cuda", 0), dh) == width
     assert fa.kernel_head_dim("cpu", dh) == dh  # the plain versions take every width
-
-
-def test_heads_wider_than_every_kernel_raise_on_cuda():
-    with pytest.raises(ValueError, match="wider than every kernel instance.*the widest is 256"):
-        fa.kernel_head_dim("cuda", 257)
-    assert fa.kernel_head_dim("cpu", 257) == 257
 
 
 @pytest.mark.parametrize("dh", [8, 48, 192])
@@ -123,13 +121,29 @@ def test_widest_instance_plain_versions_match_mha_pallas(packed):
     sum(out * w) through the port's Function, against the JAX ``mha_pallas``
     run in interpret mode (its Pallas forward and backward kernels) and
     ``jax.grad`` through it; float32, 1e-5 x max |value|."""
+    _plain_versions_match_mha_pallas(256, packed, seed=3 + packed)
+
+
+@pytest.mark.parametrize("dh", [320, 512])
+@pytest.mark.parametrize("packed", [False, True])
+def test_chunked_widths_plain_versions_match_mha_pallas(dh, packed):
+    """The head-chunked kernels' widths (Dh 320 and 512, multiples of
+    ``CHUNK``: no padding) at T = 128: the plain versions, which the chunked
+    kernels are held to on the card, against ``mha_pallas`` in interpret
+    mode and ``jax.grad`` through it, as at Dh 256; float32, 1e-5 x max
+    |value|."""
+    assert fa.kernel_head_dim("cuda", dh) == dh
+    _plain_versions_match_mha_pallas(dh, packed, seed=dh + packed)
+
+
+def _plain_versions_match_mha_pallas(dh: int, packed: bool, seed: int) -> None:
     import jax
     import jax.numpy as jnp
 
     from repurpose_tpu.ops.flash_attention import mha_pallas
 
-    t, dh = 128, 256
-    rng = np.random.default_rng(3 + packed)
+    t = 128
+    rng = np.random.default_rng(seed)
     q, k, v, w = (rng.normal(0, 1, (2, t, 2, dh)).astype(np.float32) for _ in range(4))
     valid = np.zeros((2, t), bool)
     seg = None
@@ -179,13 +193,14 @@ def _close(got, want, rel, what):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [8, 48, 192])
+@pytest.mark.parametrize("dh", [8, 48, 192, 320, 512])
 @pytest.mark.parametrize("t,dtype", [(300, torch.float32), (2200, torch.float32),
                                      (2200, torch.bfloat16)])
 def test_padded_heads_on_the_card_match_the_plain_attention(cuda, dh, t, dtype):
-    """flash_attention at Dh 8 / 48 on CUDA (dense and streaming kernels;
-    bf16 at 48 -> 64 takes the tensor-core stream kernels) against the same
-    call on CPU tensors, out and gradients; kernels launched."""
+    """flash_attention at Dh 8 / 48 / 192 on CUDA (dense and streaming
+    kernels; bf16 at 48 -> 64 takes the tensor-core stream kernels) and at
+    Dh 320 / 512 (the head-chunked kernels) against the same call on CPU
+    tensors, out and gradients; kernels launched."""
     rng = np.random.default_rng(dh + t)
     q, k, v, w = (torch.from_numpy(rng.normal(0, 1, (2, t, 2, dh)).astype(np.float32)).to(dtype)
                   for _ in range(4))
@@ -197,12 +212,21 @@ def test_padded_heads_on_the_card_match_the_plain_attention(cuda, dh, t, dtype):
     runs = []
     for device in (cuda, torch.device("cpu")):
         before = sum(f.launches for f in counters)
+        chunked_before = sum(f.launches for f in (
+            fa.flash_fwd_chunked, fa.flash_fwd_stream_chunked, fa.flash_bwd_dq_chunked,
+            fa.flash_bwd_dkv_chunked, fa.flash_bwd_dq_stream_chunked,
+            fa.flash_bwd_dkv_stream_chunked))
         leaves = [x.to(device).requires_grad_() for x in (q, k, v)]
         out = fa.flash_attention(*leaves, valid.to(device), None, "float32")
         (out.float() * w.to(device).float()).sum().backward()
         runs.append((out, *(x.grad for x in leaves)))
         launched = sum(f.launches for f in counters) - before
         assert (launched > 0) == (device.type == "cuda")
+        if device.type == "cuda" and dh > fa.HEAD_DIMS[-1]:
+            chunked = (fa.flash_fwd_chunked, fa.flash_fwd_stream_chunked,
+                       fa.flash_bwd_dq_chunked, fa.flash_bwd_dkv_chunked,
+                       fa.flash_bwd_dq_stream_chunked, fa.flash_bwd_dkv_stream_chunked)
+            assert sum(f.launches for f in chunked) - chunked_before == launched
     rel = 1e-4 if dtype == torch.float32 else 1e-2
     live = (torch.arange(t)[None] < fa._kv_len(valid)).to(cuda)
     for name, got, want in zip(("out", "dq", "dk", "dv"), *runs):
@@ -211,9 +235,10 @@ def test_padded_heads_on_the_card_match_the_plain_attention(cuda, dh, t, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [8, 48])
+@pytest.mark.parametrize("dh", [8, 48, 320, 512])
 def test_models_of_head_widths_without_a_kernel_train_on_the_card(cuda, dh):
-    """A two-head model of Dh 8 / 48 (d_model 16 / 96), forward and
+    """A two-head model of Dh 8 / 48 / 320 / 512 (d_model 16 / 96 / 640 /
+    1024; the last two on the head-chunked kernels), forward and
     backward on CUDA with attention "auto": the kernels launch, and the
     logits and every gradient match the same model on the CPU."""
     cfg = ModelConfig(vis_dim=8, aud_dim=12, text_dim=4, d_model=2 * dh, self_num_layers=2,

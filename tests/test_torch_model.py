@@ -162,5 +162,21 @@ def test_init_weights_follow_the_jax_init():
 
 @pytest.mark.parametrize("fusion", ["cross", "bottleneck"])
 def test_other_fusions_are_not_ported(fusion):
-    with pytest.raises(NotImplementedError):
-        build_model(dataclasses.replace(ModelConfig(**TINY), fusion=fusion), "cpu")
+    """The other fusions were not ported and raised NotImplementedError; they
+    are now (the name stays): ``build_model`` builds the variant, not the
+    concat MMCT, with the JAX variant's parameter tree and no packed
+    forward (tests/test_torch_fusion.py holds them to the JAX modules)."""
+    from repurpose_tpu.models import build_model as jax_build_model
+
+    cfg = dataclasses.replace(ModelConfig(**TINY), fusion=fusion)
+    model = build_model(cfg, "cpu")
+    assert type(model).__name__ == {"cross": "MMCTCross", "bottleneck": "MMCTBottleneck"}[fusion]
+    jmodel = jax_build_model(JaxModelConfig(**{**TINY, "fusion": fusion}))
+    x = lambda d: jnp.zeros((1, 16, d), jnp.float32)  # noqa: E731
+    shapes = jax.eval_shape(lambda r: jmodel.init(r, x(32), x(64), x(16),
+                                                  jnp.ones((1, 16), bool), True)["params"],
+                            jax.random.key(0))
+    want = state_dict_from_jax_params(jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes))
+    got = model.state_dict()
+    assert got.keys() == want.keys()
+    assert all(got[k].shape == want[k].shape for k in want)

@@ -17,7 +17,8 @@ from repurpose_tpu_torch.config import ModelConfig, TestConfig, load_config
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "repurpose_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 NEVER = {"jax", "flax", "optax", "repurpose_tpu"}
-NOT_AT_TOP = {"yaml"}
+# not on the card's machine: imported only inside the function that needs them
+NOT_AT_TOP = {"yaml", "sklearn", "matplotlib"}
 
 
 def _imports(node):
