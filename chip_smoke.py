@@ -137,8 +137,23 @@ verdict line):
    --full`` (exit 0), the capacity model's estimate against the measured
    peak at the packed [6, 2048] step and the [1, 32768] remat step, and
    ``python -m repurpose_tpu_torch.analyze --synthetic 4``;
-16. a JSON line listing every ported kernel, then the verdict line
+16. data and tensor parallelism, two ranks sharing the card over gloo
+   (torchrun, ``--share_card``), at the production width with random weights
+   and dropout 0: the same two processes re-grouped into (a) data=2 (each
+   rank [3, 2048] of the packed global [6, 2048] batch), (b) model=2 (the
+   tensor-parallel layers, the attention kernels launched at 4 of the 8
+   heads), (c) data=2 with ZeRO-1 and (b32) model=2 in float32, each
+   against one-process steps on the global batch (loss, grad norm, the
+   update, within ``PARALLEL_RUNS``' bounds; (c) equal to (a) bit for bit
+   with half its optimizer state per rank); (d) the
+   multi-process ``evaluate`` (data=2, model=2) against the one-process one;
+   (e) the train CLI and ``preflight`` under torchrun; each rank's step time
+   and its time in collectives, labelled as shared-card times;
+17. a JSON line listing every ported kernel, then the verdict line
    ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --parallel-worker DIR`` is phase 16's rank, started
+by torchrun; run the script with no arguments.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -3253,6 +3268,489 @@ def phase_bench_tools(card: str) -> dict:
     return launches
 
 
+# -- phase 16 -----------------------------------------------------------------
+
+PARALLEL_STEPS = 3
+PARALLEL_VIDEOS = 16  # synthetic videos: the first packed batch is the global [6, 2048]
+PARALLEL_EVAL_VIDEOS = (300, 700, 1100, 1500, 1900, 450, 900, 1300)  # seconds
+PARALLEL_TC = ("flash_fwd_tc", "flash_bwd_stream_prep", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")
+PARALLEL_FIRST = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")  # all launches, both designs
+# A mesh run against the one-process steps on the global [6, 2048] batch,
+# same weights, dropout 0; per run (loss, grad norm) relative bounds for
+# step 1 and for the later steps, and the bound on the update's relative L2
+# (the parameters after the steps minus before, over the whole model; Adam's
+# update ignores a uniform gradient scale, which the norm bound catches):
+# - bf16 data parallelism, (a) and (c) (set before the first run): every
+#   row's forward and backward is the one-process one but for cuBLAS's
+#   choice of kernel for 3 x 2048 rows instead of 6 x 2048 (bf16 outputs an
+#   ulp apart on single elements); the weight gradients are bf16 products
+#   rounded on each rank before the float32 sum (2**-8 relative an
+#   element). Loss 5e-3, norm 2e-2 at every step; update 0.05 (elements
+#   whose gradient is rounding noise, as the key bias's, which softmax
+#   cancels, move by +-lr either way; they are few).
+# - bf16 tensor parallelism, (b): its partial products are rounded to bf16
+#   before the float32 sum, so every activation of the residual stream is
+#   rounded otherwise than in one process. Step 1 holds 5e-3 / 2e-2 (the
+#   forward and the norm differ by that rounding only). Its gradients then
+#   differ as two bf16 roundings' do, up to GRAD_REL_BOUND["bfloat16"] = 0.25
+#   a parameter on the input side, where they sum random-sign terms over
+#   every position, and with some of their signs flipped; Adam turns each
+#   flipped sign into a 2 lr difference, and one step at PARALLEL_LR moves
+#   this random-weight loss by a sixth: later steps 5e-2 / 0.15, update 0.5.
+# - float32 tensor parallelism, (b32): the same sums in float32; it holds
+#   the shards' arithmetic where rounding cannot hide a fault: loss 1e-4,
+#   norm 1e-3 at every step, update 0.02 (noise gradients as above).
+BF16_DP_TOL = dict(loss=(5e-3, 5e-3), norm=(2e-2, 2e-2), update=0.05)
+PARALLEL_RUNS = {
+    "a_data2": dict(axes=dict(data=2), rows=3, dtype="bfloat16", tol=BF16_DP_TOL,
+                    hold_kernels=True),
+    "b_model2": dict(axes=dict(data=1, model=2), rows=6, dtype="bfloat16",
+                     tol=dict(loss=(5e-3, 5e-2), norm=(2e-2, 0.15), update=0.5),
+                     hold_kernels=True),
+    "c_data2_zero1": dict(axes=dict(data=2), rows=3, dtype="bfloat16", zero1=True,
+                          tol=BF16_DP_TOL),
+    "b32_model2_float32": dict(axes=dict(data=1, model=2), rows=6, dtype="float32", steps=2,
+                               tol=dict(loss=(1e-4, 1e-4), norm=(1e-3, 1e-3), update=0.02)),
+}
+
+
+def _run_model(cfg, dtype: str):
+    """``cfg.model`` with ``dtype`` activations and softmax interior."""
+    return dataclasses.replace(cfg.model, compute_dtype=dtype, attn_softmax_dtype=dtype)
+
+
+# (d): the multi-process evaluate scores the same videos with the same
+# weights, and the tIoU sums are float64: one process and data=2 / model=2
+# differ by the order of 8 float64 additions (~1e-17, measured). A bf16
+# rounding that moved one clip boundary by one offset step (1/16 s at
+# 15 s) would move a threshold's mean by ~1e-4; a dropped rank or a video
+# scored twice by more. Measured equal to ~1e-17 on an H100 (PERF.md §6),
+# so anything past 1e-6 is a fault to look at.
+PARALLEL_EVAL_ATOL = 1e-6
+PARALLEL_LR = 1e-5
+# (d)'s decode: random weights score no clip past the production thresholds
+PARALLEL_EVAL_TEST = dict(pre_nms_thresh=0.0, duration_thresh=0.001, max_seg_per_min=3.0,
+                          min_score=0.0)
+
+
+def _parallel_config():
+    """The production config at dropout 0 and learning rate ``PARALLEL_LR``:
+    at the production 1e-3 random weights diverge (the packed [6, 2048]
+    loss went 147 -> 949 in one step on an H100 at 700 W), and the later
+    steps then measure how that divergence amplifies bf16 rounding, not the
+    parallel path; at 1e-5 the steps stay where rounding is all that
+    differs. Its test config lets random weights' clips through the
+    decode (``PARALLEL_EVAL_TEST``)."""
+    cfg = production_config()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dropout=0.0),
+        train=dataclasses.replace(cfg.train, lr=PARALLEL_LR),
+        test_cfg=dataclasses.replace(cfg.test_cfg, **PARALLEL_EVAL_TEST))
+
+
+def _run_group(cmd: list[str], timeout: float) -> tuple[int, str]:
+    """Runs ``cmd`` (a launcher and the processes it starts) in a session of
+    its own; on a time-out kills the whole group. (exit code, output)."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(timeout=30)
+    return proc.returncode, out
+
+
+def _torchrun(*args: str) -> list[str]:
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "2", *args]
+
+
+def _hold_attention_at(label: str, q, k, v, kv, seg, sm: str, scale, gen) -> dict:
+    """The tensor-core forward, prep and dq / dk-dv pair against their plain
+    versions on a rank's own attention inputs (the first layer's q/k/v of
+    its run, column views of the fused projection as the model gives them,
+    and its batch's mask and segments), under phases 2 and 3's tolerances
+    (``TOL``, ``BWD_REL_BF16``, ``_hold_prep``); the upstream gradient is
+    random before kvl and 0 past it, as in phase 3. Each kernel must have
+    launched. Returns the shape and the max errors."""
+    import torch
+
+    from repurpose_tpu_torch.ops import flash_attention as fa
+
+    counters = (fa.flash_fwd_tc, fa.flash_bwd_dq_tc, fa.flash_bwd_dkv_tc)
+    before = [c.launches for c in counters]
+    o, lse = fa.flash_forward(q, k, v, kv, seg_ids=seg, softmax_dtype=sm, scale=scale)
+    ref_o, ref_lse = fa.flash_forward_reference(q, k, v, kv, seg, sm, scale=scale)
+    err, lse_err, _, live = _hold_forward(f"{label} forward", o, lse, ref_o, ref_lse, kv, seg,
+                                          "bfloat16")
+    out_max = float(ref_o[live].float().abs().max())
+    del ref_o, ref_lse
+    past = torch.arange(q.shape[1], device=q.device)[None, :] >= fa._kv_len(kv)
+    g = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    g = g.masked_fill(past[:, :, None, None], 0.0)
+    args = (q, k, v, kv, o, lse, g, seg, sm)
+    prep = fa.flash_bwd_stream_prep(*args[:-1], scale=scale, dense=True)
+    delta_err = _hold_prep(f"{label} prep", prep, fa.flash_bwd_stream_prep_reference(
+        *args[:-1], scale=scale, dense=True))
+    got = dict(dq=fa.flash_bwd_dq(*args, prep, scale=scale))
+    got["dk"], got["dv"] = fa.flash_bwd_dkv(*args, prep, scale=scale)
+    want = dict(dq=fa.flash_bwd_dq_reference(*args, scale=scale))
+    want["dk"], want["dv"] = fa.flash_bwd_dkv_reference(*args, scale=scale)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    check(launched == [1, 1, 1], f"{label}: flash_fwd_tc / flash_bwd_dq_tc / flash_bwd_dkv_tc "
+                                 f"launched {launched} times, want once each")
+    errs = _hold_backward(f"{label} backward", got, want, BWD_REL_BF16, past)
+    return dict(shape=list(q.shape), packed=seg is not None, out_max_abs_err=err,
+                out_max_abs_plain=out_max, lse_max_abs_err=lse_err,
+                prep_delta_max_abs_err=delta_err, grad_max_abs_err=errs,
+                grad_max_abs_plain={n: float(w.float().abs().max()) for n, w in want.items()},
+                grad_tolerance=f"{BWD_REL_BF16} x max |plain|")
+
+
+def parallel_worker(workdir: str) -> int:
+    """One of phase 16's two ranks (started by torchrun; both share the card
+    over gloo): runs (a)-(c) and (d) on the inputs the parent wrote to
+    ``workdir`` and writes each rank's results there."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from repurpose_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+    maybe_initialize_distributed("gloo", "cuda", share_card=True)  # before any CUDA work
+    from repurpose_tpu_torch.config import MeshConfig
+    from repurpose_tpu_torch.data.batching import Batch
+    from repurpose_tpu_torch.data.synthetic import SyntheticDataset
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.ops import flash_attention as fa
+    from repurpose_tpu_torch.parallel.mesh import create_mesh, mesh_self_check
+    from repurpose_tpu_torch.parallel.sharding import local_rows, shard_state_dict
+    from repurpose_tpu_torch.train.loop import Trainer
+    from repurpose_tpu_torch.train.state import TrainState, make_optimizer, optimizer_state_bytes
+    from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
+
+    rank = dist.get_rank()
+    cfg = _parallel_config()
+    mc = cfg.model
+    sd = torch.load(os.path.join(workdir, "init.pt"), weights_only=True)
+    z = np.load(os.path.join(workdir, "batch.npz"))
+    global_batch = Batch(*[z[f] if f in z.files else None for f in Batch._fields])
+
+    # observers only (the wrappers count the launches): the time in the
+    # collectives, and the heads of each tensor-core attention launch
+    spent = {"s": 0.0, "calls": 0}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spent["s"] += time.perf_counter() - t0
+                spent["calls"] += 1
+        return call
+
+    dist.all_reduce, dist.broadcast = timed(dist.all_reduce), timed(dist.broadcast)
+    heads: dict[str, set] = {}
+    fwd_launch, bwd_launch = fa._fwd_tc_launch, fa._tc_launch
+
+    first_fwd: list = []  # the run's first tensor-core forward inputs, q to scale
+
+    def fwd_seen(q, *args, **kwargs):
+        heads.setdefault("flash_fwd_tc", set()).add(q.shape[2])
+        if not first_fwd:
+            first_fwd.append((q, *args))
+        return fwd_launch(q, *args, **kwargs)
+
+    def bwd_seen(name, q, *args, **kwargs):
+        heads.setdefault(name, set()).add(q.shape[2])
+        return bwd_launch(name, q, *args, **kwargs)
+
+    fa._fwd_tc_launch, fa._tc_launch = fwd_seen, bwd_seen
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16 + rank)
+    out: dict = {"rank": rank}
+    for name, run in PARALLEL_RUNS.items():
+        mesh = create_mesh(MeshConfig(**run["axes"]), "gloo", "cuda", share_card=True)
+        check(mesh_self_check(mesh) == 2, "mesh self-check")
+        tc = dataclasses.replace(cfg.train, batch_size=run["rows"],
+                                 shard_opt_state=run.get("zero1", False))
+        mc = _run_model(cfg, run["dtype"])
+        model = build_model(mc, mesh.device, seed=SEED, mesh=mesh)
+        model.load_state_dict(shard_state_dict(sd, mesh), strict=True)
+        opt, schedule = make_optimizer(model, tc, 1, mesh)
+        state = TrainState(model, opt, mesh=mesh)
+        step = make_train_step(mc, tc, schedule, mesh)
+        batch = batch_to_device(local_rows(global_batch, mesh), mesh.device)
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launches()
+        heads.clear()
+        first_fwd.clear()
+        hist, step_ms, coll_ms = [], [], []
+        for _ in range(run.get("steps", PARALLEL_STEPS)):
+            torch.cuda.synchronize()
+            c0, t0 = spent["s"], time.perf_counter()
+            m = step(state, batch)
+            hist.append([float(m["loss"]), float(m["grad_norm"])])  # reads: synchronises
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            coll_ms.append((spent["s"] - c0) * 1e3)
+        launches = read_launches(*PARALLEL_TC, *PARALLEL_FIRST)
+        kernel_vs_plain = None
+        if run.get("hold_kernels"):
+            q, k, v, kv, seg, _, _, _, sm, scale = first_fwd[0]
+            kernel_vs_plain = _hold_attention_at(f"{name} rank {rank}", q, k, v, kv, seg, sm,
+                                                 scale, gen)
+        first_fwd.clear()
+        params, _ = state.gathered()
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in params.items()},
+                       os.path.join(workdir, f"params_{name}.pt"))
+        out[name] = dict(hist=hist, step_ms=step_ms, coll_ms=coll_ms, launches=launches,
+                         heads={k: sorted(v) for k, v in heads.items()},
+                         local_rows=int(batch.visual.shape[0]),
+                         kernel_vs_plain=kernel_vs_plain,
+                         opt_bytes=optimizer_state_bytes(opt), mesh=mesh.sizes)
+        del model, opt, state, params
+        torch.cuda.empty_cache()
+
+    # (d) multi-process evaluate, each data rank its slice of the videos
+    eval_sd = torch.load(os.path.join(workdir, "eval_init.pt"), weights_only=True)
+    test_ds = SyntheticDataset(list(PARALLEL_EVAL_VIDEOS), mc, seed=7)
+    for axes in (dict(data=2), dict(data=1, model=2)):
+        trainer = Trainer(dataclasses.replace(cfg, mesh=MeshConfig(**axes)),
+                          os.path.join(workdir, "eval"), test_ds, test_ds=test_ds,
+                          init_params=eval_sd, device="cuda", dist_backend="gloo",
+                          share_card=True)
+        reset_launches()
+        heads.clear()
+        res = trainer.evaluate()
+        out["d_eval_" + "_".join(f"{k}{v}" for k, v in axes.items())] = dict(
+            tiou=res, launches=read_launches("flash_fwd_tc"),
+            heads={k: sorted(v) for k, v in heads.items()})
+        trainer.close()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _update_rel(got: dict, want: dict, init: dict) -> float:
+    """Relative L2 of (got - init) against (want - init) over every parameter."""
+    num = den = 0.0
+    for k, w in want.items():
+        u_want = w.double() - init[k].double()
+        num += float(((got[k].double() - init[k].double()) - u_want).pow(2).sum())
+        den += float(u_want.pow(2).sum())
+    return (num / den) ** 0.5
+
+
+def phase_parallel(card: str, workdir: str) -> dict:
+    """Item 9, parts 1-3, at the production width: two ranks sharing the card
+    over gloo (torchrun), re-grouped into (a) data=2 (each rank [3, 2048] of
+    the packed global [6, 2048] batch), (b) model=2 (tensor parallel: the
+    attention kernels at 4 of the 8 heads), (c) data=2 with ZeRO-1 and (b32)
+    model=2 in float32, each held to one-process steps on the global batch
+    with the same weights (``PARALLEL_RUNS``' bounds), (a) and (b) also
+    holding the tensor-core forward, prep and dq / dk-dv pair against their
+    plain versions on each rank's first-layer q/k/v ([3, 2048, 8, 64] and
+    [6, 2048, 4, 64], packed; ``_hold_attention_at``), (c) to (a) bit for
+    bit with about half its optimizer state; (d) the multi-process ``evaluate`` (data=2 and
+    model=2) against the one-process one; (e) ``python -m
+    repurpose_tpu_torch.train`` and ``preflight`` under torchrun with
+    ``--dist_backend gloo --share_card``. Times are of two ranks sharing one
+    card: not data-parallel throughput."""
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch.data.loader import BatchLoader
+    from repurpose_tpu_torch.data.synthetic import SyntheticDataset
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.train import __main__ as cli
+    from repurpose_tpu_torch.train.loop import Trainer
+    from repurpose_tpu_torch.train.state import TrainState, make_optimizer, optimizer_state_bytes
+    from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
+
+    t_phase = time.perf_counter()
+    cfg = _parallel_config()
+    mc = cfg.model
+    init = {k: v.detach().cpu() for k, v in build_model(mc, "cpu", seed=SEED).state_dict().items()}
+    torch.save(init, os.path.join(workdir, "init.pt"))
+    eval_sd = dict(init)
+    # random weights give zero-length clips; offsets of ~15 s give clips tIoU can score
+    eval_sd["reg_head.7.bias"] = torch.full_like(init["reg_head.7.bias"], 15.0)
+    torch.save(eval_sd, os.path.join(workdir, "eval_init.pt"))
+    train_ds, _, _ = cli.build_datasets(cfg, PARALLEL_VIDEOS)
+    batch = next(iter(BatchLoader(train_ds, 6, cfg.train.buckets, seed=cfg.train.seed,
+                                  pack=True).epoch(0)))
+    check(batch.visual.shape[:2] == (6, 2048) and (batch.seg_ids.max(axis=1) >= 0).all(),
+          f"the global batch is not 6 full packed rows: {batch.visual.shape}")
+    np.savez(os.path.join(workdir, "batch.npz"),
+             **{f: x for f, x in zip(batch._fields, batch) if x is not None})
+
+    # the one-process references on the global batch, one per dtype
+    tc = dataclasses.replace(cfg.train, batch_size=6)
+    dev_batch = batch_to_device(batch, "cuda")
+    refs = {}
+    for dtype, steps in (("bfloat16", PARALLEL_STEPS), ("float32", 2)):
+        rmc = _run_model(cfg, dtype)
+        model = build_model(rmc, "cuda", seed=SEED)
+        opt, schedule = make_optimizer(model, tc, 1)
+        state = TrainState(model, opt)
+        step = make_train_step(rmc, tc, schedule)
+        hist, ms = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, dev_batch)
+            hist.append([float(m["loss"]), float(m["grad_norm"])])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        refs[dtype] = dict(hist=hist, step_ms=ms, opt_bytes=optimizer_state_bytes(opt),
+                           params={k: v.detach().cpu() for k, v in model.state_dict().items()})
+        print(f"[parallel] {card}: one process, {dtype}, packed [6, 2048], {steps} steps: "
+              f"loss/grad norm {json.dumps(hist)}, step ms "
+              f"{json.dumps([round(x, 2) for x in ms])}, Adam state "
+              f"{refs[dtype]['opt_bytes'] / 1e6:.1f} MB")
+        del model, opt, state
+    one = Trainer(cfg, os.path.join(workdir, "eval_one"),
+                  SyntheticDataset(list(PARALLEL_EVAL_VIDEOS), mc, seed=7),
+                  test_ds=SyntheticDataset(list(PARALLEL_EVAL_VIDEOS), mc, seed=7),
+                  init_params=eval_sd, device="cuda")
+    ref_eval = one.evaluate()
+    one.close()
+    del one
+    torch.cuda.empty_cache()
+    print(f"[parallel] {card}: one process, evaluate {json.dumps(ref_eval)}")
+
+    # (a)-(d): one torchrun launch of two ranks
+    t0 = time.perf_counter()
+    rc, log = _run_group(_torchrun(os.path.join(ROOT, "chip_smoke.py"), "--parallel-worker",
+                                   workdir), timeout=420)
+    launch_s = time.perf_counter() - t0
+    check(rc == 0, f"phase 16 ranks exited {rc}:\n{log[-6000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    results: dict = {}
+    for name, run in PARALLEL_RUNS.items():
+        got = [x[name] for x in ranks]
+        params = torch.load(os.path.join(workdir, f"params_{name}.pt"), weights_only=True)
+        ref = refs[run["dtype"]]
+        tol = run["tol"]
+        tc_kernels = run["dtype"] == "bfloat16"
+        want_heads = mc.num_heads // run["axes"].get("model", 1)
+        steps = run.get("steps", PARALLEL_STEPS)
+        for r, g in enumerate(got):
+            check(g["local_rows"] == run["rows"], f"{name} rank {r}: {g['local_rows']} rows")
+            for i, ((loss, norm), (rl, rn)) in enumerate(zip(g["hist"], ref["hist"])):
+                j = min(i, 1)
+                check(abs(loss - rl) <= tol["loss"][j] * abs(rl)
+                      and abs(norm - rn) <= tol["norm"][j] * abs(rn),
+                      f"{name} rank {r} step {i + 1}: loss/norm {g['hist']} against "
+                      f"{ref['hist']} (bounds {tol})")
+            check(g["hist"] == got[0]["hist"], f"{name}: the ranks logged {got[0]['hist']} "
+                                               f"and {g['hist']}")
+            layers = mc.self_num_layers * steps
+            want = {k: layers if tc_kernels else 0 for k in PARALLEL_TC}
+            want.update({k: layers for k in PARALLEL_FIRST})
+            check(g["launches"] == want, f"{name} rank {r}: launches {g['launches']}, "
+                                         f"want {want}")
+            if tc_kernels:
+                check(all(g["heads"].get(k) == [want_heads]
+                          for k in ("flash_fwd_tc", "flash_bwd_dq_tc", "flash_bwd_dkv_tc")),
+                      f"{name} rank {r}: heads {g['heads']}, want {want_heads}")
+            if run.get("hold_kernels"):
+                held = g["kernel_vs_plain"]
+                want_shape = [run["rows"], 2048, want_heads, mc.d_model // mc.num_heads]
+                check(held is not None and held["shape"] == want_shape and held["packed"],
+                      f"{name} rank {r}: kernels held at {held}, want packed {want_shape}")
+                print(f"[parallel] {card}: ({name.split('_')[0]}) rank {r}: the tensor-core "
+                      f"forward, prep and dq / dk-dv pair against their plain versions on "
+                      f"this rank's first-layer q/k/v: {json.dumps(held)}")
+        rel = _update_rel(params, ref["params"], init)
+        check(rel <= tol["update"], f"{name}: update relative L2 {rel:.4g} > {tol['update']}")
+        results[name] = dict(ranks=got, update_rel=rel, params=params)
+        print(f"[parallel] {card}: ({name.split('_')[0]}) {run['dtype']}, mesh {got[0]['mesh']}, "
+              f"each rank [{run['rows']}, 2048]: loss/grad norm {json.dumps(got[0]['hist'])} "
+              f"(one process {json.dumps(ref['hist'])}; bounds {json.dumps(tol)}), update rel "
+              f"L2 {rel:.3e}; launches per rank {json.dumps(got[0]['launches'])} at H = "
+              f"{want_heads}; optimizer state per rank "
+              f"{[round(g['opt_bytes'] / 1e6, 1) for g in got]} MB (one process "
+              f"{ref['opt_bytes'] / 1e6:.1f})")
+        print(f"[parallel] {card}: ({name.split('_')[0]}) shared-card times (two ranks on one "
+              f"card, not data-parallel throughput): step ms per rank "
+              f"{[[round(x, 1) for x in g['step_ms']] for g in got]}, of it in collectives "
+              f"(gloo, staged through the host) "
+              f"{[[round(x, 1) for x in g['coll_ms']] for g in got]}")
+    a, c = results["a_data2"], results["c_data2_zero1"]
+    check(all(torch.equal(v, c["params"][k]) for k, v in a["params"].items())
+          and [g["hist"] for g in a["ranks"]] == [g["hist"] for g in c["ranks"]],
+          "ZeRO-1 (c) differs from the replicated optimizer (a)")
+    shares = [g["opt_bytes"] / h["opt_bytes"] for g, h in zip(c["ranks"], a["ranks"])]
+    check(all(0.5 <= s <= 0.51 for s in shares), f"ZeRO-1 optimizer state shares {shares}")
+    print(f"[parallel] {card}: (c) ZeRO-1 equals (a) bit for bit (parameters and every "
+          f"step's loss and norm); optimizer state per rank {shares} of (a)'s")
+    check(ref_eval["tiou/0.5"] > 0, f"the one-process evaluate scores nothing: {ref_eval}")
+    evals = {}
+    for key in ("d_eval_data2", "d_eval_data1_model2"):
+        for r, x in enumerate(ranks):
+            got = x[key]["tiou"]
+            check(got == ranks[0][key]["tiou"], f"{key}: the ranks returned different tIoU")
+            check(all(abs(got[k] - v) <= PARALLEL_EVAL_ATOL for k, v in ref_eval.items()),
+                  f"{key} rank {r}: {got} against one process {ref_eval} (bound "
+                  f"{PARALLEL_EVAL_ATOL})")
+        evals[key] = ranks[0][key]
+        print(f"[parallel] {card}: (d) evaluate on {key[7:]}: {json.dumps(ranks[0][key]['tiou'])}"
+              f" (one process {json.dumps(ref_eval)}); forward launches per rank "
+              f"{[x[key]['launches']['flash_fwd_tc'] for x in ranks]} at H "
+              f"{ranks[0][key]['heads'].get('flash_fwd_tc')}")
+    check(evals["d_eval_data1_model2"]["heads"].get("flash_fwd_tc") == [mc.num_heads // 2],
+          "the model=2 evaluation did not launch the forward at H = 4")
+
+    # (e) the train CLI and preflight under torchrun
+    cfg_json = os.path.join(workdir, "config.json")
+    with open(cfg_json, "w") as f:
+        f.write(production_config().to_json())
+    run_dir = os.path.join(workdir, "cli")
+    t0 = time.perf_counter()
+    rc, log = _run_group(_torchrun("-m", "repurpose_tpu_torch.train", "--config_path", cfg_json,
+                                   "--synthetic", "8", "--epochs", "1", "--dist_backend", "gloo",
+                                   "--share_card", "--workdir", run_dir), timeout=420)
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"train under torchrun exited {rc}:\n{log[-6000:]}")
+    done = re.findall(r"rank (\d)/2 training done: .*'final_loss': ([-+0-9.eE]+|nan)", log)
+    check(sorted(r for r, _ in done) == ["0", "1"] and len({x for _, x in done}) == 1
+          and np.isfinite(float(done[0][1])), f"the ranks' summaries: {done}\n{log[-3000:]}")
+    check(os.path.isfile(os.path.join(run_dir, "metrics.jsonl")), "rank 0 wrote no metrics")
+    print(f"[parallel] {card}: (e) torchrun --nproc_per_node 2 -m repurpose_tpu_torch.train "
+          f"--synthetic 8 --epochs 1 --dist_backend gloo --share_card: exit 0 in {cli_s:.1f} s, "
+          f"both ranks final loss {done[0][1]}")
+    t0 = time.perf_counter()
+    rc, log = _run_group(_torchrun("-m", "repurpose_tpu_torch.preflight", "--dist_backend",
+                                   "gloo", "--share_card"), timeout=420)
+    pre_s = time.perf_counter() - t0
+    check(rc == 0 and log.count("[PASS] dp x tp train step") == 2
+          and log.count("[PASS] collective self-check: gloo all_reduce=2") == 2,
+          f"preflight under torchrun exited {rc}:\n{log[-6000:]}")
+    print(f"[parallel] {card}: (e) torchrun --nproc_per_node 2 -m repurpose_tpu_torch.preflight "
+          f"--dist_backend gloo --share_card: exit 0 in {pre_s:.1f} s, every check passed on "
+          f"both ranks: " + "; ".join(sorted({line.strip() for line in log.splitlines()
+                                              if "dp x tp" in line and "PASS" in line})))
+    print(f"[parallel] {card}: phase 16 {time.perf_counter() - t_phase:.1f} s (the ranks' "
+          f"launch {launch_s:.1f} s)")
+    return dict(runs={k: dict(ranks=v["ranks"], update_rel=v["update_rel"])
+                      for k, v in results.items()},
+                reference={k: {x: v[x] for x in ("hist", "step_ms", "opt_bytes")}
+                           for k, v in refs.items()},
+                evaluate=evals, cli_s=cli_s, preflight_s=pre_s)
+
+
 def main() -> int:
     import torch
 
@@ -3263,6 +3761,8 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        return parallel_worker(sys.argv[2])
     import repurpose_tpu_torch  # noqa: F401  (switches TF32 off)
 
     card = phase_card_and_build()
@@ -3303,6 +3803,11 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_utils_", dir=os.path.join(ROOT, "runs"))
     try:
         utils = phase_utils_and_clis(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=os.path.join(ROOT, "runs"))
+    try:
+        parallel = phase_parallel(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3537,6 +4042,21 @@ def main() -> int:
                 variant=head["name"],
                 variants=[dict(name=x["name"], **chunked_timing(x, part)) for x in rows],
             ))
+    # phase 16's paths, per rank: the bf16 train steps (tensor-core kernels at
+    # H = 8, 4, 8), the float32 tensor-parallel steps (the first designs at
+    # H = 4) and the evaluations' forwards
+    for k in kernels:
+        for name, run in parallel["runs"].items():
+            n = run["ranks"][0]["launches"]
+            if k["name"] in PARALLEL_TC and PARALLEL_RUNS[name]["dtype"] == "bfloat16":
+                k["launches_by_path"][f"parallel_{name}_per_rank"] = n[k["name"]]
+            elif (k["name"] in PARALLEL_FIRST and k.get("design", "").startswith("first")
+                  and PARALLEL_RUNS[name]["dtype"] == "float32"):
+                k["launches_by_path"][f"parallel_{name}_per_rank"] = n[k["name"]]
+        if k["name"] == "flash_fwd_tc":
+            k["launches_by_path"].update({
+                f"parallel_{key}_per_rank": x["launches"]["flash_fwd_tc"]
+                for key, x in parallel["evaluate"].items()})
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched: "
           + json.dumps({k["name"]: k["launches"] for k in kernels}))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")

@@ -92,9 +92,11 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Training hyperparameters (reference: configs/Repurpose.yaml:33-44).
-    ``pipeline_*``, ``shard_opt_state`` and ``rng_impl`` are carried so
-    reference-schema files load; the port trains on one card and ignores
-    them."""
+    ``batch_size`` counts one rank's rows (the reference's per-process
+    DistributedSampler batch): the global batch is ``batch_size`` times the
+    mesh's ``data`` axis. ``shard_opt_state`` turns on ZeRO-1 where
+    ``data`` > 1 (``train/state.py``). ``pipeline_*`` and ``rng_impl`` are
+    carried so reference-schema files load, and ignored."""
 
     seed: int = 1234
     lr: float = 1e-3
@@ -142,13 +144,40 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout of the reference schema's ``tpu:`` section. Carried
-    so reference-schema files load; the port runs on one card so far."""
+    """Process-mesh layout (the reference schema's ``tpu:`` section): one
+    rank per card, over the axes ``data`` (data parallelism: each rank its
+    own rows of the global batch, gradients summed), ``model`` (Megatron
+    tensor parallelism over heads and the FFN hidden), ``seq`` and ``pipe``
+    (not ported yet: they raise in the Trainer, ROADMAP Queue 1 item 9,
+    parts 4–5). -1 means "all remaining ranks" (``parallel/mesh.py``)."""
 
     data: int = -1
     model: int = 1
     seq: int = 1
     pipe: int = 1
+
+    def axis_sizes(self, n_devices: int) -> tuple[int, int, int, int]:
+        sizes = [self.data, self.model, self.seq, self.pipe]
+        n_fixed = 1
+        free = None
+        for i, s in enumerate(sizes):
+            if s == -1:
+                if free is not None:
+                    raise ValueError("only one mesh axis may be -1")
+                free = i
+            else:
+                n_fixed *= s
+        if free is not None:
+            if n_devices % n_fixed != 0:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fixed axes {n_fixed}"
+                )
+            sizes[free] = n_devices // n_fixed
+        if sizes[0] * sizes[1] * sizes[2] * sizes[3] != n_devices:
+            raise ValueError(
+                f"mesh {tuple(sizes)} does not cover {n_devices} devices"
+            )
+        return tuple(sizes)  # type: ignore[return-value]
 
 
 @dataclass(frozen=True)

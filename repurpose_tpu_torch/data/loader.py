@@ -1,9 +1,16 @@
-"""Host-side batch loader: bucket-aware grouping and background prefetch
-(``repurpose_tpu/data/loader.py``, single process).
+"""Host-side batch loader: bucket-aware grouping, per-rank slicing and
+background prefetch (``repurpose_tpu/data/loader.py``).
 
 - the epoch plan (permutation, bucket grouping, batch composition) is a pure
   function of (seed, epoch), the same as the JAX loader's, so one seed gives
   the same batches in both packages, packed and unpacked;
+- the plan is of GLOBAL batches of ``batch_size * process_count`` samples
+  (rows, packed), the same on every rank; rank ``process_index`` takes the
+  strided slice ``[process_index::process_count]`` of each (its data
+  coordinate on the mesh), so every rank agrees on the batch count and the
+  bucket of batch k, as the collectives of a step need. A global tail
+  smaller than ``process_count`` is dropped; ``pad_last=False`` with more
+  than one rank raises (ragged tails would give ranks different shapes);
 - within a shuffled window, samples group by length bucket so batches pad to
   the smallest bucket; ``pack=True`` first-fit-decreasing packs each window
   into rows of the largest bucket instead;
@@ -12,9 +19,6 @@
 - unpacked batches come from the dataset's whole-batch ``load_batch`` where
   it has one and it applies (``RepurposeDataset``: the native loader), else
   from ``collate`` over the samples.
-
-The JAX loader's multi-host slicing (``process_index``/``process_count``) is
-not ported: the port trains on one card (ROADMAP).
 """
 
 from __future__ import annotations
@@ -45,18 +49,32 @@ class BatchLoader:
         seed: int = 0,
         bucket_window: int = 64,
         pack: bool = False,
+        drop_last: bool = False,
+        pad_last: bool = True,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
-        """Batches pad to ``batch_size`` rows (a ragged tail with all-padding
-        rows). ``pack=True`` switches to sequence-packed batches: every
-        window's videos first-fit-decreasing into rows of the largest bucket,
-        several head-to-tail videos per row with block-diagonal attention;
+        """Batches of ``batch_size`` rows per rank, a ragged tail padded with
+        all-padding rows (``pad_last``) or dropped (``drop_last``).
+        ``pack=True`` switches to sequence-packed batches: every window's
+        videos first-fit-decreasing into rows of the largest bucket, several
+        head-to-tail videos per row with block-diagonal attention;
         ``batch_size`` then counts rows."""
+        if not pad_last and not drop_last and process_count > 1:
+            raise ValueError(
+                "pad_last=False with process_count > 1 gives the ranks different batch "
+                "shapes on ragged tails; use pad_last=True (default) or drop_last=True"
+            )
         self.dataset = dataset
-        self.batch_size = batch_size
+        self.batch_size = batch_size  # per rank
         self.buckets = tuple(buckets)
         self.shuffle = shuffle
         self.seed = seed
-        self.bucket_window = max(bucket_window, batch_size)
+        self.drop_last = drop_last
+        self.pad_last = pad_last
+        self.process_index = process_index
+        self.process_count = process_count
+        self.bucket_window = max(bucket_window, batch_size * process_count)
         self.pack = pack
         self._lengths = dataset.lengths() if hasattr(dataset, "lengths") else None
         if pack and self._lengths is None:
@@ -64,9 +82,9 @@ class BatchLoader:
         self._plan_cache: tuple[int, list] | None = None
 
     def _epoch_batches(self, epoch: int) -> list[tuple[int, list]]:
-        """Batch plan [(bucket, sample indices)], or [(bucket, rows of sample
-        indices)] when packed; memoized per epoch (the val probe asks for
-        epoch 0 again and again)."""
+        """Global batch plan [(bucket, sample indices)], or [(bucket, rows of
+        sample indices)] when packed, the same on every rank; memoized per
+        epoch (the val probe asks for epoch 0 again and again)."""
         if self._plan_cache is None or self._plan_cache[0] != epoch:
             self._plan_cache = (epoch, self._build_epoch_batches(epoch))
         return self._plan_cache[1]
@@ -76,7 +94,7 @@ class BatchLoader:
         order = np.arange(n)
         if self.shuffle:
             order = np.random.default_rng((self.seed, epoch)).permutation(n)
-        bs = self.batch_size
+        bs = self.batch_size * self.process_count
         if self.pack:
             bucket = self.buckets[-1]
             packed: list[tuple[int, list[list[int]]]] = []
@@ -84,6 +102,7 @@ class BatchLoader:
                 window = [int(i) for i in order[w0 : w0 + self.bucket_window]]
                 for rows in plan_packing([self._lengths[i] for i in window], bucket, bs):
                     packed.append((bucket, [[window[j] for j in row] for row in rows]))
+            packed = self._whole(packed)
             if epoch == 0 and packed:  # packing efficiency, once per run
                 rows = [r for _, batch_rows in packed for r in batch_rows]
                 fill = sum(min(self._lengths[i], bucket) for r in rows for i in r) / (
@@ -107,16 +126,34 @@ class BatchLoader:
                 for bucket, idxs in by_bucket.items():
                     for j in range(0, len(idxs), bs):
                         batches.append((bucket, idxs[j : j + bs]))
-        return batches
+        return self._whole(batches)
+
+    def _whole(self, batches: list[tuple[int, list]]) -> list[tuple[int, list]]:
+        """The batches every rank can take: full ones only with ``drop_last``;
+        with several ranks, those that give each rank one entry or more (a
+        rank needs a sample to derive its shapes from)."""
+        gbs = self.batch_size * self.process_count
+        if self.drop_last:
+            return [b for b in batches if len(b[1]) == gbs]
+        if self.process_count == 1:
+            return batches
+        kept = [b for b in batches if len(b[1]) >= self.process_count]
+        dropped = sum(len(b[1]) for b in batches) - sum(len(b[1]) for b in kept)
+        if dropped:
+            logger.info("loader: dropped %d entries in global tails smaller than "
+                        "process_count=%d this epoch", dropped, self.process_count)
+        return kept
 
     def batches_per_epoch(self, epoch: int = 0) -> int:
         return len(self._epoch_batches(epoch))
 
     def epoch(self, epoch: int = 0) -> Iterator[Batch]:
-        """Iterate the epoch's batches, prefetched by a worker thread."""
+        """Iterate this rank's slice of the epoch's batches, prefetched by a
+        worker thread."""
         batches = self._epoch_batches(epoch)
         load_batch = getattr(self.dataset, "load_batch", None)
-        pad_b = self.batch_size
+        pad_b = self.batch_size if self.pad_last else None
+        rank, ranks = self.process_index, self.process_count
         q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
 
@@ -135,17 +172,18 @@ class BatchLoader:
                 for bucket, idxs in batches:
                     if stop.is_set():
                         return
-                    if self.pack:  # idxs is a list of rows (index lists)
-                        flat = [i for row in idxs for i in row]
+                    local = idxs[rank::ranks]
+                    if self.pack:  # rows (index lists)
+                        flat = [i for row in local for i in row]
                         remap = {i: j for j, i in enumerate(flat)}
                         batch = pack_batch(
                             [self.dataset[i] for i in flat],
-                            [[remap[i] for i in row] for row in idxs], bucket, pad_b,
+                            [[remap[i] for i in row] for row in local], bucket, pad_b,
                         )
                     else:
-                        batch = load_batch(idxs, (bucket,), pad_b) if load_batch else None
+                        batch = load_batch(local, (bucket,), pad_b) if load_batch else None
                         if batch is None:  # per-sample path
-                            batch = collate([self.dataset[i] for i in idxs], (bucket,),
+                            batch = collate([self.dataset[i] for i in local], (bucket,),
                                             pad_b)
                     if not put(batch):
                         return

@@ -77,11 +77,14 @@ class InferencePipeline:
 
     ``params`` is a state dict in the reference's names (tensors or numpy
     arrays), loaded strictly. ``device`` defaults to CUDA and raises when no
-    card is visible; pass ``device="cpu"`` to run on the CPU."""
+    card is visible; pass ``device="cpu"`` to run on the CPU. On a ``mesh``
+    whose ``model`` axis is > 1 the model is this rank's tensor-parallel
+    shard and ``params`` its shard's state dict; every model rank must then
+    score the same batches."""
 
     def __init__(
         self, cfg: ModelConfig, params: Mapping[str, Any], test_cfg: TestConfig,
-        raw_outputs: bool = False, device: str | torch.device = "cuda",
+        raw_outputs: bool = False, device: str | torch.device = "cuda", mesh=None,
     ):
         if cfg.attention_impl == "ring":
             cfg = dataclasses.replace(cfg, attention_impl="auto")
@@ -89,7 +92,7 @@ class InferencePipeline:
         self.test_cfg = test_cfg
         self.raw_outputs = raw_outputs
         self.device = resolve_device(device)
-        self.model = build_model(cfg, self.device)
+        self.model = build_model(cfg, self.device, mesh=mesh)
         self.model.load_state_dict(
             {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
              for k, v in params.items()},

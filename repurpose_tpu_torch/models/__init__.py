@@ -40,13 +40,27 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
 
 
 def build_model(
-    cfg: ModelConfig, device: str | torch.device = "cuda", seed: int = 0
+    cfg: ModelConfig, device: str | torch.device = "cuda", seed: int = 0, mesh=None
 ) -> nn.Module:
     """The model ``cfg.fusion`` names (the concat-fusion MMCT, ``MMCTCross``
     or ``MMCTBottleneck``) on ``device``, in eval mode, with weights drawn
     by ``init_weights(seed)``; load a state dict over them to serve trained
-    weights. Raises for CUDA when no card is visible."""
+    weights. Raises for CUDA when no card is visible. On a ``mesh`` whose
+    ``model`` axis is > 1 the MMCT is this rank's tensor-parallel shard of
+    the same weights (``parallel/sharding.py``)."""
     dev = resolve_device(device)
+    if mesh is not None and mesh.size("model") > 1:
+        if cfg.fusion != "concat":
+            raise NotImplementedError(
+                f"fusion={cfg.fusion!r} under tensor parallelism (model > 1) is not ported "
+                "yet (ROADMAP.md, Queue 1 item 9)")
+        from repurpose_tpu_torch.parallel.sharding import shard_state_dict
+
+        full = MMCT(cfg)
+        init_weights(full, seed)
+        model = MMCT(cfg, mesh)
+        model.load_state_dict(shard_state_dict(full.state_dict(), mesh), strict=True)
+        return model.to(dev).eval()
     if cfg.fusion == "cross":
         from repurpose_tpu_torch.models.cross_modal import MMCTCross
 

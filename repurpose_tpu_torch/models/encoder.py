@@ -25,7 +25,17 @@ reference checkpoints load strictly. Numerics follow the JAX model:
   on the mask, the segments and T: where the attention callable has a
   ``make_sweep`` (the kernel ``attention_impl`` values) the encoder makes it
   once per forward and hands it to every layer, whose forward, remat
-  recompute and backward all take it.
+  recompute and backward all take it;
+- tensor parallelism (a mesh whose ``model`` axis is M > 1,
+  ``parallel/sharding.py``): each layer holds its rank's H / M heads and
+  d_ff / M FFN columns, under the same parameter names with local shapes.
+  The attention is the same dispatcher, launched at H / M heads. The two
+  Megatron operators open and close each region: ``copy_to_model`` before
+  ``in_proj`` and ``linear1``, ``reduce_from_model`` after ``out_proj`` and
+  ``linear2``, whose replicated biases are added once, after the sum. The
+  replicated dropouts draw the one-process masks on every rank; the FFN
+  hidden's draws the one-process model's whole mask and keeps its columns,
+  so every mask equals the one-process model's.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from torch import nn
 
 from repurpose_tpu_torch.config import ModelConfig
 from repurpose_tpu_torch.ops.attention import select_attention_impl
+from repurpose_tpu_torch.parallel.sharding import copy_to_model, reduce_from_model
 
 LN_EPS = 1e-5
 
@@ -56,56 +67,96 @@ def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
 class Dropout(nn.Module):
     """Flax ``nn.Dropout``: zero each element with probability ``p`` and scale
     the rest by 1/(1-p), in train mode only. The masks come from
-    ``generator`` (None: torch's default generator)."""
+    ``generator`` (None: torch's default generator). With ``shard`` = (rank,
+    size) the input is rank ``rank``'s columns of a last dim ``size`` times
+    wider: the whole mask is drawn and those columns kept."""
 
-    def __init__(self, p: float):
+    def __init__(self, p: float, shard: tuple[int, int] | None = None):
         super().__init__()
         self.p = p
+        self.shard = shard
         self.generator: torch.Generator | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - self.p
+        if self.shard is None:
+            keep = torch.rand(x.shape, generator=self.generator, device=x.device) < 1.0 - self.p
+        else:
+            rank, size = self.shard
+            n = x.shape[-1]
+            whole = torch.rand((*x.shape[:-1], n * size), generator=self.generator,
+                               device=x.device)
+            keep = whole[..., rank * n : (rank + 1) * n] < 1.0 - self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
                                                                 device=x.device))
 
 
-class SelfAttention(nn.Module):
-    """Packed-QKV multi-head self-attention in torch MHA's parameter layout."""
+def _model_axis(cfg: ModelConfig, mesh) -> tuple[int, int, object]:
+    """(rank, size, group) of the mesh's ``model`` axis; (0, 1, None) without
+    tensor parallelism. Raises where heads or the FFN hidden do not split."""
+    if mesh is None or mesh.size("model") == 1:
+        return 0, 1, None
+    size = mesh.size("model")
+    if cfg.num_heads % size or cfg.d_ff % size:
+        raise ValueError(f"num_heads {cfg.num_heads} and d_ff {cfg.d_ff} must split "
+                         f"over model={size}")
+    return mesh.coord("model"), size, mesh.group("model")
 
-    def __init__(self, cfg: ModelConfig):
+
+def row_parallel_linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
+                        group) -> torch.Tensor:
+    """``linear`` of a row-parallel layer: the local product summed over the
+    model group in float32, then the replicated bias, rounded once."""
+    y = reduce_from_model(F.linear(x.to(dtype), layer.weight.to(dtype)), group)
+    return (y + layer.bias.float()).to(dtype)
+
+
+class SelfAttention(nn.Module):
+    """Packed-QKV multi-head self-attention in torch MHA's parameter layout;
+    on a mesh with ``model`` = M > 1, this rank's H / M heads."""
+
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
-        d = cfg.d_model
+        _, size, self.group = _model_axis(cfg, mesh)
+        d = cfg.d_model // size  # local width of q, k, v: H / M heads
         self.cfg = cfg
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * d, d))
+        self.heads = cfg.num_heads // size
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d, cfg.d_model))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d))
-        self.out_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, cfg.d_model)
         self.attn = select_attention_impl(cfg.attention_impl, cfg.attn_softmax_dtype)
 
     def forward(self, x, key_valid, seg_ids=None, sweep=None):
-        b, t, d = x.shape
-        h = self.cfg.num_heads
+        b, t, _ = x.shape
+        h, d = self.heads, self.in_proj_bias.shape[0] // 3
+        if self.group is not None:
+            x = copy_to_model(x, self.group)
         qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
         q, k, v = (z.view(b, t, h, d // h) for z in qkv.split(d, dim=-1))
         kw = {} if sweep is None else {"sweep": sweep}
-        out = self.attn(q, k, v, key_valid, seg_ids=seg_ids, **kw)
-        return linear(out.reshape(b, t, d), self.out_proj, x.dtype)
+        out = self.attn(q, k, v, key_valid, seg_ids=seg_ids, **kw).reshape(b, t, d)
+        if self.group is not None:
+            return row_parallel_linear(out, self.out_proj, x.dtype, self.group)
+        return linear(out, self.out_proj, x.dtype)
 
 
 class EncoderLayer(nn.Module):
     """x + Drop(SA(LN1(x))); x + Drop(FFN(LN2(x))) — pre-LN residual block
-    (dropout module names as in torch's TransformerEncoderLayer)."""
+    (dropout module names as in torch's TransformerEncoderLayer); on a mesh
+    with ``model`` > 1, tensor-parallel."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
-        self.self_attn = SelfAttention(cfg)
-        self.linear1 = nn.Linear(cfg.d_model, cfg.d_ff)
-        self.linear2 = nn.Linear(cfg.d_ff, cfg.d_model)
+        rank, size, self.group = _model_axis(cfg, mesh)
+        d_ff = cfg.d_ff // size
+        self.self_attn = SelfAttention(cfg, mesh)
+        self.linear1 = nn.Linear(cfg.d_model, d_ff)
+        self.linear2 = nn.Linear(d_ff, cfg.d_model)
         self.norm1 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
         self.norm2 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
         self.dropout1 = Dropout(cfg.dropout)  # attention output
-        self.dropout = Dropout(cfg.dropout)  # FFN hidden
+        self.dropout = Dropout(cfg.dropout, None if size == 1 else (rank, size))  # FFN hidden
         self.dropout2 = Dropout(cfg.dropout)  # FFN output
 
     def forward(self, x, key_valid, seg_ids=None, sweep=None):
@@ -113,8 +164,11 @@ class EncoderLayer(nn.Module):
         y = layer_norm(x, self.norm1).to(dtype)
         x = x + self.dropout1(self.self_attn(y, key_valid, seg_ids, sweep))
         y = layer_norm(x, self.norm2).to(dtype)
-        y = self.dropout(torch.relu(linear(y, self.linear1, dtype)))
-        return x + self.dropout2(linear(y, self.linear2, dtype))
+        if self.group is None:
+            y = self.dropout(torch.relu(linear(y, self.linear1, dtype)))
+            return x + self.dropout2(linear(y, self.linear2, dtype))
+        y = self.dropout(torch.relu(linear(copy_to_model(y, self.group), self.linear1, dtype)))
+        return x + self.dropout2(row_parallel_linear(y, self.linear2, dtype, self.group))
 
 
 def _replaying_dropout(layer: nn.Module):
@@ -144,14 +198,14 @@ class Encoder(nn.Module):
     """Stack of pre-LN layers (reference: 16, models/MMCTransformer.py:51-55),
     each rematerialised in the backward when ``cfg.remat`` is on. With a
     kernel attention one sweep per forward (``make_sweep``) serves every
-    layer."""
+    layer. ``mesh``: tensor-parallel layers where its ``model`` axis > 1."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.remat = cfg.remat
         attn = select_attention_impl(cfg.attention_impl, cfg.attn_softmax_dtype)
         self.make_sweep = getattr(attn, "make_sweep", None)  # None: no kernel takes a sweep
-        self.layers = nn.ModuleList(EncoderLayer(cfg) for _ in range(cfg.self_num_layers))
+        self.layers = nn.ModuleList(EncoderLayer(cfg, mesh) for _ in range(cfg.self_num_layers))
 
     def forward(self, x, key_valid, seg_ids=None):
         sweep = None if self.make_sweep is None else self.make_sweep(key_valid, seg_ids)

@@ -80,7 +80,10 @@ class _PositionalEncoding(nn.Module):
 
 
 class MMCT(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    """``mesh``: the encoder's layers tensor-parallel over the mesh's
+    ``model`` axis where it is > 1 (models/encoder.py); the rest replicated."""
+
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.dropout_generator: torch.Generator | None = None
@@ -88,7 +91,7 @@ class MMCT(nn.Module):
         self.input_projection = nn.Linear(cfg.concat_dim, d)
         self.input_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.positional_encoding = _PositionalEncoding(cfg)
-        self.multimodal_encoder = Encoder(cfg)
+        self.multimodal_encoder = Encoder(cfg, mesh)
         self.encoder_norm = nn.LayerNorm(d, eps=LN_EPS)
         self.feature_map = nn.Sequential(
             nn.Linear(d, d), nn.LayerNorm(d, eps=LN_EPS), nn.ReLU(), Dropout(cfg.dropout)

@@ -74,7 +74,7 @@ def select_attention_impl(impl: str, softmax_dtype: str = "float32") -> Callable
         return flash
     if impl == "ring":
         raise NotImplementedError(
-            'attention_impl="ring" is not ported yet (ROADMAP.md, Queue 1 item 9)'
+            'attention_impl="ring" is not ported yet (ROADMAP.md, Queue 1 item 9, parts 4–5)'
         )
     raise ValueError(f"bad attention_impl: {impl}")
 

@@ -1,26 +1,31 @@
 """Pre-flight checks before training (root ``preflight.py``, the reference's
-test_multi_gpu.py that its launch scripts run first), for one card:
+test_multi_gpu.py that its launch scripts run first), on one card or, under
+torchrun, on every rank of the launch:
 
 1. the device inventory: the card's name, the device count and the power
    limit (``nvidia-smi``);
 2. the kernel build: every ``csrc/*.cu`` compiled and loaded
    (``native.build_all``);
 3. a collective self-check: ``all_reduce`` over a process group of one
-   (NCCL on the card, gloo on the CPU) equals the device count;
+   (NCCL on the card, gloo on the CPU) equals the device count; under
+   torchrun, ``mesh_self_check`` over the launch's world and each axis;
 4. the reduced model (2 layers at the flagship width) and one train step on
    synthetic data;
 5. the capacity model: the estimated peak of the flagship train step per
    bucket against the device's memory, and the largest safe bucket;
-6. with ``--full``: the flagship forward at bucket 2048, and the measured
+6. under torchrun (two ranks or more): one dp × tp train step of the
+   reduced model on a mesh of ``model`` = 2 (where the world is even) and
+   ``data`` = the rest, its loss finite and equal on every rank;
+7. with ``--full``: the flagship forward at bucket 2048, and the measured
    peak of the packed [6, 2048] production step beside its estimate.
 
 Run as ``python -m repurpose_tpu_torch.preflight [--full] [--output-json
-PATH] [--device cuda|cpu]``. It prints a summary line per check and exits 0
-only if every check passed. On the CPU (``--device cpu``) the kernel build
-is not needed (the wrappers run their plain versions) and the capacity model
-reads the host's memory. The JAX package's pipeline-parallel check needs two
-or more devices and waits for the port's parallel layer (ROADMAP.md, Queue
-1 item 9).
+PATH] [--device cuda|cpu] [--dist_backend nccl|gloo] [--share_card]``. It
+prints a summary line per check and exits 0 only if every check passed.
+On the CPU (``--device cpu``) the kernel build is not needed (the wrappers
+run their plain versions) and the capacity model reads the host's memory.
+The JAX package's pipeline-parallel check waits for the port's pipeline
+(ROADMAP.md, Queue 1 item 9, parts 4–5).
 """
 
 from __future__ import annotations
@@ -73,12 +78,19 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def check_collectives(dev) -> str:
+def check_collectives(dev, backend: str | None = None, share_card: bool = False) -> str:
     """all_reduce of a one over a process group of this process alone, on
-    one device: the sum is the device count of the group, 1."""
+    one device: the sum is the device count of the group, 1. Under torchrun,
+    the mesh self-check over the launch's ranks instead."""
     import torch
     import torch.distributed as dist
 
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        from repurpose_tpu_torch.config import MeshConfig
+        from repurpose_tpu_torch.parallel.mesh import create_mesh, mesh_self_check
+
+        mesh = create_mesh(MeshConfig(data=-1), backend, dev, share_card)
+        return f"{mesh.backend} all_reduce={mesh_self_check(mesh)} over {mesh.world} ranks"
     backend = "nccl" if dev.type == "cuda" else "gloo"
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
                             world_size=1, rank=0)
@@ -112,6 +124,45 @@ def check_train_step(dev) -> str:
     if not 0 < loss < 1e9:
         raise RuntimeError(f"loss {loss}")
     return f"loss={loss:.2f}"
+
+
+def check_parallel_step(dev, backend: str | None = None, share_card: bool = False) -> str:
+    """One train step of the reduced model on a dp × tp mesh of the launch's
+    ranks (``model`` = 2 where the world is even, ``data`` the rest), each
+    data rank on its rows of a global batch; the loss finite and the same
+    on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repurpose_tpu_torch.config import MeshConfig, TrainConfig
+    from repurpose_tpu_torch.data.batching import collate
+    from repurpose_tpu_torch.data.synthetic import SyntheticDataset
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.parallel.mesh import create_mesh
+    from repurpose_tpu_torch.parallel.sharding import local_rows
+    from repurpose_tpu_torch.train.state import TrainState, make_optimizer
+    from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
+
+    world = dist.get_world_size()
+    mesh = create_mesh(MeshConfig(data=-1, model=2 if world % 2 == 0 else 1), backend, dev,
+                       share_card)
+    mc = dataclasses.replace(_production_model(), self_num_layers=2)
+    tc = TrainConfig(batch_size=2, buckets=(256,))
+    n = tc.batch_size * mesh.size("data")
+    ds = SyntheticDataset([100 + 10 * i for i in range(n)], mc, seed=0)
+    batch = local_rows(collate([ds[i] for i in range(n)], tc.buckets, n), mesh)
+    model = build_model(mc, mesh.device, seed=0, mesh=mesh)
+    model.set_dropout_generator(torch.Generator(device=mesh.device).manual_seed(tc.seed))
+    optimizer, schedule = make_optimizer(model, tc, 1, mesh)
+    metrics = make_train_step(mc, tc, schedule, mesh)(
+        TrainState(model, optimizer, mesh=mesh), batch_to_device(batch, mesh.device))
+    loss = metrics["loss"].reshape(1)
+    spread = torch.cat([loss, -loss])
+    dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+    if not 0 < float(loss) < 1e9 or float(spread[0] + spread[1]) != 0.0:
+        raise RuntimeError(f"loss {float(loss)}, largest {float(spread[0])} and smallest "
+                           f"{float(-spread[1])} over the ranks")
+    return f"data={mesh.size('data')} model={mesh.size('model')} loss={float(loss):.2f}"
 
 
 def _memory_bytes(dev) -> float:
@@ -189,13 +240,30 @@ def main(argv: list[str] | None = None) -> int:
                    help="also run the flagship forward and measure the step's memory")
     p.add_argument("--output-json", default=None, help="also write the results as JSON")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dist_backend", default=None,
+                   help="process-group backend under torchrun (nccl on cuda, gloo on cpu)")
+    p.add_argument("--share_card", action="store_true",
+                   help="let several ranks share one card (needs --dist_backend gloo)")
     args = p.parse_args(argv)
 
-    from repurpose_tpu_torch import resolve_device
+    import functools
 
+    import torch
+
+    from repurpose_tpu_torch import resolve_device
+    from repurpose_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+    distributed = maybe_initialize_distributed(args.dist_backend, args.device, args.share_card)
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and distributed:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh_kw = dict(backend=args.dist_backend, share_card=args.share_card)
+    checks = [(name, functools.partial(fn, **mesh_kw) if fn is check_collectives else fn)
+              for name, fn in CHECKS]
+    if distributed:
+        checks.append(("dp x tp train step", functools.partial(check_parallel_step, **mesh_kw)))
     results: list[tuple[str, bool, str]] = []
-    for name, fn in CHECKS + (FULL_CHECKS if args.full else []):
+    for name, fn in checks + (FULL_CHECKS if args.full else []):
         t0 = time.time()
         try:
             detail = fn(dev) or ""
@@ -203,15 +271,18 @@ def main(argv: list[str] | None = None) -> int:
         except Exception as e:  # a failed check is reported, and fails the run
             results.append((name, False, f"{type(e).__name__}: {e}"))
 
-    print("\n=== preflight summary ===")
+    rank = torch.distributed.get_rank() if distributed else 0
+    print(f"\n=== preflight summary{f' (rank {rank})' if distributed else ''} ===")
     ok = True
     for name, passed, detail in results:
         print(f"  [{'PASS' if passed else 'FAIL'}] {name}: {detail}")
         ok &= passed
-    if args.output_json:
+    if args.output_json and rank == 0:
         with open(args.output_json, "w") as f:
             json.dump([{"check": n, "passed": p, "detail": d} for n, p, d in results], f,
                       indent=2)
+    if distributed:
+        torch.distributed.destroy_process_group()
     return 0 if ok else 1
 
 

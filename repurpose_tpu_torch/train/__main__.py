@@ -14,6 +14,22 @@ parses the flags and loads the config (YAML, or the same schema as
 ``--async-ckpt`` writes checkpoints from a background thread;
 ``--debug-viz`` renders prediction figures at each evaluation (matplotlib);
 ``--wandb`` also logs to wandb, imported only then.
+
+Several processes train one model on a mesh (``tpu: {data, model}`` in the
+config; the global batch is ``batch_size`` times ``data``) when launched
+by torchrun, one rank per card over NCCL:
+
+    python -m torch.distributed.run --nproc_per_node 8 -m repurpose_tpu_torch.train \
+        --config_path configs/repurpose.yaml --workdir runs/ddp
+
+or, several ranks sharing one card, over gloo:
+
+    python -m torch.distributed.run --nproc_per_node 2 -m repurpose_tpu_torch.train \
+        --synthetic 8 --epochs 1 --dist_backend gloo --share_card --workdir runs/shared
+
+The process group starts before anything touches CUDA; rank 0 writes the
+config, the metrics, the checkpoints and the export, and every rank prints
+its summary line.
 """
 
 from __future__ import annotations
@@ -22,10 +38,12 @@ import argparse
 import dataclasses
 import logging
 import os
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repurpose_tpu_torch.config import Config, load_config
 
@@ -75,8 +93,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="warm start from a reference .pth (strict load; fresh "
                         "optimizer and schedule)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dist_backend", default=None,
+                   help="process-group backend under torchrun: nccl (default on cuda) "
+                        "or gloo (default on cpu)")
+    p.add_argument("--share_card", action="store_true",
+                   help="let several ranks share one card (needs --dist_backend gloo)")
     p.add_argument("--log-level", default="INFO")
     return p.parse_args(argv)
+
+
+def _workdir(args: argparse.Namespace) -> str:
+    """``--workdir``, or a new timestamped one, the same on every rank."""
+    workdir = args.workdir or os.path.join("runs", time.strftime("torch_%Y%m%d_%H%M%S"))
+    if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
+        box = [workdir]
+        torch.distributed.broadcast_object_list(box, src=0)
+        workdir = box[0]
+    return workdir
 
 
 def run(cfg: Config, args: argparse.Namespace) -> dict:
@@ -88,10 +121,16 @@ def run(cfg: Config, args: argparse.Namespace) -> dict:
         # the schedule anneals over cfg.train.epochs, so the override goes there
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
                                                                  epochs=args.epochs))
-    workdir = args.workdir or os.path.join("runs", time.strftime("torch_%Y%m%d_%H%M%S"))
+    from repurpose_tpu_torch.parallel.mesh import maybe_initialize_distributed
+    from repurpose_tpu_torch.parallel.sharding import gather_state_dict
+
+    maybe_initialize_distributed(args.dist_backend, args.device, args.share_card)
+    workdir = _workdir(args)
     os.makedirs(workdir, exist_ok=True)
-    with open(os.path.join(workdir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    main_rank = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
+    if main_rank:
+        with open(os.path.join(workdir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
     train_ds, val_ds, test_ds = build_datasets(cfg, args.synthetic)
     init_params = None
     if args.torch_ckpt:
@@ -101,7 +140,8 @@ def run(cfg: Config, args: argparse.Namespace) -> dict:
     def make_trainer():
         trainer = Trainer(cfg, workdir, train_ds, val_ds, test_ds, init_params=init_params,
                           device=args.device, use_wandb=args.wandb,
-                          async_checkpoints=args.async_ckpt)
+                          async_checkpoints=args.async_ckpt, dist_backend=args.dist_backend,
+                          share_card=args.share_card)
         trainer.debug_viz = args.debug_viz
         return trainer
 
@@ -111,7 +151,10 @@ def run(cfg: Config, args: argparse.Namespace) -> dict:
         if summary.get("preempted"):
             logging.warning("preempted before completion; skipping --export_torch")
             return
-        model = {k: v.detach().cpu() for k, v in trainer.state.model.state_dict().items()}
+        model = gather_state_dict(trainer.state.model.state_dict(), trainer.mesh)
+        if not trainer.mesh.is_main:
+            return
+        model = {k: v.detach().cpu() for k, v in model.items()}
         torch.save({"model": model, "epoch": int(summary.get("best_epoch", -1)),
                     "loss": float(summary.get("final_loss", 0.0) or 0.0)},
                    args.export_torch)
@@ -145,7 +188,15 @@ def main(argv=None) -> int:
     logging.basicConfig(level=args.log_level.upper(),
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     summary = run(load_config(args.config_path), args)
-    print("training done:", summary)
+    if torch.distributed.is_initialized():
+        # one write of the line alone: the ranks share the launcher's stdout
+        sys.stdout.flush()
+        sys.stdout.write(f"rank {torch.distributed.get_rank()}/"
+                         f"{torch.distributed.get_world_size()} training done: {summary}\n")
+        sys.stdout.flush()
+        torch.distributed.destroy_process_group()
+    else:
+        print("training done:", summary)
     return 0
 
 

@@ -13,6 +13,12 @@ Orbax async checkpointing): ``save`` takes a CPU copy of the state and
 returns, and one background thread writes it. At most one write is in
 flight; ``save``, ``all_steps``, ``latest_step``, the restores and
 ``close`` wait for it first, and a failed write raises there.
+
+On a mesh the checkpoint is the same file: every rank gathers the full,
+reference-named model and the one-process optimizer state
+(``TrainState.gathered``, a collective), rank 0 writes it, and a restore
+shards it onto whatever mesh restores it. The ranks must share the
+directory's filesystem.
 """
 
 from __future__ import annotations
@@ -74,11 +80,15 @@ class Checkpointer:
 
     def save(self, step: int, state: TrainState, metadata: dict | None = None) -> None:
         """Writes step ``step``, replacing a checkpoint of the same step (a
-        best-tIoU save can land on the step the epoch save just wrote)."""
+        best-tIoU save can land on the step the epoch save just wrote). On a
+        mesh every rank calls it and rank 0 writes."""
         self.wait()
+        model_sd, opt_sd = state.gathered()
+        if not state.is_main:
+            return
         blob = {
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "model": model_sd,
+            "optimizer": opt_sd,
             "step": int(state.step),
             "nonfinite_count": int(state.nonfinite_count),
             "meta": dict(metadata or {}),
@@ -119,7 +129,8 @@ class Checkpointer:
 
     def restore(self, state: TrainState, step: int | None = None) -> tuple[TrainState, dict]:
         """Loads step ``step`` (default: the latest) into ``state``'s model and
-        optimizer, on their device; returns the state and the metadata."""
+        optimizer, on their device, sharded onto its mesh; returns the state
+        and the metadata."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -129,8 +140,7 @@ class Checkpointer:
         # and the optimizer moves its moments to the parameters' device but
         # keeps Adam's step counters on the host, where torch wants them
         blob = torch.load(self._path(step), map_location="cpu", weights_only=True)
-        state.model.load_state_dict(blob["model"], strict=True)
-        state.optimizer.load_state_dict(blob["optimizer"])
+        state.load_gathered(blob["model"], blob["optimizer"])
         state.step = int(blob["step"])
         state.nonfinite_count = torch.tensor(
             blob["nonfinite_count"], dtype=torch.int32, device=device

@@ -1,5 +1,5 @@
-"""Trainer: the training and evaluation driver on one card
-(``repurpose_tpu/train/loop.py``).
+"""Trainer: the training and evaluation loop
+(``repurpose_tpu/train/loop.py``), on one card or on a mesh of ranks.
 
 - epoch loop over ``BatchLoader`` with a per-epoch reshuffle (packed or
   bucketed batches), one eager train step per batch;
@@ -18,10 +18,17 @@
   it applies; with ``debug_viz`` (``Trainer.debug_viz`` in ``fit``) the
   per-sample figures and health log of ``utils/debug_viz.py``;
 - metrics to ``workdir/metrics.jsonl`` and, with ``use_wandb``, to wandb;
-- ``fit_with_auto_resume``: rebuild and resume after a crash.
+- ``fit_with_auto_resume``: rebuild and resume after a crash;
+- a mesh (``cfg.mesh`` over the processes of a torchrun launch,
+  ``parallel/mesh.py``): data parallelism (the loader gives each rank its
+  rows, the step sums the gradients), tensor parallelism (the model's
+  layers sharded over ``model``), ZeRO-1 (``shard_opt_state``); rank 0 logs
+  and writes checkpoints; ``evaluate`` scores this rank's strided slice of
+  the videos and sums the tIoU sums and counts over ``data``. Every rank
+  runs every step, probe, save and evaluation (they hold collectives).
 
-Not ported yet (ROADMAP): the mesh, ZeRO-1 and pipeline branches of the JAX
-Trainer and multi-host evaluation.
+Not ported yet (ROADMAP Queue 1 item 9, parts 4–5): the ``seq`` and
+``pipe`` axes (pipeline and ring attention).
 """
 
 from __future__ import annotations
@@ -36,13 +43,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repurpose_tpu_torch import resolve_device
 from repurpose_tpu_torch.config import Config
 from repurpose_tpu_torch.data.batching import Batch, collate, iter_packed_batches, pick_bucket
 from repurpose_tpu_torch.data.loader import BatchLoader
 from repurpose_tpu_torch.infer import InferencePipeline
 from repurpose_tpu_torch.models import build_model
+from repurpose_tpu_torch.parallel.mesh import create_mesh, describe_mesh, mesh_self_check
+from repurpose_tpu_torch.parallel.sharding import shard_state_dict
 from repurpose_tpu_torch.train.checkpoint import Checkpointer
 from repurpose_tpu_torch.train.state import TrainState, make_optimizer
 from repurpose_tpu_torch.train.step import (
@@ -66,7 +75,10 @@ class Trainer:
     ``device="cpu"`` to train on the CPU. ``init_params`` is a state dict in
     the reference's names (a warm start; loaded strictly). ``use_wandb``
     also logs to wandb; ``async_checkpoints`` overlaps checkpoint writes
-    with training."""
+    with training. Launched as several processes, the Trainer builds
+    ``cfg.mesh`` over them (``dist_backend``: default NCCL on CUDA, gloo on
+    the CPU; ``share_card``: several ranks on one card, gloo only); each
+    rank then trains on ``cuda:{LOCAL_RANK}``."""
 
     def __init__(
         self,
@@ -79,18 +91,22 @@ class Trainer:
         device: str | torch.device = "cuda",
         use_wandb: bool = False,
         async_checkpoints: bool = False,
+        dist_backend: str | None = None,
+        share_card: bool = False,
     ):
         self.cfg = cfg
         self.workdir = workdir
-        self.device = resolve_device(device)
         tc = cfg.train
-        mesh = cfg.mesh
-        if mesh.model > 1 or mesh.seq > 1 or mesh.pipe > 1 or mesh.data > 1:
+        if cfg.mesh.seq > 1 or cfg.mesh.pipe > 1:
             raise NotImplementedError(
-                f"mesh {mesh}: the port trains on one card; tensor, sequence, "
-                "pipeline and data parallelism are not ported yet (ROADMAP.md, "
-                "Queue 1 item 9)"
+                f"mesh {cfg.mesh}: the seq and pipe axes (ring attention, pipeline "
+                "parallelism) are not ported yet (ROADMAP.md, Queue 1 item 9, parts 4–5)"
             )
+        self.mesh = mesh = create_mesh(cfg.mesh, dist_backend, device, share_card)
+        if mesh.world > 1:
+            mesh_self_check(mesh)
+            logger.info("%s", describe_mesh(mesh))
+        self.device = mesh.device
         if tc.pack_sequences and tc.loss_norm == "config_batch_size":
             logger.warning(
                 "pack_sequences with loss_norm='config_batch_size' divides the loss "
@@ -99,25 +115,24 @@ class Trainer:
             )
         self.train_loader = BatchLoader(
             train_ds, batch_size=tc.batch_size, buckets=tc.buckets, shuffle=True,
-            seed=tc.seed, pack=tc.pack_sequences,
+            seed=tc.seed, pack=tc.pack_sequences, process_index=mesh.coord("data"),
+            process_count=mesh.size("data"),
         )
         self.val_ds = val_ds
         self.test_ds = test_ds
         self.steps_per_epoch = max(self.train_loader.batches_per_epoch(0), 1)
 
-        model = build_model(cfg.model, self.device, seed=tc.seed)
+        model = build_model(cfg.model, self.device, seed=tc.seed, mesh=mesh)
         if init_params is not None:
-            model.load_state_dict(
-                {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-                 for k, v in init_params.items()},
-                strict=True,
-            )
+            full = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+                    for k, v in init_params.items()}
+            model.load_state_dict(shard_state_dict(full, mesh), strict=True)
         model.set_dropout_generator(
             torch.Generator(device=self.device).manual_seed(tc.seed)
         )
-        optimizer, schedule = make_optimizer(model, tc, self.steps_per_epoch)
-        self.state = TrainState(model=model, optimizer=optimizer)
-        self.train_step = make_train_step(cfg.model, tc, schedule)
+        optimizer, schedule = make_optimizer(model, tc, self.steps_per_epoch, mesh)
+        self.state = TrainState(model=model, optimizer=optimizer, mesh=mesh)
+        self.train_step = make_train_step(cfg.model, tc, schedule, mesh)
         self.eval_step = make_eval_step(tc)
         # cadences: per-layer grad norms every 10 steps (reference
         # main.py:345-367), histograms every 1000 (wandb.watch's default);
@@ -130,7 +145,7 @@ class Trainer:
         self.checkpointer = Checkpointer(workdir + "/ckpt", async_save=async_checkpoints)
         self._best_ckpt: Checkpointer | None = None  # lazy (workdir/ckpt_best)
         self.metrics = MetricLogger(workdir, use_wandb=use_wandb,
-                                    config=json.loads(cfg.to_json()))
+                                    config=json.loads(cfg.to_json()), is_main=mesh.is_main)
         self.debug_viz = False  # fit()'s evaluations render debug figures
         eval_model_cfg = dataclasses.replace(
             cfg.model, dropout=0.0,
@@ -139,7 +154,7 @@ class Trainer:
         )
         # evaluate() hands the pipeline the live weights on every call
         self.pipeline = InferencePipeline(
-            eval_model_cfg, model.state_dict(), cfg.test_cfg, device=self.device
+            eval_model_cfg, model.state_dict(), cfg.test_cfg, device=self.device, mesh=mesh
         )
         self._eval_model_cfg = eval_model_cfg
         self._debug_pipeline: InferencePipeline | None = None  # lazy, raw outputs
@@ -238,7 +253,11 @@ class Trainer:
         dataset with ``lengths()``. ``debug_viz`` renders per-sample
         prediction figures and a JSON health log (with the model-collapse
         check) for the first ``max_debug_samples`` videos, from the same
-        forward as the scores (the pipeline's raw outputs)."""
+        forward as the scores (the pipeline's raw outputs). On a mesh each
+        data rank scores its strided slice of the videos (with its model
+        ranks, under tensor parallelism) and the tIoU sums and counts are
+        summed over ``data``: every rank returns the global result, and every
+        rank must call it; the figures come from rank 0's videos."""
         ds = dataset if dataset is not None else self.test_ds
         if ds is None:
             return {}
@@ -246,7 +265,7 @@ class Trainer:
         bs = self.cfg.train.batch_size
         buckets = self.cfg.train.buckets
         n = len(ds) if max_videos is None else min(len(ds), max_videos)
-        idx = list(range(n))
+        idx = list(range(self.mesh.coord("data"), n, self.mesh.size("data")))
         sums = {t: 0.0 for t in TIOU_THRESHOLDS}
         count = 0
         entries = getattr(ds, "entries", None)
@@ -258,11 +277,12 @@ class Trainer:
         if debug_viz:
             from repurpose_tpu_torch.utils.debug_viz import ValidationDebugger
 
-            debugger = ValidationDebugger(self.workdir)
+            if self.mesh.is_main:
+                debugger = ValidationDebugger(self.workdir)
             if self._debug_pipeline is None:
                 self._debug_pipeline = InferencePipeline(
                     self._eval_model_cfg, params, self.cfg.test_cfg, raw_outputs=True,
-                    device=self.device)
+                    device=self.device, mesh=self.mesh)
             pipeline = self._debug_pipeline
 
         def meta_for(i, sample=None) -> dict:
@@ -339,6 +359,12 @@ class Trainer:
             paths = debugger.render(max_debug_samples)
             debugger.write_log()
             self.metrics.log_images(paths, self.state.step)
+        if self.mesh.size("data") > 1:
+            total = torch.tensor([sums[t] for t in TIOU_THRESHOLDS] + [count],
+                                 dtype=torch.float64, device=self.device)
+            total = self.mesh.all_reduce(total, "data").tolist()
+            sums = dict(zip(TIOU_THRESHOLDS, total))
+            count = int(round(total[-1]))
         out = {f"tiou/{t}": (sums[t] / count if count else 0.0) for t in TIOU_THRESHOLDS}
         out["tiou/mean"] = float(np.mean([out[f"tiou/{t}"] for t in TIOU_THRESHOLDS]))
         return out
@@ -397,14 +423,14 @@ class Trainer:
                 if hist_now:
                     self.metrics.log_histograms(self._layer_names, m["hist/grads/counts"],
                                                 m["hist/grads/edges"], step, prefix="grads")
-                    ph = param_histograms(self.state.model)
+                    ph = param_histograms(self.state.model, self.mesh)
                     self.metrics.log_histograms(self._layer_names, ph["counts"], ph["edges"],
                                                 step, prefix="params")
                 if tc.intra_epoch_eval_freq and (i + 1) % tc.intra_epoch_eval_freq == 0:
                     val_loss = self._val_probe()
                     if val_loss is not None:
                         self.metrics.log({"val/loss": val_loss}, step)
-                if preempted["flag"]:
+                if self._preempted(preempted["flag"]):
                     logger.warning("SIGTERM received: checkpointing and exiting")
                     self._save(epoch, {"preempted": True}, epoch_complete=False)
                     return {"preempted": True, "epoch": epoch}
@@ -425,6 +451,15 @@ class Trainer:
         self.start_epoch = epochs  # a later fit() continues from here
         return {"best_tiou": self.best_tiou, "best_epoch": self.best_epoch,
                 "final_loss": epoch_loss, "step": self.state.step, **final_eval}
+
+    def _preempted(self, flag: bool) -> bool:
+        """Whether any rank got SIGTERM: each rank's flag, taken over the
+        world, so that every rank saves at the same step."""
+        if self.mesh.world == 1:
+            return flag
+        x = torch.tensor([float(flag)], device=self.device)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX)
+        return bool(x.item())
 
     def close(self) -> None:
         """Waits for checkpoint writes in flight and closes the logs."""

@@ -13,6 +13,25 @@ the real videos in the batch (under packing, the segments, not the rows).
 The gradient histograms (``grad_histograms``) and ``param_histograms`` are
 the wandb.watch(model) equivalent: ``HIST_BINS`` bins per matrix parameter,
 with ``jnp.histogram``'s edges and counting rule (``histogram``).
+
+On a mesh (``parallel/mesh.py``) the step equals the one-process step on
+the global batch, as the JAX step on a data-sharded batch does by
+construction:
+
+- ``data`` > 1: each rank holds its rows. The real videos are summed over
+  the axis first and the global denominator is every rank's
+  ``norm_override`` (per-rank ``n_real`` differ under packing and on a
+  padded last batch, so a mean of per-rank losses would not be the global
+  loss); then the gradients are SUMMED over the axis, once per step after
+  any accumulation (``all_reduce_grads``). The loss metrics are summed
+  likewise. Each data rank draws its own dropout masks: its coordinate is
+  folded into ``dropout_seed``.
+- ``model`` > 1: the tensor-parallel model (models/encoder.py). The
+  gradient norm sums the squared norms of sharded parameters over the
+  axis and counts replicated ones once; histograms are of the gathered
+  values.
+
+The non-finite guard reads the global loss and norm, so it is global.
 """
 
 from __future__ import annotations
@@ -26,6 +45,11 @@ from repurpose_tpu_torch.config import ModelConfig, TrainConfig
 from repurpose_tpu_torch.data.batching import Batch
 from repurpose_tpu_torch.models import require_unpacked
 from repurpose_tpu_torch.ops.losses import masked_cls_loss, masked_reg_loss
+from repurpose_tpu_torch.parallel.sharding import (
+    all_reduce_grads,
+    gather_tensor,
+    param_sharding_rule,
+)
 from repurpose_tpu_torch.train.state import TrainState
 
 _BATCH_DTYPES = {"mask": torch.bool, "durations": torch.int64, "seg_ids": torch.int32,
@@ -59,6 +83,20 @@ def loss_denominator(train_cfg: TrainConfig, batch: Batch):
     return n_real, norm
 
 
+def global_denominator(train_cfg: TrainConfig, batch: Batch, mesh=None):
+    """(n_real, norm) of the global batch of which ``batch`` is this rank's
+    rows: ``loss_denominator``'s, with the real videos summed over the
+    mesh's ``data`` axis and the configured batch size (per rank) times its
+    size."""
+    n_real, norm = loss_denominator(train_cfg, batch)
+    if mesh is None or mesh.size("data") == 1:
+        return n_real, norm
+    n_real = mesh.all_reduce(n_real.clone(), "data")
+    if train_cfg.loss_norm == "config_batch_size":
+        return n_real, norm * mesh.size("data")
+    return n_real, n_real.clamp(min=1).float()
+
+
 def loss_fn(model, train_cfg: TrainConfig, batch: Batch, norm_override=None):
     """(total loss, aux metrics) of one forward; the model's mode (train or
     eval) decides whether dropout is on."""
@@ -81,11 +119,13 @@ def loss_fn(model, train_cfg: TrainConfig, batch: Batch, norm_override=None):
     return total, aux
 
 
-def dropout_seed(seed: int, step: int) -> int:
+def dropout_seed(seed: int, step: int, data_rank: int = 0) -> int:
     """Seed of step ``step``'s dropout masks: a hash of (seed, step), as the
     JAX step folds the step into its key (``fold_in(rng, state.step)``), so
-    a resumed run draws the masks an uninterrupted one would."""
-    return int(np.random.SeedSequence([seed % 2**32, step]).generate_state(1, np.uint64)[0])
+    a resumed run draws the masks an uninterrupted one would. Data rank
+    r > 0 folds r in too: its rows get draws of their own."""
+    words = [seed % 2**32, step] + ([data_rank] if data_rank else [])
+    return int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0])
 
 
 def kernel_layer_names(model) -> list[str]:
@@ -117,18 +157,48 @@ def histogram(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return counts, edges
 
 
-def _kernel_params(model) -> list[torch.nn.Parameter]:
-    return [p for p in model.parameters() if p.ndim == 2]
+def _kernel_params(model) -> list[tuple[str, torch.nn.Parameter]]:
+    return [(n, p) for n, p in model.named_parameters() if p.ndim == 2]
+
+
+def _tp(mesh) -> bool:
+    return mesh is not None and mesh.size("model") > 1
 
 
 @torch.no_grad()
-def param_histograms(model) -> dict:
+def param_histograms(model, mesh=None) -> dict:
     """Per-matrix parameter histograms {counts [L, B], edges [L, B + 1]},
     rows labelled by ``kernel_layer_names``: the parameter half of the
-    wandb.watch equivalent."""
-    hists = [histogram(p) for p in _kernel_params(model)]
+    wandb.watch equivalent (of the gathered values under tensor
+    parallelism: a collective over ``model``)."""
+    hists = [histogram(gather_tensor(n, p, mesh) if _tp(mesh) else p)
+             for n, p in _kernel_params(model)]
     return {"counts": torch.stack([c for c, _ in hists]),
             "edges": torch.stack([e for _, e in hists])}
+
+
+def _grad_norms(model, mesh, per_layer: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(global gradient norm, per-matrix norms or None). Under tensor
+    parallelism the squared norms of sharded parameters are summed over
+    ``model`` (one all_reduce) and replicated ones counted once."""
+    named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+    if not _tp(mesh):
+        total = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(p.grad.float()) for _, p in named]))
+        layers = None
+        if per_layer:
+            layers = torch.stack([
+                torch.linalg.vector_norm(p.grad.float()) if p.grad is not None
+                else torch.zeros((), device=p.device) for _, p in _kernel_params(model)])
+        return total, layers
+    rows = named + ([(n, p) for n, p in _kernel_params(model)] if per_layer else [])
+    sq = torch.stack([torch.linalg.vector_norm(p.grad.float()) ** 2 if p.grad is not None
+                      else torch.zeros((), device=p.device) for _, p in rows])
+    sharded = torch.tensor([param_sharding_rule(n) is not None for n, _ in rows],
+                           device=sq.device)
+    sq = torch.where(sharded, mesh.all_reduce(torch.where(sharded, sq, 0.0), "model"), sq)
+    total = sq[: len(named)].sum().sqrt()
+    return total, (sq[len(named):].sqrt() if per_layer else None)
 
 
 def _chunk(batch: Batch, c: int, accum: int) -> Batch:
@@ -137,7 +207,8 @@ def _chunk(batch: Batch, c: int, accum: int) -> Batch:
 
 
 def make_train_step(
-    model_cfg: ModelConfig, train_cfg: TrainConfig, schedule: Callable | None = None
+    model_cfg: ModelConfig, train_cfg: TrainConfig, schedule: Callable | None = None,
+    mesh=None,
 ) -> Callable:
     """``train_step(state, batch, per_layer_grad_norms=False,
     grad_histograms=False) -> metrics``: one Adam update of ``state`` on a
@@ -147,8 +218,14 @@ def make_train_step(
     ``grad_norms/stacked`` and with ``grad_histograms``
     ``hist/grads/counts`` [L, HIST_BINS] and ``hist/grads/edges``
     [L, HIST_BINS + 1], both labelled by ``kernel_layer_names`` (a matrix
-    without a gradient counts as zeros, as the JAX step's zero gradient)."""
+    without a gradient counts as zeros, as the JAX step's zero gradient).
+    ``mesh``: ``batch`` is this rank's rows and the step is the global one
+    (module docstring); every rank of the mesh must call it."""
     accum = max(int(train_cfg.grad_accum_steps), 1)
+    # the replicated dropout masks need one generator state on every model rank
+    needs_generator = _tp(mesh) and model_cfg.dropout > 0
+    data_rank = 0 if mesh is None else mesh.coord("data")
+    data_parallel = mesh is not None and mesh.size("data") > 1
     accum_dtype = (torch.bfloat16 if train_cfg.grad_accum_dtype == "bfloat16"
                    else torch.float32)
 
@@ -159,7 +236,7 @@ def make_train_step(
         b = batch.visual.shape[0]
         if b % accum:
             raise ValueError(f"batch {b} not divisible by grad_accum_steps {accum}")
-        n_real, norm = loss_denominator(train_cfg, batch)
+        n_real, norm = global_denominator(train_cfg, batch, mesh)
         sums: dict[torch.nn.Parameter, torch.Tensor] = {}
         aux_sum: dict[str, torch.Tensor] = {}
         for c in range(accum):
@@ -184,8 +261,12 @@ def make_train_step(
         model, opt = state.model, state.optimizer
         model.train()
         gen = getattr(model, "dropout_generator", None)
+        if gen is None and needs_generator:
+            raise ValueError("tensor parallelism with dropout needs the model's dropout "
+                             "generator (MMCT.set_dropout_generator): the model ranks must "
+                             "draw the same masks")
         if gen is not None:
-            gen.manual_seed(dropout_seed(train_cfg.seed, state.step))
+            gen.manual_seed(dropout_seed(train_cfg.seed, state.step, data_rank))
         lr = schedule(state.step) if schedule is not None else None
         if lr is not None:
             for group in opt.param_groups:
@@ -194,23 +275,24 @@ def make_train_step(
         if accum > 1:
             aux = accumulate(model, batch)
         else:
-            total, aux = loss_fn(model, train_cfg, batch)
+            n_real, norm = global_denominator(train_cfg, batch, mesh)
+            total, aux = loss_fn(model, train_cfg, batch, norm_override=norm)
             total.backward()
             aux = {k: v.detach() for k, v in aux.items()}
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+            aux["n_real"] = n_real
+        if data_parallel:  # once per step, after any accumulation
+            all_reduce_grads(model.parameters(), mesh)
+            keys = [k for k in ("loss", "cls_loss", "reg_loss") if k in aux]
+            sums = mesh.all_reduce(torch.stack([aux[k].float() for k in keys]), "data")
+            aux.update(zip(keys, sums.unbind()))
         metrics = dict(aux)
-        metrics["grad_norm"] = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
-        )
+        metrics["grad_norm"], layer_norms = _grad_norms(model, mesh, per_layer_grad_norms)
         if per_layer_grad_norms:
-            metrics["grad_norms/stacked"] = torch.stack([
-                torch.linalg.vector_norm(p.grad.float()) if p.grad is not None
-                else torch.zeros((), device=p.device)
-                for p in model.parameters() if p.ndim == 2
-            ])
+            metrics["grad_norms/stacked"] = layer_norms
         if grad_histograms:
-            hists = [histogram(p.grad if p.grad is not None else torch.zeros_like(p))
-                     for p in _kernel_params(model)]
+            hists = [histogram(gather_tensor(n, g, mesh) if _tp(mesh) else g)
+                     for n, g in ((n, p.grad if p.grad is not None else torch.zeros_like(p))
+                                  for n, p in _kernel_params(model))]
             metrics["hist/grads/counts"] = torch.stack([c for c, _ in hists])
             metrics["hist/grads/edges"] = torch.stack([e for _, e in hists])
         if lr is not None:

@@ -1,9 +1,8 @@
 """Metric logging as JSON lines, and to wandb when asked for
-(``repurpose_tpu/utils/logging_utils.py`` without the multi-host process
-check: the port trains in one process). Each record is one line of
+(``repurpose_tpu/utils/logging_utils.py``). Each record is one line of
 ``workdir/metrics.jsonl``. ``use_wandb`` imports wandb at construction
 only; where it is missing or its run cannot start, the logger warns and
-keeps to the JSONL file."""
+keeps to the JSONL file. Only the main rank (``is_main``) writes."""
 
 from __future__ import annotations
 
@@ -20,10 +19,14 @@ logger = logging.getLogger(__name__)
 
 class MetricLogger:
     def __init__(self, workdir: str, use_wandb: bool = False,
-                 config: Mapping | None = None):
+                 config: Mapping | None = None, is_main: bool = True):
+        self.is_main = is_main
+        self._file = None
+        self._wandb = None
+        if not is_main:
+            return
         os.makedirs(workdir, exist_ok=True)
         self._file = open(os.path.join(workdir, "metrics.jsonl"), "a")
-        self._wandb = None
         if use_wandb:
             try:
                 import wandb
@@ -43,6 +46,8 @@ class MetricLogger:
     def log(self, metrics: Mapping[str, Any], step: int) -> None:
         """One record; tensors and numpy scalars become floats (a device
         tensor is read back here, so log on a cadence)."""
+        if not self.is_main:
+            return
         record = {"step": step, "time": time.time()}
         for k, v in metrics.items():
             record[k] = float(v) if hasattr(v, "__float__") else v
@@ -57,6 +62,8 @@ class MetricLogger:
         [L, B] and ``edges`` [L, B + 1] (tensors or arrays), rows labelled by
         ``names``. The JSONL file gets the raw arrays; wandb its Histogram
         objects."""
+        if not self.is_main:
+            return
         counts = np.asarray(counts.cpu() if hasattr(counts, "cpu") else counts)
         edges = np.asarray(edges.cpu() if hasattr(edges, "cpu") else edges)
         record: dict[str, Any] = {"step": step, "time": time.time()}

@@ -315,14 +315,17 @@ def test_entry_points_raise_without_a_card(tmp_path):
 
 
 def test_training_options_not_ported_raise(tmp_path):
-    """The mesh is not ported and raises; remat is ported (tests/test_torch_remat.py)
-    and builds a Trainer whose encoder rematerialises its layers."""
+    """The mesh's seq and pipe axes are not ported and raise (data and model
+    are: tests/test_torch_parallel.py); remat is ported
+    (tests/test_torch_remat.py) and builds a Trainer whose encoder
+    rematerialises its layers."""
     remat = Trainer(dataclasses.replace(CFG, model=dataclasses.replace(MODEL, remat=True)),
                     str(tmp_path), _datasets()[0], device="cpu")
     assert remat.state.model.multimodal_encoder.remat
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        Trainer(dataclasses.replace(CFG, mesh=MeshConfig(data=1, model=2)),
-                str(tmp_path), _datasets()[0], device="cpu")
+    for mesh in (MeshConfig(data=1, pipe=2), MeshConfig(data=1, seq=2)):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            Trainer(dataclasses.replace(CFG, mesh=mesh), str(tmp_path), _datasets()[0],
+                    device="cpu")
 
 
 def test_chip_smoke_config_is_the_production_config():
