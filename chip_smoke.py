@@ -149,11 +149,24 @@ verdict line):
    multi-process ``evaluate`` (data=2, model=2) against the one-process one;
    (e) the train CLI and ``preflight`` under torchrun; each rank's step time
    and its time in collectives, labelled as shared-card times;
-17. a JSON line listing every ported kernel, then the verdict line
+17. pipeline and sequence parallelism, two ranks sharing the card over gloo
+   as in 16: (a) pipe=2 with GPipe and (b) with 1F1B (a stage of 8 layers
+   each, 2 microbatches of [3, 2048] of the packed global batch) against
+   the one-process steps, with exact launches per rank of the tensor-core
+   forward, prep and dq / dk-dv pair and those kernels held against their
+   plain versions on a stage's microbatch q/k/v; the peak memory per rank
+   of the two schedules at 6 microbatches; (c) seq=2 ring attention on one
+   8192 s video (each rank [1, 4096], remat), bf16 and float32, against one
+   process on the whole row with the plain attention, and the ring op alone
+   at [1, 8192, 8, 64] against ``mha_torch``; (d) the multi-process
+   ``evaluate`` with the ring live and on pipe=2; (e) the train CLI on a
+   ``pipe: 2`` config under torchrun and 16's ``preflight``'s pipeline check;
+18. a JSON line listing every ported kernel, then the verdict line
    ``{"ok": true, "device": {...}}``.
 
-``python3 chip_smoke.py --parallel-worker DIR`` is phase 16's rank, started
-by torchrun; run the script with no arguments.
+``python3 chip_smoke.py --parallel-worker DIR`` and ``--pipeline-worker
+DIR`` are phase 16's and 17's ranks, started by torchrun; run the script
+with no arguments.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -3550,6 +3563,121 @@ def _update_rel(got: dict, want: dict, init: dict) -> float:
     return (num / den) ** 0.5
 
 
+def _reference_steps(mc, tc, batch, steps: int, grad_parts: bool = False) -> dict:
+    """One process's steps on the card: (loss, grad norm) a step, step ms,
+    the peak allocated, the optimizer's bytes, the parameters after them;
+    with ``grad_parts`` the first step's gradient norm of each part
+    (``_parts``) and the parts below ``NOISE_GRAD_REL`` of the largest."""
+    import torch
+
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.train.state import TrainState, make_optimizer, optimizer_state_bytes
+    from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
+
+    model = build_model(mc, "cuda", seed=SEED)
+    opt, schedule = make_optimizer(model, tc, 1)
+    state = TrainState(model, opt)
+    step = make_train_step(mc, tc, schedule)
+    dev = batch_to_device(batch, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    hist, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, dev)
+        hist.append([float(m["loss"]), float(m["grad_norm"])])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if grad_parts and len(hist) == 1:  # the step leaves its gradients in .grad
+            norms = {k: float(g.double().norm()) for k, g in _parts(
+                (n, p.grad) for n, p in model.named_parameters() if p.grad is not None).items()}
+    out = dict(hist=hist, step_ms=ms, peak=torch.cuda.max_memory_allocated(),
+               opt_bytes=optimizer_state_bytes(opt),
+               params={k: v.detach().cpu() for k, v in model.state_dict().items()})
+    if grad_parts:
+        top = max(norms.values())
+        out.update(grad_norms=norms,
+                   noise_parts=sorted(k for k, x in norms.items() if x < NOISE_GRAD_REL * top))
+    del model, opt, state
+    torch.cuda.empty_cache()
+    return out
+
+
+
+
+# A part of the parameters whose one-process gradient is below this share of
+# the largest part's is rounding noise (the key biases: softmax cancels
+# them, so their exact gradient is 0), and Adam moves it by about lr a step
+# in a direction the summation order picks. Phase 17's ring runs hold such
+# parts within 2 lr a step of one process and the update's relative L2
+# over the rest. Set from the gradient norms that ``_reference_steps`` read on the
+# card before it was first applied.
+NOISE_GRAD_REL = 1e-6
+
+
+def _parts(named) -> dict:
+    """``named``'s tensors by name, each attention's ``in_proj_*`` cut into
+    its q, k and v thirds (``name[q]``, ...)."""
+    out = {}
+    for k, v in named:
+        if ".in_proj_" in k:
+            d = v.shape[0] // 3
+            for i, part in enumerate("qkv"):
+                out[f"{k}[{part}]"] = v[i * d : (i + 1) * d]
+        else:
+            out[k] = v
+    return out
+
+
+def _noise_summary(ref: dict) -> str:
+    """The first step's gradient norms of one process: the largest part, the
+    smallest above ``NOISE_GRAD_REL`` of it, and the parts below it."""
+    norms, noise = ref["grad_norms"], set(ref["noise_parts"])
+    top = max(norms, key=norms.get)
+    kept = min((k for k in norms if k not in noise), key=norms.get)
+    below = sorted(norms[k] for k in noise)
+    return (f"largest {norms[top]:.4g} ({top}), smallest kept {norms[kept]:.4g} ({kept}); "
+            f"{len(noise)} parts below {NOISE_GRAD_REL:g} of the largest"
+            + (f", {sum(k.endswith('in_proj_bias[k]') for k in noise)} of them key biases, "
+               f"norms {below[0]:.4g}..{below[-1]:.4g}" if noise else ""))
+
+
+def _hold_run(label: str, got: list, ref: dict, tol: dict, params, init,
+              lr: float | None = None, steps: int = 0) -> float:
+    """Every rank's (loss, grad norm) within ``tol`` of the one-process steps
+    (step 1, then the later steps), the ranks equal, the update's relative
+    L2 within ``tol["update"]``; returns that L2. With ``lr`` the update is
+    held over every part (``_parts``) but the one-process run's noise parts
+    (``NOISE_GRAD_REL``), and those within 2 lr a step of the one-process
+    ones."""
+    for r, g in enumerate(got):
+        for i, ((loss, norm), (rl, rn)) in enumerate(zip(g["hist"], ref["hist"])):
+            j = min(i, 1)
+            check(abs(loss - rl) <= tol["loss"][j] * abs(rl)
+                  and abs(norm - rn) <= tol["norm"][j] * abs(rn),
+                  f"{label} rank {r} step {i + 1}: loss/norm {g['hist']} against "
+                  f"{ref['hist']} (bounds {tol})")
+        check(g["hist"] == got[0]["hist"], f"{label}: the ranks logged {got[0]['hist']} and "
+                                           f"{g['hist']}")
+    if lr is None:
+        rel = _update_rel(params, ref["params"], init)
+    else:
+        noise = set(ref["noise_parts"])
+        got_p, want_p, init_p = ({k: v for k, v in _parts(x.items()).items() if k not in noise}
+                                 for x in (params, ref["params"], init))
+        rel = _update_rel(got_p, want_p, init_p)
+        got_n, want_n = (_parts(x.items()) for x in (params, ref["params"]))
+        off = max((float((got_n[k].double() - want_n[k].double()).abs().max())
+                   for k in noise), default=0.0)
+        check(off <= 2 * lr * steps * (1 + 1e-3),
+              f"{label}: a noise part {off:.3g} off, past 2 lr a step")
+        print(f"[pipeline] {label}: one process's first-step gradient norms: "
+              f"{_noise_summary(ref)}; those parts within {off:.3g} of one process (2 lr a "
+              f"step: {2 * lr * steps:.3g}); update rel L2 with them "
+              f"{_update_rel(params, ref['params'], init):.4g}")
+    check(rel <= tol["update"], f"{label}: update relative L2 {rel:.4g} > {tol['update']}")
+    return rel
+
+
 def phase_parallel(card: str, workdir: str) -> dict:
     """Item 9, parts 1-3, at the production width: two ranks sharing the card
     over gloo (torchrun), re-grouped into (a) data=2 (each rank [3, 2048] of
@@ -3573,8 +3701,6 @@ def phase_parallel(card: str, workdir: str) -> dict:
     from repurpose_tpu_torch.models import build_model
     from repurpose_tpu_torch.train import __main__ as cli
     from repurpose_tpu_torch.train.loop import Trainer
-    from repurpose_tpu_torch.train.state import TrainState, make_optimizer, optimizer_state_bytes
-    from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
 
     t_phase = time.perf_counter()
     cfg = _parallel_config()
@@ -3595,28 +3721,13 @@ def phase_parallel(card: str, workdir: str) -> dict:
 
     # the one-process references on the global batch, one per dtype
     tc = dataclasses.replace(cfg.train, batch_size=6)
-    dev_batch = batch_to_device(batch, "cuda")
     refs = {}
     for dtype, steps in (("bfloat16", PARALLEL_STEPS), ("float32", 2)):
-        rmc = _run_model(cfg, dtype)
-        model = build_model(rmc, "cuda", seed=SEED)
-        opt, schedule = make_optimizer(model, tc, 1)
-        state = TrainState(model, opt)
-        step = make_train_step(rmc, tc, schedule)
-        hist, ms = [], []
-        for _ in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            m = step(state, dev_batch)
-            hist.append([float(m["loss"]), float(m["grad_norm"])])
-            ms.append((time.perf_counter() - t0) * 1e3)
-        refs[dtype] = dict(hist=hist, step_ms=ms, opt_bytes=optimizer_state_bytes(opt),
-                           params={k: v.detach().cpu() for k, v in model.state_dict().items()})
+        refs[dtype] = _reference_steps(_run_model(cfg, dtype), tc, batch, steps)
         print(f"[parallel] {card}: one process, {dtype}, packed [6, 2048], {steps} steps: "
-              f"loss/grad norm {json.dumps(hist)}, step ms "
-              f"{json.dumps([round(x, 2) for x in ms])}, Adam state "
+              f"loss/grad norm {json.dumps(refs[dtype]['hist'])}, step ms "
+              f"{json.dumps([round(x, 2) for x in refs[dtype]['step_ms']])}, Adam state "
               f"{refs[dtype]['opt_bytes'] / 1e6:.1f} MB")
-        del model, opt, state
     one = Trainer(cfg, os.path.join(workdir, "eval_one"),
                   SyntheticDataset(list(PARALLEL_EVAL_VIDEOS), mc, seed=7),
                   test_ds=SyntheticDataset(list(PARALLEL_EVAL_VIDEOS), mc, seed=7),
@@ -3646,16 +3757,9 @@ def phase_parallel(card: str, workdir: str) -> dict:
         tc_kernels = run["dtype"] == "bfloat16"
         want_heads = mc.num_heads // run["axes"].get("model", 1)
         steps = run.get("steps", PARALLEL_STEPS)
+        rel = _hold_run(name, got, ref, tol, params, init)
         for r, g in enumerate(got):
             check(g["local_rows"] == run["rows"], f"{name} rank {r}: {g['local_rows']} rows")
-            for i, ((loss, norm), (rl, rn)) in enumerate(zip(g["hist"], ref["hist"])):
-                j = min(i, 1)
-                check(abs(loss - rl) <= tol["loss"][j] * abs(rl)
-                      and abs(norm - rn) <= tol["norm"][j] * abs(rn),
-                      f"{name} rank {r} step {i + 1}: loss/norm {g['hist']} against "
-                      f"{ref['hist']} (bounds {tol})")
-            check(g["hist"] == got[0]["hist"], f"{name}: the ranks logged {got[0]['hist']} "
-                                               f"and {g['hist']}")
             layers = mc.self_num_layers * steps
             want = {k: layers if tc_kernels else 0 for k in PARALLEL_TC}
             want.update({k: layers for k in PARALLEL_FIRST})
@@ -3673,8 +3777,6 @@ def phase_parallel(card: str, workdir: str) -> dict:
                 print(f"[parallel] {card}: ({name.split('_')[0]}) rank {r}: the tensor-core "
                       f"forward, prep and dq / dk-dv pair against their plain versions on "
                       f"this rank's first-layer q/k/v: {json.dumps(held)}")
-        rel = _update_rel(params, ref["params"], init)
-        check(rel <= tol["update"], f"{name}: update relative L2 {rel:.4g} > {tol['update']}")
         results[name] = dict(ranks=got, update_rel=rel, params=params)
         print(f"[parallel] {card}: ({name.split('_')[0]}) {run['dtype']}, mesh {got[0]['mesh']}, "
               f"each rank [{run['rows']}, 2048]: loss/grad norm {json.dumps(got[0]['hist'])} "
@@ -3748,7 +3850,480 @@ def phase_parallel(card: str, workdir: str) -> dict:
                       for k, v in results.items()},
                 reference={k: {x: v[x] for x in ("hist", "step_ms", "opt_bytes")}
                            for k, v in refs.items()},
-                evaluate=evals, cli_s=cli_s, preflight_s=pre_s)
+                evaluate=evals, cli_s=cli_s, preflight_s=pre_s, preflight_log=log)
+
+
+# -- phase 17: pipeline and sequence parallelism --------------------------------
+
+# (a) and (b): the pipe = 2 runs on the packed global [6, 2048] batch, each
+# rank a stage of 8 layers, M microbatches of 3 rows, against the one-process
+# steps (phase 16's references). Every microbatch's forward and backward is
+# the one-process one but for cuBLAS's choice of kernel for 3 x 2048 rows
+# instead of 6 x 2048, and the stage's weight gradients are the two
+# microbatches' bf16 products summed in float32: phase 16 (a)'s kind of
+# difference, so (a)'s bounds (BF16_DP_TOL, set before the first run).
+PIPE_STEPS = 3
+PIPE_M = 2
+PIPE_MEMORY_M = 6  # (b)'s memory comparison: one row a microbatch
+# (c): seq = 2, ring attention, one video of 8192 s unpacked ([1, 8192]) in
+# configs/longvideo.yaml's model settings (remat), each rank [1, 4096],
+# against one process on the whole row with attention_impl="xla". In bf16
+# the ring keeps the probabilities in float32 for P V where mha_torch
+# rounds them to bf16 first, so every layer's attention output is rounded
+# otherwise: phase 16 (b)'s kind of difference and (b)'s bounds. In float32
+# the two differ by summation order only: (b32)'s bounds. Set before the
+# first run. That run held every bound but (c32)'s update, 0.02098 over all
+# parameters: parts whose gradient is float32 noise (``NOISE_GRAD_REL``)
+# flip sign at random, each a 2 lr Adam difference. So the update is held
+# without them, at the same bounds, and they within 2 lr a step.
+RING_T = 8192
+RING_RUNS = {
+    "c_ring_bf16": dict(dtype="bfloat16", steps=3,
+                        tol=dict(loss=(5e-3, 5e-2), norm=(2e-2, 0.15), update=0.5)),
+    "c32_ring_float32": dict(dtype="float32", steps=2,
+                             tol=dict(loss=(1e-4, 1e-4), norm=(1e-3, 1e-3), update=0.02)),
+}
+# The ring op alone at [1, 8192, 8, 64] against mha_torch on the whole
+# sequence, forward and gradients of sum(out ** 2) (the tail 10 % of keys
+# masked): float32 within 1e-5 of each tensor's largest element (sums in
+# another order), bf16 inputs within BWD_REL_BF16 of it (the output is
+# rounded to bf16 once, mha_torch rounds its probabilities too).
+RING_OP_REL = {"float32": 1e-5, "bfloat16": BWD_REL_BF16}
+
+
+def _ring_op_inputs(dtype: str):
+    """q, k, v [1, RING_T, 8, 64] (``dtype``) and the key mask, on the card,
+    the same on every rank."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    q, k, v = (torch.randn((1, RING_T, 8, 64), generator=gen).to("cuda", getattr(torch, dtype))
+               for _ in range(3))
+    mask = torch.ones((1, RING_T), dtype=torch.bool, device="cuda")
+    mask[:, int(0.9 * RING_T):] = False
+    return q, k, v, mask
+
+
+def _long_ring_batch(mc):
+    from repurpose_tpu_torch.data.batching import collate
+    from repurpose_tpu_torch.data.synthetic import SyntheticDataset
+
+    ds = SyntheticDataset([RING_T], mc, seed=SEED + 17)
+    return collate([ds[0]], (RING_T,), 1)
+
+
+def _ring_config(dtype: str):
+    """``configs/longvideo.yaml``'s model (remat) with ``dtype`` activations
+    and interior, dropout 0, lr ``PARALLEL_LR``."""
+    cfg = longvideo_config()
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dropout=0.0, compute_dtype=dtype,
+                                       attn_softmax_dtype=dtype),
+        train=dataclasses.replace(cfg.train, lr=PARALLEL_LR))
+
+
+def pipeline_worker(workdir: str) -> int:
+    """One of phase 17's two ranks (started by torchrun; both share the card
+    over gloo): runs (a)-(d) on the inputs the parent wrote to ``workdir``
+    and writes each rank's results there."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from repurpose_tpu_torch.parallel.mesh import maybe_initialize_distributed
+
+    maybe_initialize_distributed("gloo", "cuda", share_card=True)  # before any CUDA work
+    from repurpose_tpu_torch.config import MeshConfig
+    from repurpose_tpu_torch.data.batching import Batch
+    from repurpose_tpu_torch.data.synthetic import SyntheticDataset
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.ops import flash_attention as fa
+    from repurpose_tpu_torch.ops.ring_attention import ring_attention
+    from repurpose_tpu_torch.parallel.mesh import Mesh, create_mesh, mesh_self_check
+    from repurpose_tpu_torch.parallel.pipeline_1f1b import make_1f1b_train_step
+    from repurpose_tpu_torch.parallel.sharding import local_rows
+    from repurpose_tpu_torch.train.loop import Trainer
+    from repurpose_tpu_torch.train.state import TrainState, make_optimizer
+    from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
+
+    rank = dist.get_rank()
+    cfg = _parallel_config()
+    mc = cfg.model
+    sd = torch.load(os.path.join(workdir, "init.pt"), weights_only=True)
+    z = np.load(os.path.join(workdir, "batch.npz"))
+    global_batch = Batch(*[z[f] if f in z.files else None for f in Batch._fields])
+
+    # observers only (the wrappers count the launches): the time in the hops
+    # and collectives, and the first tensor-core forward's inputs
+    spent = {"s": 0.0}
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                spent["s"] += time.perf_counter() - t0
+        return call
+
+    Mesh.hop = timed(Mesh.hop)
+    dist.all_reduce, dist.broadcast = timed(dist.all_reduce), timed(dist.broadcast)
+    fwd_launch, first_fwd = fa._fwd_tc_launch, []
+
+    def fwd_seen(q, *args, **kwargs):
+        if not first_fwd:
+            first_fwd.append((q, *args))
+        return fwd_launch(q, *args, **kwargs)
+
+    fa._fwd_tc_launch = fwd_seen
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17 + rank)
+    out: dict = {"rank": rank}
+
+    def steps(step, state, batch, n):
+        hist, ms, hop_ms = [], [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            c0, t0 = spent["s"], time.perf_counter()
+            m = step(state, batch)
+            hist.append([float(m["loss"]), float(m["grad_norm"])])  # reads: synchronises
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hop_ms.append((spent["s"] - c0) * 1e3)
+        return hist, ms, hop_ms
+
+    # (a) GPipe and (b) 1F1B on pipe = 2
+    mesh = create_mesh(MeshConfig(data=1, pipe=2), "gloo", "cuda", share_card=True)
+    check(mesh_self_check(mesh) == 2, "mesh self-check")
+    batch = batch_to_device(local_rows(global_batch, mesh), mesh.device)
+    for name, schedule in (("a_gpipe", "gpipe"), ("b_1f1b", "1f1b")):
+        tc = dataclasses.replace(cfg.train, batch_size=6, pipeline_schedule=schedule,
+                                 pipeline_microbatches=PIPE_M)
+        model = build_model(mc, mesh.device, seed=SEED, mesh=mesh)
+        model.load_state_dict(sd, strict=True)
+        opt, sched = make_optimizer(model, tc, 1, mesh)
+        state = TrainState(model, opt, mesh=mesh)
+        step = (make_1f1b_train_step(mc, tc, sched, mesh, PIPE_M) if schedule == "1f1b"
+                else make_train_step(mc, tc, sched, mesh))
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launches()
+        first_fwd.clear()
+        hist, ms, hop_ms = steps(step, state, batch, PIPE_STEPS)
+        launches = read_launches(*PARALLEL_TC, *PARALLEL_FIRST)
+        q, k, v, kv, seg, _, _, _, sm, scale = first_fwd[0]
+        held = _hold_attention_at(f"{name} rank {rank}", q, k, v, kv, seg, sm, scale, gen)
+        first_fwd.clear()
+        params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        if rank == 0:
+            torch.save(params, os.path.join(workdir, f"params_{name}.pt"))
+        out[name] = dict(hist=hist, step_ms=ms, hop_ms=hop_ms, launches=launches,
+                         kernel_vs_plain=held, local_rows=int(batch.visual.shape[0]))
+        del model, opt, state, params
+        torch.cuda.empty_cache()
+    # (b) memory: one step of each schedule at M = 6, the peak allocated per rank
+    peaks = {}
+    for schedule in ("gpipe", "1f1b"):
+        tc = dataclasses.replace(cfg.train, batch_size=6, pipeline_schedule=schedule,
+                                 pipeline_microbatches=PIPE_MEMORY_M)
+        model = build_model(mc, mesh.device, seed=SEED, mesh=mesh)
+        opt, sched = make_optimizer(model, tc, 1, mesh)
+        step = (make_1f1b_train_step(mc, tc, sched, mesh, PIPE_MEMORY_M) if schedule == "1f1b"
+                else make_train_step(mc, tc, sched, mesh))
+        state = TrainState(model, opt, mesh=mesh)
+        step(state, batch)  # Adam's moments exist from here on
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(state, batch)
+        torch.cuda.synchronize()
+        peaks[schedule] = dict(peak=torch.cuda.max_memory_allocated(), before=base)
+        del model, opt, state
+        torch.cuda.empty_cache()
+    out["b_memory_m6"] = peaks
+
+    # (c) seq = 2 ring attention on [1, 8192], each rank [1, 4096]
+    mesh = create_mesh(MeshConfig(data=1, seq=2), "gloo", "cuda", share_card=True)
+    check(mesh_self_check(mesh) == 2, "mesh self-check")
+    for name, run in RING_RUNS.items():
+        rcfg = _ring_config(run["dtype"])
+        rmc = dataclasses.replace(rcfg.model, attention_impl="ring")
+        model = build_model(rmc, mesh.device, seed=SEED, mesh=mesh)
+        model.load_state_dict(sd, strict=True)
+        opt, sched = make_optimizer(model, rcfg.train, 1, mesh)
+        state = TrainState(model, opt, mesh=mesh)
+        step = make_train_step(rmc, rcfg.train, sched, mesh)
+        b = batch_to_device(local_rows(_long_ring_batch(rmc), mesh, seq=True), mesh.device)
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        hist, ms, hop_ms = steps(step, state, b, run["steps"])
+        launches = read_launches(*PARALLEL_TC, *PARALLEL_FIRST)
+        peak = torch.cuda.max_memory_allocated()
+        params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        if rank == 0:
+            torch.save(params, os.path.join(workdir, f"params_{name}.pt"))
+        out[name] = dict(hist=hist, step_ms=ms, hop_ms=hop_ms, launches=launches,
+                         local=list(b.visual.shape[:2]), peak=peak)
+        del model, opt, state, params
+        torch.cuda.empty_cache()
+    # (c) the ring op alone: this rank's shard of the output and gradients
+    w = RING_T // 2
+    cols = slice(rank * w, (rank + 1) * w)
+    for dtype in RING_OP_REL:
+        q, k, v, mask = _ring_op_inputs(dtype)
+        q, k, v = (x[:, cols].detach().requires_grad_() for x in (q, k, v))
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        o = ring_attention(q, k, v, mask[:, cols], mesh)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (o.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        torch.save({n: x.detach().cpu() for n, x in (("out", o), ("dq", q.grad), ("dk", k.grad),
+                                                      ("dv", v.grad))},
+                   os.path.join(workdir, f"ring_op_{dtype}_rank{rank}.pt"))
+        out[f"ring_op_{dtype}_ms"] = [(t1 - t0) * 1e3, (t2 - t1) * 1e3]
+        del q, k, v, o
+
+    # (d) multi-process evaluate: ring live on seq = 2 (float32), and pipe = 2
+    eval_sd = torch.load(os.path.join(workdir, "eval_init.pt"), weights_only=True)
+    for key, axes, model_kw in (
+            ("d_eval_seq2_ring", dict(data=1, seq=2), dict(attention_impl="ring",
+                                                           compute_dtype="float32",
+                                                           attn_softmax_dtype="float32")),
+            ("d_eval_pipe2", dict(data=1, pipe=2), {})):
+        ecfg = _eval_config(cfg, model_kw, MeshConfig(**axes))
+        test_ds = SyntheticDataset(list(PARALLEL_EVAL_VIDEOS), ecfg.model, seed=7)
+        trainer = Trainer(ecfg, os.path.join(workdir, "eval"), test_ds, test_ds=test_ds,
+                          init_params=eval_sd, device="cuda", dist_backend="gloo",
+                          share_card=True)
+        reset_launches()
+        res = trainer.evaluate()
+        out[key] = dict(tiou=res, ring=trainer.pipeline.ring,
+                        launches=read_launches("flash_fwd_tc"))
+        trainer.close()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _eval_config(cfg, model_kw: dict, mesh):
+    """(d)'s config: ``model_kw`` over the model, on ``mesh``; unpacked where
+    the model rings (packing composes with no ring) or is its reference."""
+    ring = model_kw.get("attention_impl") in ("ring", "xla")
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **model_kw), mesh=mesh,
+        train=dataclasses.replace(cfg.train, pack_sequences=cfg.train.pack_sequences and not ring))
+
+
+def phase_pipeline_and_ring(card: str, workdir: str, preflight_log: str) -> dict:
+    """Item 9, parts 4-5, at the production width: two ranks sharing the
+    card over gloo (torchrun), re-grouped into (a) pipe = 2 with GPipe and
+    (b) pipe = 2 with 1F1B (each rank a stage of 8 layers, M = 2
+    microbatches of [3, 2048] of the packed global [6, 2048] batch), held to
+    the one-process steps with exact launches per rank of the tensor-core
+    forward, prep and dq / dk-dv pair, and those kernels held against their
+    plain versions on a stage's microbatch q/k/v ([3, 2048, 8, 64]); (b)
+    also prints the peak memory per rank of one step of each schedule at
+    M = 6; (c) seq = 2 ring attention on one 8192 s video ([1, 8192], each
+    rank [1, 4096], remat), bf16 and float32, held to one process on the
+    whole row with the plain attention, and the ring op alone at
+    [1, 8192, 8, 64] against ``mha_torch`` on the whole sequence; (d) the
+    multi-process ``evaluate`` with the ring live on seq = 2 (float32) and
+    on pipe = 2, against one process; (e) the train CLI with a ``pipe: 2``
+    config under torchrun, and phase 16's ``preflight`` run's pipeline
+    check on both ranks. Times are of two ranks sharing one card: gloo's
+    transport, not pipeline throughput."""
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch.data.loader import BatchLoader
+    from repurpose_tpu_torch.data.synthetic import SyntheticDataset
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.ops.attention import mha_torch
+    from repurpose_tpu_torch.train import __main__ as cli
+    from repurpose_tpu_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = _parallel_config()
+    mc = cfg.model
+    init = {k: v.detach().cpu() for k, v in build_model(mc, "cpu", seed=SEED).state_dict().items()}
+    torch.save(init, os.path.join(workdir, "init.pt"))
+    eval_sd = dict(init)
+    eval_sd["reg_head.7.bias"] = torch.full_like(init["reg_head.7.bias"], 15.0)
+    torch.save(eval_sd, os.path.join(workdir, "eval_init.pt"))
+    train_ds, _, _ = cli.build_datasets(cfg, PARALLEL_VIDEOS)
+    batch = next(iter(BatchLoader(train_ds, 6, cfg.train.buckets, seed=cfg.train.seed,
+                                  pack=True).epoch(0)))
+    check(batch.visual.shape[:2] == (6, 2048), f"the global batch is {batch.visual.shape}")
+    np.savez(os.path.join(workdir, "batch.npz"),
+             **{f: x for f, x in zip(batch._fields, batch) if x is not None})
+
+    # the one-process references
+    ref = _reference_steps(_run_model(cfg, "bfloat16"),
+                           dataclasses.replace(cfg.train, batch_size=6), batch, PIPE_STEPS)
+    ring_refs = {}
+    for name, run in RING_RUNS.items():
+        rcfg = _ring_config(run["dtype"])
+        rmc = dataclasses.replace(rcfg.model, attention_impl="xla")
+        ring_refs[name] = _reference_steps(rmc, rcfg.train, _long_ring_batch(rmc), run["steps"],
+                                           grad_parts=True)
+        print(f"[pipeline] {card}: one process, {run['dtype']}, [1, {RING_T}] remat, "
+              f"attention_impl=xla: loss/grad norm {json.dumps(ring_refs[name]['hist'])}, step "
+              f"ms {json.dumps([round(x, 1) for x in ring_refs[name]['step_ms']])}, peak "
+              f"{ring_refs[name]['peak'] / 2**30:.2f} GiB")
+    evals = {}
+    for key, model_kw in (("d_eval_seq2_ring", dict(attention_impl="xla", compute_dtype="float32",
+                                                    attn_softmax_dtype="float32")),
+                          ("d_eval_pipe2", {})):
+        ecfg = _eval_config(cfg, model_kw, cfg.mesh)
+        test_ds = SyntheticDataset(list(PARALLEL_EVAL_VIDEOS), ecfg.model, seed=7)
+        one = Trainer(ecfg, os.path.join(workdir, "eval_one"), test_ds, test_ds=test_ds,
+                      init_params=eval_sd, device="cuda")
+        evals[key] = one.evaluate()
+        one.close()
+        check(evals[key]["tiou/0.5"] > 0, f"the one-process evaluate scores nothing: {evals}")
+    torch.cuda.empty_cache()
+
+    # (a)-(d): one torchrun launch of two ranks
+    t0 = time.perf_counter()
+    rc, log = _run_group(_torchrun(os.path.join(ROOT, "chip_smoke.py"), "--pipeline-worker",
+                                   workdir), timeout=600)
+    launch_s = time.perf_counter() - t0
+    check(rc == 0, f"phase 17 ranks exited {rc}:\n{log[-6000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    results: dict = {}
+    layers = mc.self_num_layers // 2 * PIPE_M * PIPE_STEPS  # a stage's launches of each kernel
+    for name in ("a_gpipe", "b_1f1b"):
+        got = [x[name] for x in ranks]
+        params = torch.load(os.path.join(workdir, f"params_{name}.pt"), weights_only=True)
+        rel = _hold_run(name, got, ref, BF16_DP_TOL, params, init)
+        fwd = layers * (2 if name == "b_1f1b" else 1)  # 1F1B recomputes the forward
+        want = dict(flash_fwd_tc=fwd, flash_bwd_stream_prep=layers, flash_bwd_dq_tc=layers,
+                    flash_bwd_dkv_tc=layers, flash_fwd=fwd, flash_bwd_dq=layers,
+                    flash_bwd_dkv=layers)
+        for r, g in enumerate(got):
+            check(g["launches"] == want, f"{name} rank {r}: launches {g['launches']}, "
+                                         f"want {want}")
+            held = g["kernel_vs_plain"]
+            check(held["shape"] == [3, 2048, 8, 64] and held["packed"],
+                  f"{name} rank {r}: kernels held at {held}")
+            print(f"[pipeline] {card}: ({name.split('_')[0]}) rank {r}: the tensor-core "
+                  f"forward, prep and dq / dk-dv pair against their plain versions on this "
+                  f"stage's first microbatch q/k/v: {json.dumps(held)}")
+        results[name] = dict(ranks=got, update_rel=rel)
+        print(f"[pipeline] {card}: ({name.split('_')[0]}) {name[2:]} pipe=2, M={PIPE_M}, "
+              f"stages of 8 layers, bf16, packed [6, 2048]: loss/grad norm "
+              f"{json.dumps(got[0]['hist'])} (one process {json.dumps(ref['hist'])}; bounds "
+              f"{json.dumps(BF16_DP_TOL)}), update rel L2 {rel:.3e}; launches per rank "
+              f"{json.dumps(got[0]['launches'])}")
+        print(f"[pipeline] {card}: ({name.split('_')[0]}) shared-card times (two ranks on one "
+              f"card: gloo's transport, not pipeline throughput): step ms per rank "
+              f"{[[round(x, 1) for x in g['step_ms']] for g in got]}, of it in hops and "
+              f"collectives {[[round(x, 1) for x in g['hop_ms']] for g in got]}")
+    mem = [x["b_memory_m6"] for x in ranks]
+    for r, m in enumerate(mem):
+        check(m["1f1b"]["peak"] < m["gpipe"]["peak"],
+              f"rank {r}: 1F1B's peak {m['1f1b']} not below GPipe's {m['gpipe']} at M = 6")
+    print(f"[pipeline] {card}: (b) peak allocated per rank in one step at M = "
+          f"{PIPE_MEMORY_M} (rows of 1): " + "; ".join(
+              f"rank {r} GPipe {m['gpipe']['peak'] / 2**30:.3f} GiB (before the step "
+              f"{m['gpipe']['before'] / 2**30:.3f}), 1F1B {m['1f1b']['peak'] / 2**30:.3f} GiB "
+              f"(before {m['1f1b']['before'] / 2**30:.3f})" for r, m in enumerate(mem)))
+    for name, run in RING_RUNS.items():
+        got = [x[name] for x in ranks]
+        params = torch.load(os.path.join(workdir, f"params_{name}.pt"), weights_only=True)
+        rel = _hold_run(name, got, ring_refs[name], run["tol"], params, init,
+                        lr=PARALLEL_LR, steps=run["steps"])
+        zero = dict.fromkeys((*PARALLEL_TC, *PARALLEL_FIRST), 0)
+        for r, g in enumerate(got):
+            check(g["local"] == [1, RING_T // 2], f"{name} rank {r}: local {g['local']}")
+            check(g["launches"] == zero, f"{name} rank {r}: the ring launched {g['launches']}")
+        results[name] = dict(ranks=got, update_rel=rel)
+        print(f"[pipeline] {card}: ({name.split('_')[0]}) seq=2 ring, {run['dtype']}, [1, "
+              f"{RING_T}] remat, each rank [1, {RING_T // 2}]: loss/grad norm "
+              f"{json.dumps(got[0]['hist'])} (one process, xla: "
+              f"{json.dumps(ring_refs[name]['hist'])}; bounds {json.dumps(run['tol'])}), update "
+              f"rel L2 {rel:.3e}; peak per rank {[round(g['peak'] / 2**30, 2) for g in got]} "
+              f"GiB; shared-card step ms {[[round(x, 1) for x in g['step_ms']] for g in got]}, "
+              f"of it in hops and all_reduces {[[round(x, 1) for x in g['hop_ms']] for g in got]}")
+    ring_op = {}
+    for dtype, rel_bound in RING_OP_REL.items():
+        q, k, v, mask = (x.requires_grad_() if x.is_floating_point() else x
+                         for x in _ring_op_inputs(dtype))
+        o = mha_torch(q, k, v, mask)
+        (o.float() ** 2).sum().backward()
+        shards = [torch.load(os.path.join(workdir, f"ring_op_{dtype}_rank{r}.pt"),
+                             weights_only=True) for r in range(2)]
+        live = mask[0].cpu()
+        errs = {}
+        for n, want in (("out", o), ("dq", q.grad), ("dk", k.grad), ("dv", v.grad)):
+            whole = torch.cat([s[n] for s in shards], dim=1)[0].float()
+            w = want.detach().cpu()[0].float()
+            errs[n] = float((whole[live] - w[live]).abs().max()) / float(w.abs().max())
+            check(bool(torch.isfinite(whole).all()), f"ring op {dtype} {n}: not finite")
+        check(all(e <= rel_bound for e in errs.values()),
+              f"ring op {dtype}: errors {errs} (of each tensor's max) past {rel_bound}")
+        ring_op[dtype] = dict(rel_err=errs, ms=[x[f"ring_op_{dtype}_ms"] for x in ranks])
+        print(f"[pipeline] {card}: (c) the ring op at [1, {RING_T}, 8, 64] {dtype} (keys past "
+              f"0.9 T masked) against mha_torch on the whole sequence: max error of each "
+              f"tensor's max {json.dumps(errs)} (bound {rel_bound}); shared-card forward / "
+              f"backward ms per rank {json.dumps(ring_op[dtype]['ms'])}")
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    for key, want in evals.items():
+        for r, x in enumerate(ranks):
+            got = x[key]["tiou"]
+            check(got == ranks[0][key]["tiou"], f"{key}: the ranks returned different tIoU")
+            check(all(abs(got[k] - v) <= PARALLEL_EVAL_ATOL for k, v in want.items()),
+                  f"{key} rank {r}: {got} against one process {want} (bound "
+                  f"{PARALLEL_EVAL_ATOL})")
+        check(ranks[0][key]["ring"] == (key == "d_eval_seq2_ring"),
+              f"{key}: the ring live at eval: {ranks[0][key]['ring']}")
+        print(f"[pipeline] {card}: (d) evaluate on {key[7:]}: {json.dumps(ranks[0][key]['tiou'])}"
+              f" (one process {json.dumps(want)}; ring live {ranks[0][key]['ring']}); forward "
+              f"launches per rank {[x[key]['launches']['flash_fwd_tc'] for x in ranks]}")
+
+    # (e) the train CLI on pipe = 2 under torchrun; phase 16's preflight run
+    raw = production_config().to_dict()
+    raw["tpu"] = {"mesh": dict(data=1, model=1, seq=1, pipe=2)}  # the schema's mesh section
+    cfg_json = os.path.join(workdir, "config_pipe2.json")
+    with open(cfg_json, "w") as f:
+        json.dump(raw, f)
+    run_dir = os.path.join(workdir, "cli")
+    t0 = time.perf_counter()
+    rc, log = _run_group(_torchrun("-m", "repurpose_tpu_torch.train", "--config_path", cfg_json,
+                                   "--synthetic", "8", "--epochs", "1", "--dist_backend", "gloo",
+                                   "--share_card", "--workdir", run_dir), timeout=420)
+    cli_s = time.perf_counter() - t0
+    check(rc == 0, f"train on pipe=2 under torchrun exited {rc}:\n{log[-6000:]}")
+    done = re.findall(r"rank (\d)/2 training done: .*'final_loss': ([-+0-9.eE]+|nan)", log)
+    check(sorted(r for r, _ in done) == ["0", "1"] and len({x for _, x in done}) == 1
+          and np.isfinite(float(done[0][1])), f"the ranks' summaries: {done}\n{log[-3000:]}")
+    check("pipeline parallelism: 2 stages x 2 microbatches (1f1b)" in log,
+          f"the CLI did not run the 1F1B pipeline:\n{log[-3000:]}")
+    check(preflight_log.count("[PASS] pipeline-parallel step (dp x pp)") == 2,
+          "phase 16's preflight did not pass its pipeline check on both ranks")
+    print(f"[pipeline] {card}: (e) torchrun --nproc_per_node 2 -m repurpose_tpu_torch.train "
+          f"(tpu: mesh pipe 2, 1f1b) --synthetic 8 --epochs 1 --dist_backend gloo --share_card: "
+          f"exit 0 in {cli_s:.1f} s, both ranks final loss {done[0][1]}; phase 16's preflight "
+          f"under torchrun: " + "; ".join(sorted({line.strip() for line in
+                                                 preflight_log.splitlines()
+                                                 if "dp x pp" in line and "PASS" in line})))
+    print(f"[pipeline] {card}: phase 17 {time.perf_counter() - t_phase:.1f} s (the ranks' "
+          f"launch {launch_s:.1f} s)")
+    return dict(runs=results, ring_op=ring_op, memory_m6=mem, cli_s=cli_s,
+                evaluate={k: dict(tiou=ranks[0][k]["tiou"],
+                                  launches=ranks[0][k]["launches"]) for k in evals})
 
 
 def main() -> int:
@@ -3763,6 +4338,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--parallel-worker"]:
         return parallel_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--pipeline-worker"]:
+        return pipeline_worker(sys.argv[2])
     import repurpose_tpu_torch  # noqa: F401  (switches TF32 off)
 
     card = phase_card_and_build()
@@ -3808,6 +4385,11 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="chip_smoke_parallel_", dir=os.path.join(ROOT, "runs"))
     try:
         parallel = phase_parallel(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_pipeline_", dir=os.path.join(ROOT, "runs"))
+    try:
+        pipeline = phase_pipeline_and_ring(card, workdir, parallel["preflight_log"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4057,6 +4639,14 @@ def main() -> int:
             k["launches_by_path"].update({
                 f"parallel_{key}_per_rank": x["launches"]["flash_fwd_tc"]
                 for key, x in parallel["evaluate"].items()})
+            k["launches_by_path"].update({
+                f"pipeline_{key}_per_rank": x["launches"]["flash_fwd_tc"]
+                for key, x in pipeline["evaluate"].items()})
+        # phase 17's pipe = 2 steps, per rank (a stage of 8 layers, M = 2)
+        if k["name"] in PARALLEL_TC:
+            for name in ("a_gpipe", "b_1f1b"):
+                k["launches_by_path"][f"pipeline_{name}_per_rank"] = (
+                    pipeline["runs"][name]["ranks"][0]["launches"][k["name"]])
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the path was never launched: "
           + json.dumps({k["name"]: k["launches"] for k in kernels}))
     print(f"[time] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s")

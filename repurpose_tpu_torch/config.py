@@ -11,7 +11,9 @@ and read as follows here:
 - ``attention_impl``: "xla" is the plain PyTorch attention (``mha_torch``);
   "auto" and "pallas_full" take the CUDA flash forward and backward kernels
   for every T, "pallas" the flash forward with the plain recompute backward;
-  "ring" is not ported yet (ROADMAP).
+  "ring" the ring attention over the mesh's ``seq`` axis
+  (``ops/ring_attention.py``; without a ``seq`` axis the inference
+  pipeline and the fusion variants attend over whole rows).
 - ``matmul_precision``: ignored. TF32 is off (package docstring), so every
   float32 product already runs at the reference's "highest" precision.
 - ``attn_softmax_dtype``: the element type of the kernel's softmax interior,
@@ -95,8 +97,10 @@ class TrainConfig:
     ``batch_size`` counts one rank's rows (the reference's per-process
     DistributedSampler batch): the global batch is ``batch_size`` times the
     mesh's ``data`` axis. ``shard_opt_state`` turns on ZeRO-1 where
-    ``data`` > 1 (``train/state.py``). ``pipeline_*`` and ``rng_impl`` are
-    carried so reference-schema files load, and ignored."""
+    ``data`` > 1 (``train/state.py``). ``pipeline_microbatches`` and
+    ``pipeline_schedule`` ("1f1b" or "gpipe") drive a mesh's ``pipe`` axis
+    (``parallel/pipeline*.py``); ``rng_impl`` is carried so reference-schema
+    files load, and ignored."""
 
     seed: int = 1234
     lr: float = 1e-3
@@ -147,9 +151,10 @@ class MeshConfig:
     """Process-mesh layout (the reference schema's ``tpu:`` section): one
     rank per card, over the axes ``data`` (data parallelism: each rank its
     own rows of the global batch, gradients summed), ``model`` (Megatron
-    tensor parallelism over heads and the FFN hidden), ``seq`` and ``pipe``
-    (not ported yet: they raise in the Trainer, ROADMAP Queue 1 item 9,
-    parts 4–5). -1 means "all remaining ranks" (``parallel/mesh.py``)."""
+    tensor parallelism over heads and the FFN hidden), ``seq`` (sequence
+    parallelism: ring attention over each rank's ``T / seq`` positions)
+    and ``pipe`` (pipeline parallelism: GPipe or 1F1B over stages of
+    layers). -1 means "all remaining ranks" (``parallel/mesh.py``)."""
 
     data: int = -1
     model: int = 1

@@ -7,10 +7,20 @@ keep masks into per-video result lists (the reference's schema,
 MMCTransformer.py:226-228, 270-272).
 
 Differences from the JAX pipeline: PyTorch runs eagerly, so there is no
-compile per shape; the ring-attention mesh branches are not ported (a
-"ring" config scores with the kernel attention, as the JAX pipeline does
-without a mesh); ``params`` overrides are state dicts, applied with
+compile per shape; ``params`` overrides are state dicts, applied with
 ``torch.func.functional_call``.
+
+Ring attention: a "ring" config handed a mesh whose ``seq`` axis is > 1
+keeps the ring live (``ring``): every rank of the axis scores the same
+batches, each staging its ``T / seq`` columns, and the scores and offsets
+are gathered over ``seq`` (a sum of zero-padded columns, an all_reduce,
+which gloo also runs on CUDA tensors) before the decode, which needs the
+whole T. The buckets must divide by the axis. Without such a mesh a "ring"
+config scores with the kernel attention on whole rows, as the JAX pipeline
+falls back to gather attention. The JAX Trainer also leaves the ring off
+at eval on a multi-host run (``process_count() > 1``), whose eval is
+per-process; every port rank is a process and scores whole batches of its
+own, so there is no such clause here: the Trainer's test is the shapes'.
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ from repurpose_tpu_torch.ops.decode import (
     decode_packed,
     unpack_rows,
 )
+from repurpose_tpu_torch.parallel.sharding import gather_columns
 
 
 def _unpack(res: DecodeResult, durations, video_ids, raw=None) -> list[dict]:
@@ -80,14 +91,18 @@ class InferencePipeline:
     card is visible; pass ``device="cpu"`` to run on the CPU. On a ``mesh``
     whose ``model`` axis is > 1 the model is this rank's tensor-parallel
     shard and ``params`` its shard's state dict; every model rank must then
+    score the same batches. A "ring" config on a mesh whose ``seq`` axis is
+    > 1 keeps the ring (module docstring); every ``seq`` rank must then
     score the same batches."""
 
     def __init__(
         self, cfg: ModelConfig, params: Mapping[str, Any], test_cfg: TestConfig,
         raw_outputs: bool = False, device: str | torch.device = "cuda", mesh=None,
     ):
-        if cfg.attention_impl == "ring":
+        self.ring = cfg.attention_impl == "ring" and mesh is not None and mesh.size("seq") > 1
+        if cfg.attention_impl == "ring" and not self.ring:
             cfg = dataclasses.replace(cfg, attention_impl="auto")
+        self.mesh = mesh
         self.cfg = cfg
         self.test_cfg = test_cfg
         self.raw_outputs = raw_outputs
@@ -113,7 +128,18 @@ class InferencePipeline:
         stage = self._to_device
         mask = stage(mask, torch.bool)
         durations = stage(durations, torch.int64)
-        out = self._forward(params, stage(visual), stage(audio), stage(text), mask)
+        if self.ring:  # this rank's columns through the ring, the whole rows to the decode
+            n, c = self.mesh.size("seq"), self.mesh.coord("seq")
+            t = mask.shape[1]
+            if t % n:
+                raise ValueError(f"bucket {t} not divisible by the seq axis {n}")
+            cols = slice(c * t // n, (c + 1) * t // n)
+            out = self._forward(params, stage(np.asarray(visual)[:, cols]),
+                                stage(np.asarray(audio)[:, cols]),
+                                stage(np.asarray(text)[:, cols]), mask[:, cols])
+            out = type(out)(*[gather_columns(x, self.mesh) for x in out])
+        else:
+            out = self._forward(params, stage(visual), stage(audio), stage(text), mask)
         res = decode_batch(out.cls_logits[..., 0], out.offsets, mask, durations,
                            self.test_cfg)
         return res, ((out.cls_logits, out.offsets) if self.raw_outputs else None)

@@ -47,7 +47,8 @@ def build_model(
     by ``init_weights(seed)``; load a state dict over them to serve trained
     weights. Raises for CUDA when no card is visible. On a ``mesh`` whose
     ``model`` axis is > 1 the MMCT is this rank's tensor-parallel shard of
-    the same weights (``parallel/sharding.py``)."""
+    the same weights (``parallel/sharding.py``). ``attention_impl="ring"``
+    needs the ``mesh``: its ``seq`` axis carries the ring."""
     dev = resolve_device(device)
     if mesh is not None and mesh.size("model") > 1:
         if cfg.fusion != "concat":
@@ -70,7 +71,7 @@ def build_model(
 
         model = MMCTBottleneck(cfg)
     else:
-        model = MMCT(cfg)
+        model = MMCT(cfg, mesh)
     init_weights(model, seed)
     return model.to(dev).eval()
 

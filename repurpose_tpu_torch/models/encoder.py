@@ -35,7 +35,12 @@ reference checkpoints load strictly. Numerics follow the JAX model:
   ``linear2``, whose replicated biases are added once, after the sum. The
   replicated dropouts draw the one-process masks on every rank; the FFN
   hidden's draws the one-process model's whole mask and keeps its columns,
-  so every mask equals the one-process model's.
+  so every mask equals the one-process model's;
+- ring attention (``attention_impl="ring"``, ``ops/ring_attention.py``): each
+  rank of the mesh's ``seq`` axis holds ``T / seq`` positions of every
+  activation and the attention runs around the ring. It needs the mesh
+  (ValueError without one) and takes no packed batch (ValueError), as the
+  JAX encoder requires. Everything else in a layer is per position.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from torch import nn
 
 from repurpose_tpu_torch.config import ModelConfig
 from repurpose_tpu_torch.ops.attention import select_attention_impl
+from repurpose_tpu_torch.ops.ring_attention import ring_attention
 from repurpose_tpu_torch.parallel.sharding import copy_to_model, reduce_from_model
 
 LN_EPS = 1e-5
@@ -126,6 +132,8 @@ class SelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * d))
         self.out_proj = nn.Linear(d, cfg.d_model)
         self.attn = select_attention_impl(cfg.attention_impl, cfg.attn_softmax_dtype)
+        self.ring = cfg.attention_impl == "ring"
+        self.ring_mesh = mesh if self.ring else None
 
     def forward(self, x, key_valid, seg_ids=None, sweep=None):
         b, t, _ = x.shape
@@ -134,8 +142,15 @@ class SelfAttention(nn.Module):
             x = copy_to_model(x, self.group)
         qkv = F.linear(x, self.in_proj_weight.to(x.dtype), self.in_proj_bias.to(x.dtype))
         q, k, v = (z.view(b, t, h, d // h) for z in qkv.split(d, dim=-1))
-        kw = {} if sweep is None else {"sweep": sweep}
-        out = self.attn(q, k, v, key_valid, seg_ids=seg_ids, **kw).reshape(b, t, d)
+        if self.ring:
+            if self.ring_mesh is None:
+                raise ValueError('attention_impl="ring" needs build_model(cfg, mesh=...)')
+            if seg_ids is not None:
+                raise ValueError("sequence packing is not supported with ring attention")
+            out = ring_attention(q, k, v, key_valid, self.ring_mesh).reshape(b, t, d)
+        else:
+            kw = {} if sweep is None else {"sweep": sweep}
+            out = self.attn(q, k, v, key_valid, seg_ids=seg_ids, **kw).reshape(b, t, d)
         if self.group is not None:
             return row_parallel_linear(out, self.out_proj, x.dtype, self.group)
         return linear(out, self.out_proj, x.dtype)
@@ -194,6 +209,16 @@ def _replaying_dropout(layer: nn.Module):
     return lambda: (contextlib.nullcontext(), replay())
 
 
+def apply_layer(layer: EncoderLayer, x, key_valid, seg_ids, sweep, remat: bool):
+    """``layer``'s forward, rematerialised in the backward (replaying its
+    dropout masks) when ``remat`` is on and gradients are."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            layer, x, key_valid, seg_ids, sweep, use_reentrant=False,
+            context_fn=_replaying_dropout(layer))
+    return layer(x, key_valid, seg_ids, sweep)
+
+
 class Encoder(nn.Module):
     """Stack of pre-LN layers (reference: 16, models/MMCTransformer.py:51-55),
     each rematerialised in the backward when ``cfg.remat`` is on. With a
@@ -210,10 +235,5 @@ class Encoder(nn.Module):
     def forward(self, x, key_valid, seg_ids=None):
         sweep = None if self.make_sweep is None else self.make_sweep(key_valid, seg_ids)
         for layer in self.layers:
-            if self.remat and torch.is_grad_enabled():
-                x = torch.utils.checkpoint.checkpoint(
-                    layer, x, key_valid, seg_ids, sweep, use_reentrant=False,
-                    context_fn=_replaying_dropout(layer))
-            else:
-                x = layer(x, key_valid, seg_ids, sweep)
+            x = apply_layer(layer, x, key_valid, seg_ids, sweep, self.remat)
         return x

@@ -81,11 +81,20 @@ class _PositionalEncoding(nn.Module):
 
 class MMCT(nn.Module):
     """``mesh``: the encoder's layers tensor-parallel over the mesh's
-    ``model`` axis where it is > 1 (models/encoder.py); the rest replicated."""
+    ``model`` axis where it is > 1 (models/encoder.py); the rest replicated.
+    With ``attention_impl="ring"`` the mesh's ``seq`` axis splits the
+    sequence: this rank's rows are positions ``[c T, (c + 1) T)`` of the
+    whole, c its ``seq`` coordinate, and the PE is taken there.
+
+    ``embed`` (the pre-encoder block) and ``head`` (the post-encoder block)
+    are the pieces the pipeline schedules run around their stages
+    (``parallel/pipeline.py``); ``forward`` is ``head(encoder(embed))``."""
 
     def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
+        ring = cfg.attention_impl == "ring" and mesh is not None
+        self.seq_split = (mesh.coord("seq"), mesh.size("seq")) if ring else (0, 1)
         self.dropout_generator: torch.Generator | None = None
         d = cfg.d_model
         self.input_projection = nn.Linear(cfg.concat_dim, d)
@@ -124,19 +133,28 @@ class MMCT(nn.Module):
         """``seg_ids``/``positions`` select the sequence-packed forward:
         block-diagonal attention per video and a PE restarting at each
         video's own t=0, so a packed video gets the values it would unpacked."""
+        x = self.embed(visual, audio, text, positions)
+        if seg_ids is not None:
+            seg_ids = seg_ids.to(torch.int32)
+        return self.head(self.multimodal_encoder(x, mask, seg_ids))
+
+    def embed(self, visual, audio, text, positions=None) -> torch.Tensor:
+        """concat -> input projection -> input norm -> + PE, in the compute
+        dtype [B, T, d_model]."""
         cfg = self.cfg
         dtype = self.compute_dtype
         streams = {"visual": visual, "audio": audio, "text": text}
         x = torch.cat([streams[m].to(dtype) for m in cfg.modalities], dim=-1)
         x = layer_norm(linear(x, self.input_projection, dtype), self.input_norm)
-        pe = self.positional_encoding.table(x.shape[1])
-        x = (x + (pe[None] if positions is None else pe[positions.long()])).to(dtype)
-        if seg_ids is not None:
-            seg_ids = seg_ids.to(torch.int32)
+        t = x.shape[1]
+        c, n = self.seq_split
+        pe = self.positional_encoding.table(t * n)[c * t : (c + 1) * t]
+        return (x + (pe[None] if positions is None else pe[positions.long()])).to(dtype)
 
-        x = self.multimodal_encoder(x, mask, seg_ids)
+    def head(self, x: torch.Tensor) -> MMCTOutput:
+        """encoder norm -> feature map -> the two heads."""
+        dtype = self.compute_dtype
         x = layer_norm(x, self.encoder_norm).to(dtype)
-
         fmap, fnorm, _, fdrop = self.feature_map
         f = fdrop(torch.relu(layer_norm(linear(x, fmap, dtype), fnorm).to(dtype)))
         return MMCTOutput(

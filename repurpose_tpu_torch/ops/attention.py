@@ -17,7 +17,10 @@ Counterpart of ``repurpose_tpu/ops/attention.py``:
   where the JAX package sends untileable shapes to ``mha_xla``. The kernel
   callable also takes ``sweep``, the batch's ``AttentionSweep`` (kvl and the
   key-tile bounds), which the encoder makes once for all its layers with
-  the callable's ``make_sweep``.
+  the callable's ``make_sweep``. "ring" resolves to ``mha_torch``, as the
+  JAX dispatcher falls through to ``mha_xla`` for it: the concat MMCT's
+  self-attention sends "ring" to ``ops/ring_attention.py`` itself (it needs
+  the mesh), and a model without that branch attends over its whole rows.
 
 Masking follows torch's ``src_key_padding_mask``: padded keys are excluded
 from every query's softmax; padded query rows hold finite values that no
@@ -73,8 +76,6 @@ def select_attention_impl(impl: str, softmax_dtype: str = "float32") -> Callable
         flash.make_sweep = lambda key_valid, seg_ids=None: fa.attention_sweep(key_valid, seg_ids)
         return flash
     if impl == "ring":
-        raise NotImplementedError(
-            'attention_impl="ring" is not ported yet (ROADMAP.md, Queue 1 item 9, parts 4–5)'
-        )
+        return mha_torch
     raise ValueError(f"bad attention_impl: {impl}")
 

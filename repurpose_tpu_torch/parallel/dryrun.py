@@ -3,15 +3,23 @@
 ``dryrun_multichip(n, device)`` starts ``n`` ranks as subprocesses
 (``python -m repurpose_tpu_torch.parallel.dryrun --rank r ...``, the process
 group over a file store) and carves the world as the JAX dry run does:
-``model`` = 2 where ``n`` is even, ``seq`` = 1 (the ``seq`` axis waits for
-ring attention, ROADMAP Queue 1 item 9, part 5) and ``data`` the rest. Each
-rank runs, on a tiny model of the flagship's shape (8 heads):
+``model`` = 2 where ``n`` is even, ``seq`` = 2 with ring attention where
+``n`` >= 8 and ``n % 4 == 0``, and ``data`` the rest. Each rank runs, on a
+tiny model of the flagship's shape (8 heads):
 
 1. the mesh self-check;
-2. one dp × tp train step with ZeRO-1 on its rows of an unpacked batch and
-   one on a packed batch;
+2. one dp × tp (× sp) train step with ZeRO-1 on its rows (and, under the
+   ring, its columns) of an unpacked batch, and one dp × tp step on a
+   packed batch (packing composes with tp, not with the ring: ``seq`` = 1);
 3. the scoring forward and decode of its rows through ``InferencePipeline``
-   on the mesh.
+   on the mesh (the ring live where ``seq`` = 2);
+4. where ``n`` is even, on a mesh of ``pipe`` = 2 and ``data`` the rest
+   (``attention_impl="xla"``, 2 microbatches): the GPipe step on the split
+   layout (each stage holding its own layer), the 1F1B step on the same
+   split state, whose loss at dropout 0 must equal GPipe's, and, where
+   ``n`` >= 4, the 1F1B step with ZeRO-1 on the standard layout;
+5. where ``n`` is a multiple of 8, the 1F1B step of a 4-layer model on
+   ``data`` = 2 × ``pipe`` = 4.
 
 The parent holds every rank's losses equal and finite and equal to one
 process's step on the global batch, and returns a summary line. It runs on
@@ -23,6 +31,7 @@ its own (NCCL).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -43,8 +52,24 @@ ROWS_PER_RANK = 2
 
 
 def carve(n: int) -> MeshConfig:
-    """The JAX dry run's axes for ``n`` ranks, with ``seq`` = 1."""
-    return MeshConfig(data=-1, model=2 if n % 2 == 0 else 1, seq=1, pipe=1)
+    """The JAX dry run's axes for ``n`` ranks."""
+    model = 2 if n % 2 == 0 else 1
+    seq = 2 if n % (model * 2) == 0 and n >= 8 else 1
+    return MeshConfig(data=-1, model=model, seq=seq, pipe=1)
+
+
+def _pipe_programs(n: int) -> dict:
+    """name -> (mesh axes, layers, schedule, split layout, ZeRO-1) of the
+    pipeline programs that ``n`` ranks run."""
+    out = {}
+    if n % 2 == 0:
+        out["gpipe_split"] = (dict(data=-1, pipe=2), 2, "gpipe", True, False)
+        out["1f1b_split"] = (dict(data=-1, pipe=2), 2, "1f1b", True, False)
+        if n >= 4:
+            out["zero1_1f1b"] = (dict(data=-1, pipe=2), 2, "1f1b", False, True)
+    if n % 8 == 0:
+        out["data2_pipe4"] = (dict(data=2, pipe=4), 4, "1f1b", False, False)
+    return out
 
 
 def _batches(data: int):
@@ -62,27 +87,54 @@ def _batches(data: int):
     return unpacked, packed
 
 
-def _steps(mesh, device, data: int) -> dict:
-    """(loss, grad norm) of one ZeRO-1 step on each global batch of ``data``
-    ranks' rows: on this rank's rows on ``mesh``, or on all of them in one
-    process (``mesh`` None)."""
+def _step(mc, tc, mesh, batch, device, program=None) -> list[float]:
+    """(loss, grad norm) of one step on ``batch``: this rank's part of it on
+    ``mesh``, or all of it in one process (``mesh`` None); ``program`` a
+    pipeline program's (schedule, split layout, ZeRO-1)."""
     from repurpose_tpu_torch.models import build_model
-    from repurpose_tpu_torch.parallel.sharding import local_rows
+    from repurpose_tpu_torch.parallel.pipeline import create_pipeline_train_state
+    from repurpose_tpu_torch.parallel.pipeline_1f1b import make_1f1b_train_step
+    from repurpose_tpu_torch.parallel.sharding import local_rows, seq_split
     from repurpose_tpu_torch.train.state import TrainState, make_optimizer
     from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
 
-    out = {}
-    for name, batch in zip(("unpacked", "packed"), _batches(data)):
-        tc = TrainConfig(batch_size=ROWS_PER_RANK * (data if mesh is None else 1),
-                         buckets=(BUCKET,), epochs=1, shard_opt_state=True,
-                         loss_norm="batch_size", pack_sequences=name == "packed")
-        model = build_model(MODEL, device, seed=0, mesh=mesh)
+    schedule_name, split, zero1 = program or ("", False, False)
+    if split:
+        state, schedule = create_pipeline_train_state(mc, tc, mesh, 1, seed=0, device=device)
+    else:
+        model = build_model(mc, device, seed=0, mesh=mesh)
         opt, schedule = make_optimizer(model, tc, 1, mesh)
-        if mesh is not None:
-            batch = local_rows(batch, mesh)
-        m = make_train_step(MODEL, tc, schedule, mesh)(
-            TrainState(model, opt, mesh=mesh), batch_to_device(batch, device))
-        out[name] = [float(m["loss"]), float(m["grad_norm"])]
+        state = TrainState(model, opt, mesh=mesh)
+    if schedule_name == "1f1b":
+        step = make_1f1b_train_step(mc, tc, schedule, mesh, tc.pipeline_microbatches,
+                                    split_layout=split, zero1=zero1)
+    else:
+        step = make_train_step(mc, tc, schedule, mesh)
+    if mesh is not None:
+        batch = local_rows(batch, mesh, seq=seq_split(mc, mesh))
+    m = step(state, batch_to_device(batch, device))
+    return [float(m["loss"]), float(m["grad_norm"])]
+
+
+def _configs(mesh_axes: dict, world: int) -> dict:
+    """name -> (model config, train config (per-rank rows),
+    global batch name, pipeline program) of every program but the scoring."""
+    seq = mesh_axes["seq"] > 1
+    unpacked_model = dataclasses.replace(MODEL, attention_impl="ring" if seq else "auto")
+    out = {
+        "unpacked": (unpacked_model, TrainConfig(
+            batch_size=ROWS_PER_RANK, buckets=(BUCKET,), epochs=1, shard_opt_state=True,
+            loss_norm="batch_size"), "unpacked", None),
+        "packed": (MODEL, TrainConfig(
+            batch_size=ROWS_PER_RANK, buckets=(BUCKET,), epochs=1, shard_opt_state=True,
+            loss_norm="batch_size", pack_sequences=True), "packed", None),
+    }
+    for name, (axes, layers, sched, split, zero1) in _pipe_programs(world).items():
+        mc = dataclasses.replace(MODEL, attention_impl="xla", self_num_layers=layers)
+        out[name] = (mc, TrainConfig(
+            batch_size=ROWS_PER_RANK, buckets=(BUCKET,), epochs=1, shard_opt_state=zero1,
+            loss_norm="batch_size", pipeline_schedule=sched, pipeline_microbatches=2),
+            "unpacked", (sched, split, zero1))
     return out
 
 
@@ -101,17 +153,31 @@ def _rank_main(args) -> None:
     dist.init_process_group(args.backend, init_method=f"file://{args.store}/store",
                             rank=args.rank, world_size=args.world)
     try:
-        mesh = create_mesh(carve(args.world), args.backend, args.device, args.share_card)
+        cfg = carve(args.world)
+        mesh = create_mesh(cfg, args.backend, args.device, args.share_card)
         mesh_self_check(mesh)
-        result = {"mesh": mesh.sizes, **_steps(mesh, mesh.device, mesh.size("data"))}
+        result = {"mesh": mesh.sizes}
+        batches = {}
+        for name, (mc, tc, batch_name, program) in _configs(mesh.sizes, args.world).items():
+            axes = (dataclasses.asdict(cfg) if name == "unpacked"
+                    else dict(data=-1, model=cfg.model) if name == "packed"
+                    else _pipe_programs(args.world)[name][0])
+            m = create_mesh(MeshConfig(**axes), args.backend, args.device, args.share_card)
+            data = m.size("data")
+            if data not in batches:
+                batches[data] = dict(zip(("unpacked", "packed"), _batches(data)))
+            result[name] = _step(mc, tc, m, batches[data][batch_name], m.device, program)
+            result[name + "_data"] = data
+        mc = _configs(mesh.sizes, args.world)["unpacked"][0]
         rows = local_rows(_batches(mesh.size("data"))[0], mesh)
         pipe = InferencePipeline(
-            MODEL, build_model(MODEL, mesh.device, seed=0, mesh=mesh).state_dict(),
+            mc, build_model(mc, mesh.device, seed=0, mesh=mesh).state_dict(),
             TestConfig(pre_nms_topk=16, pre_nms_thresh=0.0, duration_thresh=0.001,
                        duration_thresh_max=90.0, max_seg_per_min=2.0),
             device=mesh.device, mesh=mesh)
         scored = pipe.score_batch(rows.visual, rows.audio, rows.text, rows.mask,
                                   rows.durations)
+        result["ring_eval"] = pipe.ring
         result["scored"] = [len(scored), int(sum(len(r["scores"]) for r in scored))]
         result["finite"] = bool(all(np.isfinite(r["scores"]).all() for r in scored))
         with open(os.path.join(args.store, f"rank{args.rank}.json"), "w") as f:
@@ -156,21 +222,36 @@ def dryrun_multichip(n_devices: int, device: str = "cuda", share_card: bool = Fa
         for r in range(n_devices):
             with open(os.path.join(store, f"rank{r}.json")) as f:
                 results.append(json.load(f))
-    want = _steps(None, dev, results[0]["mesh"]["data"])
+    sizes = results[0]["mesh"]
+    want = {}
+    for name, (mc, tc, batch_name, _) in _configs(sizes, n_devices).items():
+        data = results[0][name + "_data"]
+        one_mc = dataclasses.replace(mc, attention_impl="auto" if mc.attention_impl == "ring"
+                                     else mc.attention_impl)
+        want[name] = _step(one_mc, dataclasses.replace(tc, batch_size=ROWS_PER_RANK * data,
+                                                       shard_opt_state=False),
+                           None, dict(zip(("unpacked", "packed"), _batches(data)))[batch_name],
+                           dev)
     for r, got in enumerate(results):
         if not got["finite"]:
             raise RuntimeError(f"rank {r}: non-finite scores")
-        for name in ("unpacked", "packed"):
+        for name in want:
             # float32, sums in another order: within the JAX test's rtol
             np.testing.assert_allclose(got[name][0], want[name][0], rtol=2e-3,
                                        err_msg=f"rank {r} {name} loss")
             np.testing.assert_allclose(got[name][1], want[name][1], rtol=1e-2,
                                        err_msg=f"rank {r} {name} grad_norm")
-    sizes = results[0]["mesh"]
+    if "1f1b_split" in want:  # the two schedules on one split state, dropout 0
+        for r, got in enumerate(results):
+            np.testing.assert_allclose(got["1f1b_split"][0], got["gpipe_split"][0], rtol=1e-5,
+                                       err_msg=f"rank {r}: 1F1B against GPipe")
+    pipes = "".join(f" | {name} loss {results[0][name][0]:.6f}"
+                    for name in _pipe_programs(n_devices))
     return (f"dryrun_multichip({n_devices}) ok: mesh {sizes}, loss unpacked "
             f"{results[0]['unpacked'][0]:.6f} packed {results[0]['packed'][0]:.6f} "
             f"(one process {want['unpacked'][0]:.6f}, {want['packed'][0]:.6f}), "
-            f"scored {sum(r['scored'][0] for r in results) // sizes['model']} videos")
+            f"scored {sum(r['scored'][0] for r in results) // (sizes['model'] * sizes['seq'])} "
+            f"videos{' with the ring' if results[0]['ring_eval'] else ''}{pipes}")
 
 
 def main(argv=None) -> int:

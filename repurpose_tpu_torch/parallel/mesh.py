@@ -7,12 +7,25 @@ One process ("rank") per card, the ranks laid out over the axes of
   gradients are summed over the axis (the reference's DDP);
 - ``model``: Megatron tensor parallelism, each rank holding ``1 / model`` of
   the heads and of the FFN hidden (``sharding.py``); neighbouring ranks;
-- ``seq`` and ``pipe``: not ported yet (ROADMAP Queue 1 item 9, parts 4–5).
+- ``seq``: sequence parallelism, each rank holding ``T / seq`` positions of
+  every activation, attention by ring (``ops/ring_attention.py``);
+- ``pipe``: pipeline parallelism, stage s running layers
+  ``[s L / S, (s + 1) L / S)`` (``pipeline.py``, ``pipeline_1f1b.py``).
 
 ``create_mesh`` returns a ``Mesh``: the axis sizes, this rank's
 coordinates, its device and one process group per axis of size > 1. The
-collectives the port runs over them are ``all_reduce`` and ``broadcast``
-only, the two that the gloo backend also runs on CUDA tensors.
+collectives the port runs over them are ``all_reduce`` and ``broadcast``,
+the two that the gloo backend also runs on CUDA tensors, and the
+point-to-point hop ``Mesh.hop`` (``jax.lax.ppermute``'s counterpart: a
+shift along the axis without wrapping, or around the ring with ``wrap``,
+as ``rotate`` does). A hop posts every send and every receive of the call
+at once (``isend`` / ``irecv``, under NCCL one ``batch_isend_irecv``) and
+then waits for all of them, so a schedule whose ranks make the same
+sequence of hops never deadlocks; a rank with nothing to send or receive
+in a hop issues nothing (NCCL's batch refuses an empty list). Gloo sends and receives host tensors
+only: under gloo a hop of CUDA tensors is staged explicitly through host
+memory (one packed byte buffer each way per hop: one device-to-host copy,
+one message, one host-to-device copy).
 
 Devices: rank r takes ``cuda:{LOCAL_RANK}``. Several ranks on one card
 (``share_card=True``) need the gloo backend, since NCCL refuses two ranks
@@ -137,6 +150,92 @@ class Mesh:
             dist.all_reduce(x, op=op, group=self.groups[axis])
         return x
 
+    def staged(self) -> bool:
+        """Whether a hop goes through host memory: gloo with CUDA tensors."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def broadcast(self, x: torch.Tensor, axis: str, src: int) -> torch.Tensor:
+        """``x`` of the rank at coordinate ``src`` of ``axis``, in place on
+        every rank of the axis (any dtype: sent as its bytes)."""
+        if self.sizes[axis] > 1:
+            dist.broadcast(x.view(-1).view(torch.uint8),
+                           src=self.group_ranks[axis][src], group=self.groups[axis])
+        return x
+
+    def hop(self, axis: str, send=None, recv=None, step: int = 1, wrap: bool = False):
+        """One point-to-point hop along ``axis``: the tensors ``send`` go to
+        the rank ``step`` coordinates on, and ``recv`` (a list of (shape,
+        dtype)) arrive from the rank ``step`` coordinates back; returns the
+        received tensors (None where ``recv`` is None). Without ``wrap``
+        there is no rank past either end: the caller passes no ``send`` at
+        the far end and no ``recv`` at the near one. Every rank of the axis
+        must make the same sequence of hops, each with the sends and
+        receives that match its neighbours'."""
+        n, c = self.sizes[axis], self.coords[axis]
+        if n == 1:
+            if send is not None or recv is not None:
+                raise ValueError(f"a hop along {axis} of size 1")
+            return None
+        dst, src = c + step, c - step
+        if wrap:
+            dst, src = dst % n, src % n
+        if (send is not None and not 0 <= dst < n) or (recv is not None and not 0 <= src < n):
+            raise ValueError(f"hop past the end of {axis}: {c} -> {dst}, {src} -> {c}")
+        if send is None and recv is None:  # no part in this hop (a fill or drain tick)
+            return None
+        staged = self.staged()
+        host = torch.device("cpu") if staged else self.device
+        ops = []
+        if recv is not None:
+            nbytes = sum(_nbytes(shape, dtype) for shape, dtype in recv)
+            rbuf = torch.empty(nbytes, dtype=torch.uint8, device=host)
+            ops.append(("recv", rbuf, self.group_ranks[axis][src]))
+        if send is not None:
+            sbuf = _pack(send)
+            ops.append(("send", sbuf.cpu() if staged else sbuf, self.group_ranks[axis][dst]))
+        group = self.groups[axis]
+        if self.backend == "nccl":
+            works = dist.batch_isend_irecv([
+                dist.P2POp(dist.irecv if kind == "recv" else dist.isend, buf, peer, group)
+                for kind, buf, peer in ops])
+        else:
+            works = [(dist.irecv if kind == "recv" else dist.isend)(buf, peer, group=group)
+                     for kind, buf, peer in ops]
+        for w in works:
+            w.wait()
+        if recv is None:
+            return None
+        return _unpack(rbuf.to(self.device) if staged else rbuf, recv)
+
+    def rotate(self, tensors, axis: str, step: int = 1):
+        """The ring hop of every rank's ``tensors``: rank c receives rank
+        c - step's (``ppermute`` with pairs (i, (i + step) mod n))."""
+        return self.hop(axis, send=list(tensors), recv=[(t.shape, t.dtype) for t in tensors],
+                        step=step, wrap=True)
+
+
+def _nbytes(shape, dtype: torch.dtype) -> int:
+    n = 1
+    for x in shape:
+        n *= int(x)
+    return n * torch.empty((), dtype=dtype).element_size()
+
+
+def _pack(tensors) -> torch.Tensor:
+    """The tensors' bytes, one after the other, in one uint8 buffer."""
+    return torch.cat([t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+
+
+def _unpack(buf: torch.Tensor, spec) -> list[torch.Tensor]:
+    out, at = [], 0
+    for shape, dtype in spec:
+        t = torch.empty(shape, dtype=dtype, device=buf.device)
+        n = t.numel() * t.element_size()
+        t.reshape(-1).view(torch.uint8).copy_(buf[at : at + n])
+        out.append(t)
+        at += n
+    return out
+
 
 def _coords(rank: int, sizes: tuple[int, ...]) -> tuple[int, ...]:
     out = []
@@ -184,6 +283,13 @@ def create_mesh(mesh_cfg: MeshConfig | None = None, backend: str | None = None,
             g = dist.new_group(members)
             if rank in members:
                 groups[axis], group_ranks[axis] = g, members
+    if backend == "nccl":
+        # NCCL starts a group's communicator at its first collective, and a
+        # batch of point-to-point ops may only be that first call if every
+        # rank of the group takes part: start them here, before a hop in
+        # which some ranks sit out
+        for g in groups.values():
+            dist.all_reduce(torch.zeros(1, device=dev), group=g)
     return Mesh(sizes=dict(zip(AXES, sizes)), coords=dict(zip(AXES, coords)), rank=rank,
                 world=world, device=dev, backend=backend, groups=groups,
                 group_ranks=group_ranks)
@@ -221,4 +327,7 @@ def describe_mesh(mesh: Mesh) -> str:
         f"device: {dev} ({kind})",
         f"axes: {mesh.sizes}",
         f"coords: {mesh.coords}",
+        "hops (seq, pipe): " + ("none" if mesh.world == 1 else
+                                "gloo isend/irecv staged through host memory"
+                                if mesh.staged() else f"{mesh.backend} isend/irecv"),
     ])

@@ -2,7 +2,7 @@
 tensor-parallel split of the encoder's parameters over the mesh's ``model``
 axis, the two operators that close a tensor-parallel region, ZeRO-1's
 partition of the Adam moments over ``data``, and each rank's rows of a
-global batch.
+global batch (and, under ring attention, its columns of them).
 
 Tensor-parallel layout, in the port's (torch MHA) parameter names:
 
@@ -166,23 +166,58 @@ def zero1_dim(shape, dp: int) -> int | None:
     return None
 
 
-def local_rows(batch, mesh):
+def seq_split(cfg, mesh) -> bool:
+    """Whether ranks hold ``T / seq`` positions each: ring attention on a
+    mesh whose ``seq`` axis is > 1 (otherwise the ``seq`` ranks hold the
+    whole rows, as the JAX Trainer stages them unsharded)."""
+    return cfg.attention_impl == "ring" and mesh.size("seq") > 1
+
+
+def local_columns(batch, mesh):
+    """Columns ``[c T / n, (c + 1) T / n)`` of every [B, T, ...] field of
+    ``batch``, c this rank's ``seq`` coordinate of n (the JAX
+    ``make_global_batch(..., seq_sharded=True)``); [B] fields stay whole."""
+    n, c = mesh.size("seq"), mesh.coord("seq")
+    t = batch.mask.shape[1]
+    if t % n:
+        raise ValueError(f"bucket {t} not divisible by the seq axis {n}")
+    w = t // n
+    return type(batch)(*[x if x is None or x.ndim < 2 else x[:, c * w : (c + 1) * w]
+                         for x in batch])
+
+
+def gather_columns(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole rows [B, T, ...] of every ``seq`` rank's columns ``x``
+    [B, T / n, ...]: placed into zeros and summed over ``seq`` (in float32;
+    a collective)."""
+    n, c = mesh.size("seq"), mesh.coord("seq")
+    if n == 1:
+        return x
+    w = x.shape[1]
+    full = torch.zeros((x.shape[0], w * n, *x.shape[2:]), dtype=torch.float32, device=x.device)
+    full[:, c * w : (c + 1) * w] = x
+    return mesh.all_reduce(full, "seq").to(x.dtype)
+
+
+def local_rows(batch, mesh, seq: bool = False):
     """This rank's rows of a global batch: rows ``data_coord::data`` (the
     loader's strided slice), the counterpart of ``make_global_batch``. Model
-    ranks of one data coordinate keep the same rows."""
+    and pipe ranks of one data coordinate keep the same rows; with ``seq``
+    each ``seq`` rank its columns of them (``local_columns``)."""
     dp, r = mesh.size("data"), mesh.coord("data")
-    if dp == 1:
-        return batch
-    return type(batch)(*[None if x is None else x[r::dp] for x in batch])
+    if dp > 1:
+        batch = type(batch)(*[None if x is None else x[r::dp] for x in batch])
+    return local_columns(batch, mesh) if seq and mesh.size("seq") > 1 else batch
 
 
-def all_reduce_grads(params, mesh, bucket_bytes: int = 64 << 20) -> None:
-    """Sums every parameter's gradient over ``data``, in float32 buckets of
-    at most ``bucket_bytes`` (one all_reduce each). Parameters without a
-    gradient are skipped; every data rank has the same ones."""
-    if mesh.size("data") == 1:
+def all_reduce_grads(params, mesh, bucket_bytes: int = 64 << 20, axis: str = "data") -> None:
+    """Sums every parameter's gradient over ``axis`` (``data``, or ``seq``
+    under ring attention), in float32 buckets of at most ``bucket_bytes``
+    (one all_reduce each). Parameters without a gradient are skipped; every
+    rank of the axis has the same ones."""
+    if mesh.size(axis) == 1:
         return
-    group = mesh.group("data")
+    group = mesh.group(axis)
     grads = [p.grad for p in params if p.grad is not None]
     bucket: list[torch.Tensor] = []
     nbytes = 0

@@ -16,7 +16,11 @@ torchrun, on every rank of the launch:
 6. under torchrun (two ranks or more): one dp × tp train step of the
    reduced model on a mesh of ``model`` = 2 (where the world is even) and
    ``data`` = the rest, its loss finite and equal on every rank;
-7. with ``--full``: the flagship forward at bucket 2048, and the measured
+7. under torchrun on an even world: one pipeline-parallel (dp x pp)
+   train step of the reduced model on a mesh of ``pipe`` = 2 and ``data``
+   the rest, with ``attention_impl="xla"`` and 2 microbatches (GPipe), its
+   loss finite and equal on every rank;
+8. with ``--full``: the flagship forward at bucket 2048, and the measured
    peak of the packed [6, 2048] production step beside its estimate.
 
 Run as ``python -m repurpose_tpu_torch.preflight [--full] [--output-json
@@ -24,8 +28,6 @@ PATH] [--device cuda|cpu] [--dist_backend nccl|gloo] [--share_card]``. It
 prints a summary line per check and exits 0 only if every check passed.
 On the CPU (``--device cpu``) the kernel build is not needed (the wrappers
 run their plain versions) and the capacity model reads the host's memory.
-The JAX package's pipeline-parallel check waits for the port's pipeline
-(ROADMAP.md, Queue 1 item 9, parts 4–5).
 """
 
 from __future__ import annotations
@@ -165,6 +167,46 @@ def check_parallel_step(dev, backend: str | None = None, share_card: bool = Fals
     return f"data={mesh.size('data')} model={mesh.size('model')} loss={float(loss):.2f}"
 
 
+def check_pipeline_step(dev, backend: str | None = None, share_card: bool = False) -> str:
+    """One GPipe train step of the reduced model (2 layers, the plain
+    attention, 2 microbatches) on a mesh of ``pipe`` = 2 and ``data`` the
+    rest, each data rank on its rows of a global batch of 2 rows a data
+    rank (root ``preflight.py``'s dp x pp check); the loss finite and the
+    same on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repurpose_tpu_torch.config import MeshConfig, TrainConfig
+    from repurpose_tpu_torch.data.batching import collate
+    from repurpose_tpu_torch.data.synthetic import SyntheticDataset
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.parallel.mesh import create_mesh
+    from repurpose_tpu_torch.parallel.sharding import local_rows
+    from repurpose_tpu_torch.train.state import TrainState, make_optimizer
+    from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
+
+    mesh = create_mesh(MeshConfig(data=-1, pipe=2), backend, dev, share_card)
+    dp = mesh.size("data")
+    mc = dataclasses.replace(_production_model(), self_num_layers=2, attention_impl="xla")
+    tc = TrainConfig(batch_size=2, buckets=(256,), pipeline_microbatches=2,
+                     pipeline_schedule="gpipe")
+    n = tc.batch_size * dp
+    ds = SyntheticDataset([100 + i for i in range(n)], mc, seed=0)
+    batch = local_rows(collate([ds[i] for i in range(n)], tc.buckets, n), mesh)
+    model = build_model(mc, mesh.device, seed=0, mesh=mesh)
+    model.set_dropout_generator(torch.Generator(device=mesh.device).manual_seed(tc.seed))
+    optimizer, schedule = make_optimizer(model, tc, 1, mesh)
+    metrics = make_train_step(mc, tc, schedule, mesh)(
+        TrainState(model, optimizer, mesh=mesh), batch_to_device(batch, mesh.device))
+    loss = metrics["loss"].reshape(1)
+    spread = torch.cat([loss, -loss])
+    dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+    if not 0 < float(loss) < 1e9 or float(spread[0] + spread[1]) != 0.0:
+        raise RuntimeError(f"loss {float(loss)}, largest {float(spread[0])} and smallest "
+                           f"{float(-spread[1])} over the ranks")
+    return f"stages=2 dp={dp} loss={float(loss):.2f}"
+
+
 def _memory_bytes(dev) -> float:
     """The device's memory: the card's, or the host's on the CPU."""
     from repurpose_tpu_torch.utils.capacity import device_memory_bytes
@@ -262,6 +304,9 @@ def main(argv: list[str] | None = None) -> int:
               for name, fn in CHECKS]
     if distributed:
         checks.append(("dp x tp train step", functools.partial(check_parallel_step, **mesh_kw)))
+        if torch.distributed.get_world_size() % 2 == 0:
+            checks.append(("pipeline-parallel step (dp x pp)",
+                           functools.partial(check_pipeline_step, **mesh_kw)))
     results: list[tuple[str, bool, str]] = []
     for name, fn in checks + (FULL_CHECKS if args.full else []):
         t0 = time.time()

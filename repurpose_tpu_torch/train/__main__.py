@@ -15,9 +15,11 @@ parses the flags and loads the config (YAML, or the same schema as
 ``--debug-viz`` renders prediction figures at each evaluation (matplotlib);
 ``--wandb`` also logs to wandb, imported only then.
 
-Several processes train one model on a mesh (``tpu: {data, model}`` in the
-config; the global batch is ``batch_size`` times ``data``) when launched
-by torchrun, one rank per card over NCCL:
+Several processes train one model on a mesh (``tpu: {data, model, seq,
+pipe}`` in the config; the global batch is ``batch_size`` times ``data``;
+``pipe`` runs the ``pipeline_schedule`` over ``pipeline_microbatches``,
+``seq`` needs ``attention_impl: ring``) when launched by torchrun, one rank
+per card over NCCL:
 
     python -m torch.distributed.run --nproc_per_node 8 -m repurpose_tpu_torch.train \
         --config_path configs/repurpose.yaml --workdir runs/ddp

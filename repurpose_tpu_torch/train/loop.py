@@ -25,10 +25,18 @@
   layers sharded over ``model``), ZeRO-1 (``shard_opt_state``); rank 0 logs
   and writes checkpoints; ``evaluate`` scores this rank's strided slice of
   the videos and sums the tIoU sums and counts over ``data``. Every rank
-  runs every step, probe, save and evaluation (they hold collectives).
-
-Not ported yet (ROADMAP Queue 1 item 9, parts 4–5): the ``seq`` and
-``pipe`` axes (pipeline and ring attention).
+  runs every step, probe, save and evaluation (they hold collectives);
+- the ``pipe`` axis (``parallel/pipeline.py``, ``parallel/pipeline_1f1b.py``):
+  ``pipeline_schedule`` "1f1b" (the default) or "gpipe", over
+  ``pipeline_microbatches``, validated against the global batch
+  (``batch_size`` times ``data``); every stage holds the whole model, so
+  checkpoints are the one-process state dict; the val probe rides the GPipe
+  forward; ``grad_accum_steps`` > 1 raises, as in the JAX Trainer;
+- the ``seq`` axis with ``attention_impl="ring"``: each rank trains on its
+  ``T / seq`` columns of its rows; packing raises. ``evaluate`` keeps the
+  ring when the batch and the buckets divide the axes (the pipeline then
+  gathers the scores over ``seq`` before the decode) and otherwise scores
+  with the kernel attention on whole rows, with a warning.
 """
 
 from __future__ import annotations
@@ -51,7 +59,14 @@ from repurpose_tpu_torch.data.loader import BatchLoader
 from repurpose_tpu_torch.infer import InferencePipeline
 from repurpose_tpu_torch.models import build_model
 from repurpose_tpu_torch.parallel.mesh import create_mesh, describe_mesh, mesh_self_check
-from repurpose_tpu_torch.parallel.sharding import shard_state_dict
+from repurpose_tpu_torch.parallel.pipeline import validate_pipeline
+from repurpose_tpu_torch.parallel.pipeline_1f1b import make_1f1b_train_step
+from repurpose_tpu_torch.parallel.sharding import (
+    gather_columns,
+    local_columns,
+    seq_split,
+    shard_state_dict,
+)
 from repurpose_tpu_torch.train.checkpoint import Checkpointer
 from repurpose_tpu_torch.train.state import TrainState, make_optimizer
 from repurpose_tpu_torch.train.step import (
@@ -97,11 +112,8 @@ class Trainer:
         self.cfg = cfg
         self.workdir = workdir
         tc = cfg.train
-        if cfg.mesh.seq > 1 or cfg.mesh.pipe > 1:
-            raise NotImplementedError(
-                f"mesh {cfg.mesh}: the seq and pipe axes (ring attention, pipeline "
-                "parallelism) are not ported yet (ROADMAP.md, Queue 1 item 9, parts 4–5)"
-            )
+        if tc.pack_sequences and cfg.model.attention_impl == "ring":
+            raise ValueError("pack_sequences is not supported with ring attention")
         self.mesh = mesh = create_mesh(cfg.mesh, dist_backend, device, share_card)
         if mesh.world > 1:
             mesh_self_check(mesh)
@@ -132,8 +144,19 @@ class Trainer:
         )
         optimizer, schedule = make_optimizer(model, tc, self.steps_per_epoch, mesh)
         self.state = TrainState(model=model, optimizer=optimizer, mesh=mesh)
-        self.train_step = make_train_step(cfg.model, tc, schedule, mesh)
-        self.eval_step = make_eval_step(tc)
+        self._seq_sharded = seq_split(cfg.model, mesh)
+        if mesh.size("pipe") > 1:
+            validate_pipeline(cfg.model, mesh, tc.pipeline_microbatches,
+                              tc.batch_size * mesh.size("data"))
+            logger.info("pipeline parallelism: %d stages x %d microbatches (%s)",
+                        mesh.size("pipe"), tc.pipeline_microbatches, tc.pipeline_schedule)
+        if mesh.size("pipe") > 1 and tc.pipeline_schedule == "1f1b":
+            self.train_step = make_1f1b_train_step(
+                cfg.model, tc, schedule, mesh, tc.pipeline_microbatches,
+                zero1=tc.shard_opt_state and mesh.size("data") > 1)
+        else:
+            self.train_step = make_train_step(cfg.model, tc, schedule, mesh)
+        self.eval_step = make_eval_step(tc, mesh)
         # cadences: per-layer grad norms every 10 steps (reference
         # main.py:345-367), histograms every 1000 (wandb.watch's default);
         # the finite probe is the only periodic host sync
@@ -147,9 +170,18 @@ class Trainer:
         self.metrics = MetricLogger(workdir, use_wandb=use_wandb,
                                     config=json.loads(cfg.to_json()), is_main=mesh.is_main)
         self.debug_viz = False  # fit()'s evaluations render debug figures
+        # ring attention stays live at eval when the shapes divide the axes;
+        # otherwise the kernel attention on whole rows (the same values)
+        ring_eval = (self._seq_sharded and tc.batch_size % mesh.size("data") == 0
+                     and all(b % mesh.size("seq") == 0 for b in tc.buckets))
+        if cfg.model.attention_impl == "ring" and not ring_eval:
+            logger.warning("ring attention disabled for EVAL (train keeps it): batch %d / "
+                           "buckets %s don't divide mesh axes %s — eval falls back to the "
+                           "kernel attention on whole rows", tc.batch_size, tc.buckets,
+                           mesh.sizes)
         eval_model_cfg = dataclasses.replace(
             cfg.model, dropout=0.0,
-            attention_impl="auto" if cfg.model.attention_impl == "ring"
+            attention_impl="auto" if cfg.model.attention_impl == "ring" and not ring_eval
             else cfg.model.attention_impl,
         )
         # evaluate() hands the pipeline the live weights on every call
@@ -163,18 +195,26 @@ class Trainer:
         self.start_epoch = 0
 
     def _device_batch(self, batch: Batch) -> Batch:
+        """A host batch on the device: this rank's columns of it under ring
+        attention on a ``seq`` axis."""
+        if self._seq_sharded:
+            batch = local_columns(batch, self.mesh)
         return batch_to_device(batch, self.device)
 
     @torch.no_grad()
     def eval_forward(self, batch: Batch):
         """Raw model outputs of a host batch, in eval mode, for debugging and
-        visualisation."""
+        visualisation (the whole rows, gathered over ``seq`` under ring
+        attention)."""
         model = self.state.model
         was_training = model.training
         model.eval()
         try:
             b = self._device_batch(batch)
-            return model(b.visual, b.audio, b.text, b.mask)
+            out = model(b.visual, b.audio, b.text, b.mask)
+            if self._seq_sharded:
+                out = type(out)(*[gather_columns(x, self.mesh) for x in out])
+            return out
         finally:
             model.train(was_training)
 
@@ -270,6 +310,9 @@ class Trainer:
         count = 0
         entries = getattr(ds, "entries", None)
         use_pack = self.cfg.train.pack_sequences if pack is None else pack
+        if use_pack and self.pipeline.ring:
+            logger.info("packed eval is unsupported with a live ring mesh; scoring unpacked")
+            use_pack = False
         use_pack = use_pack and hasattr(ds, "lengths")
         meta_fifo: collections.deque = collections.deque()
         debugger = None

@@ -30,6 +30,22 @@ construction:
   gradient norm sums the squared norms of sharded parameters over the
   axis and counts replicated ones once; histograms are of the gathered
   values.
+- ``pipe`` > 1: the encoder runs as a pipeline: GPipe's forward
+  (``parallel/pipeline.py``'s ``PipelinedMMCT``, the reverse in autograd)
+  here, or the 1F1B schedule (``parallel/pipeline_1f1b.py``, which hands
+  its ``loss_and_grads`` to this step). Either way the gradients are then
+  summed over ``pipe`` as their owning stage computed them
+  (``reduce_pipeline_grads``), so the step is the one-process one.
+  ``grad_accum_steps`` > 1 raises: the microbatches do that work. In the
+  split layout (``create_pipeline_train_state``) a stage holds its own
+  layers only: the gradient norm sums their squares over ``pipe``, and the
+  per-layer norms and histograms are of the whole model's gradients,
+  gathered.
+- ``seq`` > 1 with ring attention: each rank holds ``T / seq`` columns of
+  its rows (``local_rows``); the loss sums and the gradients are summed
+  over ``seq`` as over ``data``, and the denominator (from the rows'
+  durations or segments, which every ``seq`` rank holds whole) is not.
+  The ``seq`` coordinate is folded into the dropout seed too.
 
 The non-finite guard reads the global loss and norm, so it is global.
 """
@@ -49,6 +65,7 @@ from repurpose_tpu_torch.parallel.sharding import (
     all_reduce_grads,
     gather_tensor,
     param_sharding_rule,
+    seq_split,
 )
 from repurpose_tpu_torch.train.state import TrainState
 
@@ -119,12 +136,14 @@ def loss_fn(model, train_cfg: TrainConfig, batch: Batch, norm_override=None):
     return total, aux
 
 
-def dropout_seed(seed: int, step: int, data_rank: int = 0) -> int:
+def dropout_seed(seed: int, step: int, data_rank: int = 0, seq_rank: int = 0) -> int:
     """Seed of step ``step``'s dropout masks: a hash of (seed, step), as the
     JAX step folds the step into its key (``fold_in(rng, state.step)``), so
     a resumed run draws the masks an uninterrupted one would. Data rank
-    r > 0 folds r in too: its rows get draws of their own."""
-    words = [seed % 2**32, step] + ([data_rank] if data_rank else [])
+    r > 0 folds r in too: its rows get draws of their own; so does a
+    ``seq`` rank > 0, for its positions."""
+    words = [seed % 2**32, step] + ([data_rank] if data_rank or seq_rank else [])
+    words += [seq_rank] if seq_rank else []
     return int(np.random.SeedSequence(words).generate_state(1, np.uint64)[0])
 
 
@@ -177,10 +196,30 @@ def param_histograms(model, mesh=None) -> dict:
             "edges": torch.stack([e for _, e in hists])}
 
 
+def _split_grad_norms(model, mesh, per_layer: bool):
+    """``_grad_norms`` of a split-layout stage model: the squares of the
+    stage's own layers summed over ``pipe``, the rest counted once; the
+    per-matrix norms of the whole model's gathered gradients."""
+    from repurpose_tpu_torch.parallel.pipeline import pipeline_grads_by_name
+
+    sq = [torch.zeros((), device=mesh.device), torch.zeros((), device=mesh.device)]
+    for n, p in model.named_parameters():
+        if p.grad is not None:
+            sq[n.startswith("multimodal_encoder.layers.")] += p.grad.float().pow(2).sum()
+    total = (sq[0] + mesh.all_reduce(sq[1], "pipe")).sqrt()
+    if not per_layer:
+        return total, None
+    grads = pipeline_grads_by_name(model, mesh)
+    return total, torch.stack([torch.linalg.vector_norm(g.float()) for g in grads.values()
+                               if g.ndim == 2])
+
+
 def _grad_norms(model, mesh, per_layer: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
     """(global gradient norm, per-matrix norms or None). Under tensor
     parallelism the squared norms of sharded parameters are summed over
     ``model`` (one all_reduce) and replicated ones counted once."""
+    if hasattr(model, "layer_offset"):
+        return _split_grad_norms(model, mesh, per_layer)
     named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
     if not _tp(mesh):
         total = torch.linalg.vector_norm(
@@ -208,7 +247,7 @@ def _chunk(batch: Batch, c: int, accum: int) -> Batch:
 
 def make_train_step(
     model_cfg: ModelConfig, train_cfg: TrainConfig, schedule: Callable | None = None,
-    mesh=None,
+    mesh=None, loss_and_grads: Callable | None = None,
 ) -> Callable:
     """``train_step(state, batch, per_layer_grad_norms=False,
     grad_histograms=False) -> metrics``: one Adam update of ``state`` on a
@@ -219,12 +258,29 @@ def make_train_step(
     ``hist/grads/counts`` [L, HIST_BINS] and ``hist/grads/edges``
     [L, HIST_BINS + 1], both labelled by ``kernel_layer_names`` (a matrix
     without a gradient counts as zeros, as the JAX step's zero gradient).
-    ``mesh``: ``batch`` is this rank's rows and the step is the global one
-    (module docstring); every rank of the mesh must call it."""
+    ``mesh``: ``batch`` is this rank's rows (and columns, under ring
+    attention) and the step is the global one (module docstring); every
+    rank of the mesh must call it. On a ``pipe`` axis the forward is
+    GPipe's unless ``loss_and_grads(model, batch) -> aux`` (the 1F1B
+    schedule's, ``make_1f1b_train_step``) replaces the forward and backward;
+    the state may be ``create_pipeline_train_state``'s (the split layout)."""
+    from repurpose_tpu_torch.parallel.pipeline import (
+        PipelinedMMCT,
+        pipeline_grads_by_name,
+        reduce_pipeline_grads,
+    )
+
     accum = max(int(train_cfg.grad_accum_steps), 1)
+    pipe = mesh is not None and mesh.size("pipe") > 1
+    if pipe and accum > 1:
+        raise ValueError("grad_accum_steps > 1 does not compose with pipeline parallelism — "
+                         "pipeline microbatches already serve that role; raise "
+                         "pipeline_microbatches instead")
+    seq = mesh is not None and seq_split(model_cfg, mesh)
     # the replicated dropout masks need one generator state on every model rank
     needs_generator = _tp(mesh) and model_cfg.dropout > 0
     data_rank = 0 if mesh is None else mesh.coord("data")
+    seq_rank = mesh.coord("seq") if seq else 0
     data_parallel = mesh is not None and mesh.size("data") > 1
     accum_dtype = (torch.bfloat16 if train_cfg.grad_accum_dtype == "bfloat16"
                    else torch.float32)
@@ -256,6 +312,19 @@ def make_train_step(
         aux_sum["n_real"] = n_real
         return aux_sum
 
+    def forward_backward(model, batch: Batch) -> dict:
+        if accum > 1:
+            return accumulate(model, batch)
+        n_real, norm = global_denominator(train_cfg, batch, mesh)
+        fwd = PipelinedMMCT(model, mesh, train_cfg.pipeline_microbatches) if pipe else model
+        total, aux = loss_fn(fwd, train_cfg, batch, norm_override=norm)
+        total.backward()
+        aux = {k: v.detach() for k, v in aux.items()}
+        aux["n_real"] = n_real
+        return aux
+
+    grads_of = loss_and_grads or forward_backward
+
     def train_step(state: TrainState, batch: Batch, per_layer_grad_norms: bool = False,
                    grad_histograms: bool = False):
         model, opt = state.model, state.optimizer
@@ -266,33 +335,33 @@ def make_train_step(
                              "generator (MMCT.set_dropout_generator): the model ranks must "
                              "draw the same masks")
         if gen is not None:
-            gen.manual_seed(dropout_seed(train_cfg.seed, state.step, data_rank))
+            gen.manual_seed(dropout_seed(train_cfg.seed, state.step, data_rank, seq_rank))
         lr = schedule(state.step) if schedule is not None else None
         if lr is not None:
             for group in opt.param_groups:
                 group["lr"] = lr
         opt.zero_grad(set_to_none=True)
-        if accum > 1:
-            aux = accumulate(model, batch)
-        else:
-            n_real, norm = global_denominator(train_cfg, batch, mesh)
-            total, aux = loss_fn(model, train_cfg, batch, norm_override=norm)
-            total.backward()
-            aux = {k: v.detach() for k, v in aux.items()}
-            aux["n_real"] = n_real
-        if data_parallel:  # once per step, after any accumulation
-            all_reduce_grads(model.parameters(), mesh)
+        aux = grads_of(model, batch)
+        if pipe:
+            reduce_pipeline_grads(model, mesh)
+        # once per step, after any accumulation
+        for axis in ("data",) * data_parallel + ("seq",) * seq:
+            all_reduce_grads(model.parameters(), mesh, axis=axis)
             keys = [k for k in ("loss", "cls_loss", "reg_loss") if k in aux]
-            sums = mesh.all_reduce(torch.stack([aux[k].float() for k in keys]), "data")
+            sums = mesh.all_reduce(torch.stack([aux[k].float() for k in keys]), axis)
             aux.update(zip(keys, sums.unbind()))
         metrics = dict(aux)
         metrics["grad_norm"], layer_norms = _grad_norms(model, mesh, per_layer_grad_norms)
         if per_layer_grad_norms:
             metrics["grad_norms/stacked"] = layer_norms
         if grad_histograms:
-            hists = [histogram(gather_tensor(n, g, mesh) if _tp(mesh) else g)
-                     for n, g in ((n, p.grad if p.grad is not None else torch.zeros_like(p))
-                                  for n, p in _kernel_params(model))]
+            if hasattr(model, "layer_offset"):  # the split layout: gathered over pipe
+                kernels = [g for g in pipeline_grads_by_name(model, mesh).values() if g.ndim == 2]
+            else:
+                kernels = [gather_tensor(n, g, mesh) if _tp(mesh) else g
+                           for n, g in ((n, p.grad if p.grad is not None else torch.zeros_like(p))
+                                        for n, p in _kernel_params(model))]
+            hists = [histogram(g) for g in kernels]
             metrics["hist/grads/counts"] = torch.stack([c for c, _ in hists])
             metrics["hist/grads/edges"] = torch.stack([e for _, e in hists])
         if lr is not None:
@@ -306,15 +375,24 @@ def make_train_step(
     return train_step
 
 
-def make_eval_step(train_cfg: TrainConfig) -> Callable:
+def make_eval_step(train_cfg: TrainConfig, mesh=None) -> Callable:
     """Loss-only evaluation (the val probe): ``eval_step(model, batch) ->
-    aux``, in eval mode and without gradients."""
+    aux``, in eval mode and without gradients. On a ``pipe`` axis the
+    forward is GPipe's; under ring attention ``batch`` is this rank's
+    columns and the loss sums are summed over ``seq``."""
+    from repurpose_tpu_torch.parallel.pipeline import PipelinedMMCT
+
+    pipe = mesh is not None and mesh.size("pipe") > 1
 
     @torch.no_grad()
     def eval_step(model, batch: Batch) -> dict:
         model.eval()
-        _, aux = loss_fn(model, train_cfg, batch)
+        fwd = PipelinedMMCT(model, mesh, train_cfg.pipeline_microbatches) if pipe else model
+        _, aux = loss_fn(fwd, train_cfg, batch)
+        if mesh is not None and seq_split(model.cfg, mesh):
+            keys = [k for k in ("loss", "cls_loss", "reg_loss") if k in aux]
+            sums = mesh.all_reduce(torch.stack([aux[k].float() for k in keys]), "seq")
+            aux.update(zip(keys, sums.unbind()))
         return aux
 
     return eval_step
-

@@ -167,5 +167,8 @@ def test_select_attention_impl():
     for impl in ("auto", "pallas", "pallas_full"):
         got = select_attention_impl(impl, "float32")(q, k, v, valid)
         torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError):
-        select_attention_impl("ring")
+    # "ring" falls through to the plain attention, as the JAX dispatcher's
+    # does to mha_xla: the concat encoder sends it to the ring itself
+    assert select_attention_impl("ring") is mha_torch
+    with pytest.raises(ValueError, match="bad attention_impl"):
+        select_attention_impl("bogus")

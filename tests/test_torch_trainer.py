@@ -314,18 +314,79 @@ def test_entry_points_raise_without_a_card(tmp_path):
                   "--workdir", str(tmp_path / "run")])
 
 
-def test_training_options_not_ported_raise(tmp_path):
-    """The mesh's seq and pipe axes are not ported and raise (data and model
-    are: tests/test_torch_parallel.py); remat is ported
-    (tests/test_torch_remat.py) and builds a Trainer whose encoder
-    rematerialises its layers."""
+PIPE_AND_RING_WORKER = r"""
+import json, sys
+from datetime import timedelta
+import torch
+import torch.distributed as dist
+from repurpose_tpu_torch.config import load_config
+from repurpose_tpu_torch.data.synthetic import SyntheticDataset
+from repurpose_tpu_torch.train.loop import Trainer
+
+rank, root = int(sys.argv[1]), sys.argv[2]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method=f"file://{root}/store", rank=rank, world_size=2,
+                        timeout=timedelta(seconds=120))
+out = {}
+for name in ("pipe", "ring"):
+    cfg = load_config(f"{root}/{name}.json")
+    tr = Trainer(cfg, f"{root}/{name}", SyntheticDataset(json.loads(sys.argv[3]), cfg.model,
+                                                         seed=1), device="cpu")
+    attn = tr.state.model.multimodal_encoder.layers[0].self_attn
+    out[name] = dict(mesh=tr.mesh.sizes, schedule=tr.cfg.train.pipeline_schedule,
+                     ring=attn.ring_mesh is not None, ring_eval=tr.pipeline.ring)
+    tr.close()
+json.dump(out, open(f"{root}/rank{rank}.json", "w"))
+dist.destroy_process_group()
+"""
+
+
+def test_remat_pipe_and_ring_trainers_build(tmp_path):
+    """Remat builds a Trainer whose encoder rematerialises its layers
+    (tests/test_torch_remat.py); a ``pipe`` = 2 Trainer (the 1F1B schedule)
+    and a ring ``seq`` = 2 Trainer (the ring live at eval) build in one
+    gloo process group of two ranks (their steps: tests/test_torch_pipeline.py,
+    tests/test_torch_ring_attention.py); a mesh with both ``pipe`` and
+    ``seq`` raises ``validate_pipeline``'s ValueError, as the JAX rule does."""
+    import subprocess
+
+    from repurpose_tpu_torch.parallel.mesh import Mesh
+    from repurpose_tpu_torch.parallel.pipeline import validate_pipeline
+
     remat = Trainer(dataclasses.replace(CFG, model=dataclasses.replace(MODEL, remat=True)),
                     str(tmp_path), _datasets()[0], device="cpu")
     assert remat.state.model.multimodal_encoder.remat
-    for mesh in (MeshConfig(data=1, pipe=2), MeshConfig(data=1, seq=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            Trainer(dataclasses.replace(CFG, mesh=mesh), str(tmp_path), _datasets()[0],
-                    device="cpu")
+    model = dataclasses.replace(MODEL, self_num_layers=2)
+    train = dataclasses.replace(CFG.train, pack_sequences=False)
+    for name, mesh, mc in (("pipe", MeshConfig(data=1, pipe=2), model),
+                           ("ring", MeshConfig(data=1, seq=2),
+                            dataclasses.replace(model, attention_impl="ring"))):
+        raw = dataclasses.replace(CFG, model=mc, train=train).to_dict()
+        raw["tpu"] = {"mesh": dataclasses.asdict(mesh)}  # the schema's mesh section
+        (tmp_path / f"{name}.json").write_text(json.dumps(raw))
+    procs = [subprocess.Popen([sys.executable, "-c", PIPE_AND_RING_WORKER, str(r),
+                               str(tmp_path), json.dumps(DURS)], cwd=str(ROOT), text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-4000:]
+    for r in range(2):
+        got = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert got["pipe"]["mesh"] == {"data": 1, "model": 1, "seq": 1, "pipe": 2}
+        assert got["pipe"]["schedule"] == "1f1b" and not got["pipe"]["ring"]
+        assert got["ring"]["mesh"] == {"data": 1, "model": 1, "seq": 2, "pipe": 1}
+        assert got["ring"]["ring"] and got["ring"]["ring_eval"]
+    sizes = {"data": 1, "model": 1, "seq": 2, "pipe": 2}
+    both = Mesh(sizes=sizes, coords=dict.fromkeys(sizes, 0), rank=0, world=4,
+                device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(ValueError, match="set seq=1"):
+        validate_pipeline(MODEL, both, 2, 4)
 
 
 def test_chip_smoke_config_is_the_production_config():
