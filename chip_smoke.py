@@ -161,7 +161,20 @@ verdict line):
    at [1, 8192, 8, 64] against ``mha_torch``; (d) the multi-process
    ``evaluate`` with the ring live and on pipe=2; (e) the train CLI on a
    ``pipe: 2`` config under torchrun and 16's ``preflight``'s pipeline check;
-18. a JSON line listing every ported kernel, then the verdict line
+18. the feature extractors and preprocessing, at the published widths with
+   seeded random checkpoints written in the HF / PANNs layouts: (a) CLIP
+   ViT-B/32 (128 frames), CNN14 (512 one-second chunks), MiniLM-L6 (256
+   sentences of 64 tokens) and the Whisper-base encoder (4 chunks of 30 s)
+   on the card in float32 against the CPU, and in bf16 where the drivers
+   run them so; Whisper float32 greedy tokens against the CPU's up to its
+   first near tie; beam 5 with word timestamps; no kernel launch; (b)
+   ``python -m repurpose_tpu_torch.preprocess --device cuda`` (visual and
+   audio steps, then ``--verify``) on three videos of 120-600 s read
+   through a fake ``ffmpeg`` / ``ffprobe``, the text step (Whisper ASR and
+   MiniLM) in this process with a stub tokenizer; (c) those features
+   through ``RepurposeDataset`` and the flagship's ``score_videos``, the
+   tensor-core forward counted; (d) ``bench_extractors`` on the card;
+19. a JSON line listing every ported kernel, then the verdict line
    ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --parallel-worker DIR`` and ``--pipeline-worker
@@ -183,6 +196,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 T_START = time.perf_counter()
@@ -4326,6 +4340,541 @@ def phase_pipeline_and_ring(card: str, workdir: str, preflight_log: str) -> dict
                                   launches=ranks[0][k]["launches"]) for k in evals})
 
 
+# -- phase 18 -----------------------------------------------------------------
+
+# Phase 18's sizes: (a) the extractors at the published widths on these
+# inputs; (b) three videos of these seconds through the preprocessing CLI.
+EXTRACT_CLIP_FRAMES = 128
+EXTRACT_CNN14_CHUNKS = 512  # one-second chunks at 22 050 samples
+EXTRACT_MINILM = (256, 64)  # sentences, tokens
+EXTRACT_WHISPER_CHUNKS = 4  # 30 s chunks
+EXTRACT_VIDEOS = {"xvid_a": 120, "xvid_b": 347, "xvid_c": 600}
+# (a)'s bounds, set before the first run. Float32 on the card (TF32 off)
+# against the CPU: the same arithmetic summed in another order, ~1e-6
+# relative; 1e-4 absolute on embeddings of unit scale. bf16 against the CPU
+# in float32: the bf16 products round every activation to 2**-8 relative,
+# through up to 12 layers; each row's cosine at least 0.99.
+EXTRACT_F32_ATOL = 1e-4
+EXTRACT_BF16_COS = 0.99
+# Whisper float32 greedy tokens: equal to the CPU's up to the first position
+# where the CPU's ruled logits have a top-2 gap under this (a near tie the
+# card may break the other way).
+NEAR_TIE_GAP = 1e-3
+
+FAKE_FFMPEG = '''#!{python}
+"""Stand-in for {kind} over "videos" that are JSON files
+{{"duration": seconds, "seed": n}}: ffprobe prints the duration; ffmpeg
+writes one seeded RGB frame a second (rawvideo, the -vf crop's geometry)
+or a seeded mono wave (f32le at -ar)."""
+import json, sys
+import numpy as np
+args = sys.argv
+path = args[args.index("-i") + 1] if "-i" in args else args[-1]
+with open(path) as f:
+    spec = json.load(f)
+dur = float(spec["duration"])
+if {kind!r} == "ffprobe":
+    sys.stdout.write(json.dumps({{"format": {{"duration": str(dur)}}}}))
+    sys.exit(0)
+fmt = args[args.index("-f") + 1]
+out = sys.stdout.buffer
+rng = np.random.default_rng(spec["seed"])
+if fmt == "rawvideo":
+    crop = [p for p in args[args.index("-vf") + 1].split(",") if p.startswith("crop=")][0]
+    w, h = (int(x) for x in crop[len("crop="):].split(":"))
+    for _ in range(int(dur)):
+        out.write(rng.integers(0, 256, (h, w, 3), dtype=np.uint8).tobytes())
+elif fmt == "f32le":
+    sr = int(args[args.index("-ar") + 1])
+    t = np.arange(int(dur * sr)) / sr
+    wave = 0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.05 * rng.normal(size=t.size)
+    out.write(wave.astype("<f4").tobytes())
+else:
+    sys.exit(64)
+out.flush()
+'''
+
+
+def install_fake_ffmpeg(bin_dir: str) -> str:
+    """Writes ``FAKE_FFMPEG`` as ``ffmpeg`` and ``ffprobe`` into ``bin_dir``;
+    returns a PATH with ``bin_dir`` first."""
+    os.makedirs(bin_dir, exist_ok=True)
+    for kind in ("ffmpeg", "ffprobe"):
+        path = os.path.join(bin_dir, kind)
+        with open(path, "w") as f:
+            f.write(FAKE_FFMPEG.format(python=sys.executable, kind=kind))
+        os.chmod(path, 0o755)
+    return bin_dir + os.pathsep + os.environ.get("PATH", "")
+
+
+def write_fake_video(path: str, duration: float, seed: int) -> None:
+    with open(path, "w") as f:
+        json.dump({"duration": duration, "seed": seed}, f)
+
+
+def hf_clip_vision_shapes(cfg) -> dict:
+    """Names and shapes of an HF ``CLIPVisionModelWithProjection`` state dict
+    that ``convert_hf_clip_vision`` reads."""
+    w, p = cfg.width, "vision_model."
+    shapes = {f"{p}embeddings.patch_embedding.weight": (w, 3, cfg.patch_size, cfg.patch_size),
+              f"{p}embeddings.class_embedding": (w,),
+              f"{p}embeddings.position_embedding.weight": (cfg.num_patches + 1, w),
+              "visual_projection.weight": (cfg.projection_dim, w)}
+    for ln in ("pre_layrnorm", "post_layernorm"):
+        shapes.update({f"{p}{ln}.weight": (w,), f"{p}{ln}.bias": (w,)})
+    for i in range(cfg.layers):
+        e = f"{p}encoder.layers.{i}."
+        for n, (o, k) in {"self_attn.q_proj": (w, w), "self_attn.k_proj": (w, w),
+                          "self_attn.v_proj": (w, w), "self_attn.out_proj": (w, w),
+                          "mlp.fc1": (cfg.mlp_ratio * w, w), "mlp.fc2": (w, cfg.mlp_ratio * w),
+                          "layer_norm1": (w, None), "layer_norm2": (w, None)}.items():
+            shapes[f"{e}{n}.weight"] = (o, k) if k else (o,)
+            shapes[f"{e}{n}.bias"] = (o,)
+    return shapes
+
+
+def hf_bert_shapes(cfg) -> dict:
+    """Names and shapes of an HF ``BertModel`` state dict that
+    ``convert_hf_bert`` reads."""
+    d, f = cfg.width, cfg.intermediate
+    shapes = {"embeddings.word_embeddings.weight": (cfg.vocab_size, d),
+              "embeddings.position_embeddings.weight": (cfg.max_position, d),
+              "embeddings.token_type_embeddings.weight": (cfg.type_vocab, d),
+              "embeddings.LayerNorm.weight": (d,), "embeddings.LayerNorm.bias": (d,)}
+    for i in range(cfg.layers):
+        e = f"encoder.layer.{i}."
+        for n, (o, k) in {"attention.self.query": (d, d), "attention.self.key": (d, d),
+                          "attention.self.value": (d, d), "attention.output.dense": (d, d),
+                          "attention.output.LayerNorm": (d, None), "intermediate.dense": (f, d),
+                          "output.dense": (d, f), "output.LayerNorm": (d, None)}.items():
+            shapes[f"{e}{n}.weight"] = (o, k) if k else (o,)
+            shapes[f"{e}{n}.bias"] = (o,)
+    return shapes
+
+
+def panns_cnn14_shapes(cfg) -> dict:
+    """Names and shapes of a PANNs ``Cnn14`` checkpoint's ``model`` state dict
+    that ``convert_panns_cnn14`` reads."""
+    def bn(name, c):
+        return {f"{name}.{k}": (c,) for k in ("weight", "bias", "running_mean", "running_var")}
+
+    shapes = bn("bn0", cfg.n_mels)
+    in_ch = 1
+    for i, ch in enumerate(cfg.channels, 1):
+        shapes[f"conv_block{i}.conv1.weight"] = (ch, in_ch, 3, 3)
+        shapes[f"conv_block{i}.conv2.weight"] = (ch, ch, 3, 3)
+        shapes.update(bn(f"conv_block{i}.bn1", ch))
+        shapes.update(bn(f"conv_block{i}.bn2", ch))
+        in_ch = ch
+    shapes.update({"fc1.weight": (cfg.embed_dim, in_ch), "fc1.bias": (cfg.embed_dim,)})
+    return shapes
+
+
+def hf_whisper_shapes(cfg) -> dict:
+    """Names and shapes of an HF ``WhisperForConditionalGeneration`` state
+    dict that ``convert_hf_whisper`` reads (``proj_out`` is tied)."""
+    d, f = cfg.d_model, cfg.d_ff
+    attn = {"q_proj": True, "k_proj": False, "v_proj": True, "out_proj": True}
+    shapes = {"model.encoder.conv1.weight": (d, cfg.n_mels, 3), "model.encoder.conv1.bias": (d,),
+              "model.encoder.conv2.weight": (d, d, 3), "model.encoder.conv2.bias": (d,),
+              "model.encoder.embed_positions.weight": (cfg.max_source_positions, d),
+              "model.decoder.embed_tokens.weight": (cfg.vocab_size, d),
+              "model.decoder.embed_positions.weight": (cfg.max_target_positions, d)}
+    for side, n, blocks in (("encoder", cfg.enc_layers, ("self_attn",)),
+                            ("decoder", cfg.dec_layers, ("self_attn", "encoder_attn"))):
+        shapes[f"model.{side}.layer_norm.weight"] = (d,)
+        shapes[f"model.{side}.layer_norm.bias"] = (d,)
+        for i in range(n):
+            e = f"model.{side}.layers.{i}."
+            for blk in blocks:
+                for proj, bias in attn.items():
+                    shapes[f"{e}{blk}.{proj}.weight"] = (d, d)
+                    if bias:
+                        shapes[f"{e}{blk}.{proj}.bias"] = (d,)
+                shapes[f"{e}{blk}_layer_norm.weight"] = (d,)
+                shapes[f"{e}{blk}_layer_norm.bias"] = (d,)
+            for n2, shape in (("fc1", (f, d)), ("fc2", (d, f))):
+                shapes[f"{e}{n2}.weight"] = shape
+                shapes[f"{e}{n2}.bias"] = (shape[0],)
+            shapes[f"{e}final_layer_norm.weight"] = (d,)
+            shapes[f"{e}final_layer_norm.bias"] = (d,)
+    return shapes
+
+
+def random_checkpoint(shapes: dict, seed: int) -> dict:
+    """Seeded random weights for the names and shapes given, as CPU float32
+    tensors: matrices, convolutions and tables normal with std
+    1/sqrt(fan_in); LayerNorm / BatchNorm scales 1 + N(0, 0.02); biases,
+    running means and the class embedding N(0, 0.02); running variances
+    uniform in [0.5, 2]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in shapes.items():
+        if len(shape) >= 2:
+            x = rng.normal(0.0, 1.0 / np.sqrt(np.prod(shape[1:])), shape)
+        elif name.endswith("running_var"):
+            x = rng.uniform(0.5, 2.0, shape)
+        elif name.endswith(".weight"):
+            x = 1.0 + rng.normal(0.0, 0.02, shape)
+        else:
+            x = rng.normal(0.0, 0.02, shape)
+        out[name] = torch.from_numpy(x.astype(np.float32))
+    return out
+
+
+def hf_whisper_config(cfg) -> dict:
+    """The fields of an HF Whisper ``config.json`` that ``config_from_hf``
+    reads, for ``cfg``."""
+    return dict(model_type="whisper", vocab_size=cfg.vocab_size, num_mel_bins=cfg.n_mels,
+                d_model=cfg.d_model, encoder_layers=cfg.enc_layers,
+                decoder_layers=cfg.dec_layers, encoder_attention_heads=cfg.heads,
+                decoder_attention_heads=cfg.heads, encoder_ffn_dim=cfg.d_ff,
+                decoder_ffn_dim=cfg.d_ff, max_source_positions=cfg.max_source_positions,
+                max_target_positions=cfg.max_target_positions)
+
+
+class StubTokenizer:
+    """Stands in for the HF tokenizers the card's machine lacks: ``__call__``
+    has the BERT tokenizer's signature (words hashed onto ids above 999,
+    [CLS] 101 ... [SEP] 102, padding 0) and ``decode`` renders Whisper's
+    text tokens as " w<id>" pieces (byte-level BPE's concatenation)."""
+
+    def __call__(self, texts, padding="max_length", truncation=True, max_length=64,
+                 return_tensors="np"):
+        import zlib
+
+        import numpy as np
+
+        ids = np.zeros((len(texts), max_length), np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for r, text in enumerate(texts):
+            words = [1000 + zlib.crc32(w.encode()) % 29000 for w in text.split()]
+            row = [101, *words[: max_length - 2], 102]
+            ids[r, : len(row)] = row
+            mask[r, : len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+    def decode(self, ids):
+        return "".join(f" w{i}" for i in ids)
+
+
+def write_extractor_checkpoints(root: str) -> dict:
+    """Seeded random checkpoints at the published widths, in the published
+    layouts and names, written with ``torch.save``: CLIP ViT-B/32 and
+    MiniLM-L6 as HF directories (``pytorch_model.bin``), PANNs CNN14 as a
+    ``{"model": ...}`` ``.pth``, Whisper-base as an HF directory with
+    ``config.json``. Returns their paths and state dicts."""
+    import torch
+
+    from repurpose_tpu_torch.extractors.clip_vit import CLIPVisionConfig
+    from repurpose_tpu_torch.extractors.cnn14 import CNN14Config
+    from repurpose_tpu_torch.extractors.minilm import MiniLMConfig
+    from repurpose_tpu_torch.extractors.whisper_torch import WhisperConfig
+
+    out = {}
+    for name, shapes, seed in (("clip", hf_clip_vision_shapes(CLIPVisionConfig()), 11),
+                               ("panns", panns_cnn14_shapes(CNN14Config()), 12),
+                               ("minilm", hf_bert_shapes(MiniLMConfig()), 13),
+                               ("whisper", hf_whisper_shapes(WhisperConfig()), 14)):
+        sd = random_checkpoint(shapes, seed)
+        if name == "panns":
+            path = os.path.join(root, "Cnn14.pth")
+            torch.save({"model": sd}, path)
+        else:
+            path = os.path.join(root, name)
+            os.makedirs(path, exist_ok=True)
+            torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+            if name == "whisper":
+                with open(os.path.join(path, "config.json"), "w") as f:
+                    json.dump(hf_whisper_config(WhisperConfig()), f)
+        out[name] = (path, sd)
+    return out
+
+
+def _hold_extractor(name: str, run, device: str, bf16: bool, width: int) -> dict:
+    """``run(device, dtype)`` -> float32 CPU outputs: the card in float32
+    within ``EXTRACT_F32_ATOL`` of the CPU, and, where the driver runs it
+    in bf16, the card in bf16 with each row (of ``width`` values) at a
+    cosine of at least ``EXTRACT_BF16_COS`` to the CPU's."""
+    import torch
+
+    t0 = time.perf_counter()
+    cpu = run("cpu", "float32")
+    t_cpu = time.perf_counter() - t0
+    card = run(device, "float32")
+    check(bool(torch.isfinite(card).all()) and float(cpu.abs().max()) > 0,
+          f"{name}: non-finite or all-zero outputs")
+    err = float((card - cpu).abs().max())
+    row = dict(name=name, shape=list(cpu.shape), max_abs_err_f32=err,
+               max_abs=float(cpu.abs().max()), cpu_s=round(t_cpu, 2))
+    check(err <= EXTRACT_F32_ATOL, f"{name}: card float32 {err:.3g} off the CPU")
+    if bf16:
+        a, b = run(device, "bfloat16").reshape(-1, width), cpu.reshape(-1, width)
+        cos = float(torch.nn.functional.cosine_similarity(a.double(), b.double(), dim=1).min())
+        row["min_row_cos_bf16"] = cos
+        check(cos >= EXTRACT_BF16_COS, f"{name}: a bf16 row's cosine {cos:.5f} to the CPU")
+    return row
+
+
+def phase_extractors(card: str, workdir: str, device: str = "cuda") -> dict:
+    """Phase 18, the extractors and preprocessing: (a) each extractor on the
+    card against the same module on the CPU, (b) the preprocessing CLI on
+    three videos, (c) their features scored into clips, (d) the extractor
+    bench."""
+    import numpy as np
+    import torch
+
+    from repurpose_tpu_torch.config import DatasetConfig, ModelConfig, TestConfig
+    from repurpose_tpu_torch.data.dataset import RepurposeDataset
+    from repurpose_tpu_torch.data.synthetic import synthetic_entry
+    from repurpose_tpu_torch.extractors import whisper_torch as wt
+    from repurpose_tpu_torch.extractors.clip_vit import (
+        CLIP_IMAGE_MEAN,
+        CLIP_IMAGE_STD,
+        CLIPVisionConfig,
+        CLIPVisionEncoder,
+        convert_hf_clip_vision,
+    )
+    from repurpose_tpu_torch.extractors.cnn14 import (
+        CNN14,
+        convert_panns_cnn14,
+        embed_waveform_chunks,
+    )
+    from repurpose_tpu_torch.extractors.minilm import MiniLMConfig, MiniLMEncoder, convert_hf_bert
+    from repurpose_tpu_torch.infer import InferencePipeline
+    from repurpose_tpu_torch.models import build_model
+    from repurpose_tpu_torch.preprocessing.pipeline import PreprocessConfig, PreprocessingPipeline
+
+    rng = np.random.default_rng(SEED + 18)
+    t_phase = time.perf_counter()
+    ckpt = write_extractor_checkpoints(workdir)
+    reset_launches()
+
+    # (a) each extractor on the card against the same module on the CPU
+    held = {}
+    clip_sd = convert_hf_clip_vision(ckpt["clip"][1], CLIPVisionConfig())
+    frames = rng.integers(0, 256, (EXTRACT_CLIP_FRAMES, 224, 224, 3), dtype=np.uint8)
+    images = torch.from_numpy((frames.astype(np.float32) / 255.0 - CLIP_IMAGE_MEAN)
+                              / CLIP_IMAGE_STD)
+
+    @torch.inference_mode()
+    def clip_run(dev, dtype):
+        m = CLIPVisionEncoder(compute_dtype=dtype, device=dev)
+        m.load_state_dict(clip_sd)
+        return m(images.to(dev)).float().cpu()
+
+    panns_sd = convert_panns_cnn14(ckpt["panns"][1])
+    waves = torch.from_numpy(rng.normal(0, 0.1, (EXTRACT_CNN14_CHUNKS, 22050)).astype(np.float32))
+
+    @torch.inference_mode()
+    def cnn14_run(dev, dtype):
+        m = CNN14(compute_dtype=dtype, device=dev)
+        m.load_state_dict(panns_sd)
+        return embed_waveform_chunks(m, waves.to(dev)).float().cpu()
+
+    minilm_sd = convert_hf_bert(ckpt["minilm"][1], MiniLMConfig())
+    n_sent, n_tok = EXTRACT_MINILM
+    ids = torch.from_numpy(rng.integers(1000, MiniLMConfig().vocab_size, (n_sent, n_tok)))
+    lengths = rng.integers(4, n_tok + 1, n_sent)
+    mask = torch.from_numpy((np.arange(n_tok)[None] < lengths[:, None]).astype(np.int64))
+
+    @torch.inference_mode()
+    def minilm_run(dev, dtype):
+        m = MiniLMEncoder(compute_dtype=dtype, device=dev)
+        m.load_state_dict(minilm_sd)
+        return m(ids.to(dev), mask.to(dev)).float().cpu()
+
+    whisper_dir = ckpt["whisper"][0]
+    chunks = (0.1 * rng.normal(size=(EXTRACT_WHISPER_CHUNKS, wt.N_SAMPLES))).astype(np.float32)
+    asrs = {}
+
+    def asr(dev, dtype):
+        if (dev, dtype) not in asrs:
+            asrs[dev, dtype] = wt.WhisperASR.from_hf_dir(
+                whisper_dir, tokenizer=StubTokenizer(), compute_dtype=dtype, device=dev)
+        return asrs[dev, dtype]
+
+    def whisper_run(dev, dtype):
+        return asr(dev, dtype).encode_waves(chunks).float().cpu()
+
+    for name, run, bf16, width in (
+            ("clip", clip_run, True, 512), ("cnn14", cnn14_run, True, 2048),
+            ("minilm", minilm_run, False, 384), ("whisper_encoder", whisper_run, True, 512)):
+        held[name] = _hold_extractor(name, run, device, bf16, width)
+        print(f"[extract] {card}: {json.dumps(held[name])}")
+
+    # Whisper float32 greedy: the card's tokens equal the CPU's up to the
+    # token the CPU chose at its first near tie (its ruled logits' top-2 gap,
+    # read from a teacher-forced pass over its own tokens), or through EOT
+    cpu_asr, card_asr = asr("cpu", "float32"), asr(device, "float32")
+    prompt = cpu_asr.prompt
+    with torch.inference_mode():
+        enc_cpu = cpu_asr.encode_waves(chunks)
+        tok_cpu = wt.greedy_decode(cpu_asr.decoder, enc_cpu, prompt)
+        tok_card = wt.greedy_decode(card_asr.decoder, card_asr.encode_waves(chunks), prompt).cpu()
+        logits = cpu_asr.decoder(tok_cpu, enc_cpu)
+        suppress = torch.from_numpy(wt._suppress_mask(cpu_asr.cfg))
+        p = len(prompt)
+        compared = []
+        for r in range(tok_cpu.shape[0]):
+            upto = tok_cpu.shape[1]
+            for pos in range(p - 1, tok_cpu.shape[1] - 1):
+                ruled = wt._rules_for_position(logits[r : r + 1, pos], tok_cpu[r : r + 1], pos, p,
+                                               cpu_asr.cfg, suppress)[0]
+                top2 = torch.topk(ruled, 2).values
+                if float(top2[0] - top2[1]) < NEAR_TIE_GAP:
+                    upto = pos + 1  # the token chosen at a near tie may differ
+                    break
+                if int(tok_cpu[r, pos + 1]) == cpu_asr.cfg.eot:
+                    upto = pos + 2  # through the row's EOT
+                    break
+            same = bool((tok_cpu[r, :upto] == tok_card[r, :upto]).all())
+            check(same, f"whisper greedy row {r}: the card's tokens leave the CPU's before "
+                  f"position {upto} with no near tie")
+            compared.append(upto - p)
+    n_tokens = [int((row != cpu_asr.cfg.eot).sum()) - p for row in tok_cpu]
+    print(f"[extract] {card}: whisper float32 greedy: tokens equal to the CPU's on "
+          f"{compared} sampled positions of {n_tokens} per row")
+    # beam 5 with word timestamps, through WhisperASR on the card (bf16)
+    beam_asr = wt.WhisperASR.from_hf_dir(whisper_dir, tokenizer=StubTokenizer(), beam_size=5,
+                                         device=device)
+    t0 = time.perf_counter()
+    segs = beam_asr.transcribe_wave(chunks.reshape(-1), word_timestamps=True)
+    t_beam = time.perf_counter() - t0
+    words = [len(s.get("words", [])) for s in segs]
+    check(all(np.isfinite([s["start"], s["end"]]).all() for s in segs), "beam: bad segment times")
+    print(f"[extract] {card}: whisper bf16 beam 5 + word timestamps on "
+          f"{EXTRACT_WHISPER_CHUNKS} x 30 s: {len(segs)} segments, {sum(words)} words "
+          f"(per segment {words[:12]}{' ...' if len(words) > 12 else ''}), {t_beam:.2f} s")
+    launches = read_launches(*_counted_wrappers())
+    check(not any(launches.values()), f"a kernel launched during extraction: {launches}")
+    print(f"[extract] kernel launches during (a): {json.dumps(launches)}")
+
+    # (b) the preprocessing CLI on three videos (fake ffmpeg / ffprobe)
+    path_env = install_fake_ffmpeg(os.path.join(workdir, "bin"))
+    env = dict(os.environ, PATH=path_env)
+    video_dir = os.path.join(workdir, "videos")
+    os.makedirs(video_dir)
+    entries = []
+    for i, (vid, dur) in enumerate(EXTRACT_VIDEOS.items()):
+        write_fake_video(os.path.join(video_dir, f"{vid}.mp4"), dur, seed=100 + i)
+        entries.append(dict(synthetic_entry(rng, dur), youtube_id=vid))
+    dataset = os.path.join(workdir, "dataset.json")
+    with open(dataset, "w") as f:
+        json.dump(entries, f)
+    pcfg = PreprocessConfig(
+        video_dir=video_dir, visual_dir=os.path.join(workdir, "visual"),
+        audio_dir=os.path.join(workdir, "audio"), text_dir=os.path.join(workdir, "text"),
+        transcript_dir=os.path.join(workdir, "transcripts"), clip_checkpoint=ckpt["clip"][0],
+        panns_checkpoint=ckpt["panns"][0], minilm_checkpoint=ckpt["minilm"][0],
+        whisper_checkpoint=whisper_dir)
+    config = os.path.join(workdir, "preprocess.json")
+    with open(config, "w") as f:
+        json.dump(dataclasses.asdict(pcfg), f)
+
+    def cli(*args) -> tuple[dict, float, dict]:
+        """Runs the CLI; returns its JSON, its wall time and the time from
+        each ``step: <name>`` log line (the pipeline's, at a step's start) to
+        the next line of that kind or the exit, read as the lines arrive."""
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "repurpose_tpu_torch.preprocess",
+                                 "--dataset", dataset, "--config", config, "--device", device,
+                                 *args], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        out = []
+        reader = threading.Thread(target=lambda: out.append(proc.stdout.read()))
+        reader.start()
+        starts, err = [], []
+        for line in proc.stderr:
+            err.append(line)
+            if "step: " in line:
+                starts.append((line.split("step: ", 1)[1].strip(), time.perf_counter()))
+        reader.join(timeout=900)
+        rc = proc.wait(timeout=900)
+        end = time.perf_counter()
+        check(rc == 0, f"preprocess {' '.join(args)} exited {rc}:\n{''.join(err)[-3000:]}")
+        bounds = [t for _, t in starts[1:]] + [end]
+        per_step = {name: b - t for (name, t), b in zip(starts, bounds)}
+        return json.loads(out[0][out[0].index("{"):]), end - t0, per_step
+
+    result, seconds, per_step = cli("--steps", "visual", "audio")
+    steps = {"process": dict(seconds=round(seconds, 2))}
+    for step in ("visual", "audio"):
+        done = result[step]["completed"]
+        check(done == len(EXTRACT_VIDEOS) and result[step]["failed"] == 0,
+              f"preprocess --steps {step}: {result[step]}")
+        steps[step] = dict(seconds=round(per_step[step], 2), videos=done)
+
+    class StubTokenizerPipeline(PreprocessingPipeline):
+        """The text step in this process, the stub tokenizer handed in where
+        ``run_text`` reaches for ``transformers``."""
+
+        def _minilm(self):
+            return convert_hf_bert(self._load_state_dict(self.cfg.minilm_checkpoint),
+                                   MiniLMConfig()), StubTokenizer()
+
+        def _asr(self):
+            return wt.WhisperASR.from_hf_dir(self.cfg.whisper_checkpoint,
+                                             tokenizer=StubTokenizer(), device=self.device)
+
+    os.environ["PATH"], saved_path = path_env, os.environ.get("PATH", "")
+    try:
+        t0 = time.perf_counter()
+        result = StubTokenizerPipeline(pcfg, device=device).run_text(list(EXTRACT_VIDEOS))
+        steps["text"] = dict(seconds=round(time.perf_counter() - t0, 2),
+                             videos=result["completed"])
+    finally:
+        os.environ["PATH"] = saved_path
+    check(result["completed"] == len(EXTRACT_VIDEOS) and result["failed"] == 0,
+          f"run_text: {result}")
+    report, seconds, _ = cli("--verify")
+    steps["verify"] = dict(seconds=round(seconds, 2),
+                           complete=report["complete_all_modalities"])
+    check(report["complete_all_modalities"] == len(EXTRACT_VIDEOS), f"--verify: {report}")
+    print(f"[preprocess] {card}: {sum(EXTRACT_VIDEOS.values())} video-seconds in "
+          f"{len(EXTRACT_VIDEOS)} videos: {json.dumps(steps)}")
+
+    # (c) the features of (b) through the dataset into clips with the flagship
+    ds = RepurposeDataset(DatasetConfig(label_path=dataset, video_path=pcfg.visual_dir,
+                                        audio_path=pcfg.audio_dir, text_path=pcfg.text_dir),
+                          use_cache=False)
+    check(len(ds) == len(EXTRACT_VIDEOS), f"the dataset kept {len(ds)} of the videos")
+    videos = [ds[i] for i in range(len(ds))]
+    cfg = ModelConfig()
+    # phase 16's decode thresholds: random weights leave no candidate at the
+    # default ones
+    pipe = InferencePipeline(cfg, build_model(cfg, "cpu", seed=SEED).state_dict(),
+                             TestConfig(**PARALLEL_EVAL_TEST), device=device)
+    reset_launches()
+    t0 = time.perf_counter()
+    scored = pipe.score_videos(videos)
+    t_score = time.perf_counter() - t0
+    clips = read_launches("flash_fwd", "flash_fwd_tc")
+    on_card = torch.device(device).type == "cuda"  # CPU tensors take the plain version
+    check(clips["flash_fwd_tc"] == clips["flash_fwd"] and (clips["flash_fwd"] > 0) == on_card,
+          f"scoring the extracted features: launches {clips}")
+    for v, r in zip(videos, scored):
+        check(len(r["segments"]) > 0 and np.isfinite(np.asarray(r["scores"])).all(),
+              f"{v['video_id']}: no clip or a non-finite score")
+        print(f"[preprocess] {card}: {v['video_id']} ({v['duration']} s) -> "
+              f"{len(r['segments'])} clips, top "
+              f"{np.round(np.asarray(r['segments'][:3]), 1).tolist()}")
+    print(f"[preprocess] video -> clips: {len(videos)} videos scored in {t_score * 1e3:.1f} ms, "
+          f"launches {json.dumps(clips)}")
+
+    # (d) the extractor bench on the card
+    from repurpose_tpu_torch.tools import bench_extractors
+
+    line = bench_extractors.main([] if device == "cuda" else ["--device", device])
+    print(f"[extract-bench] {card}: {json.dumps(line)}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[extract] phase 18 took {seconds:.1f} s")
+    return dict(held=held, steps=steps, clip_launches=clips, bench=line, seconds=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -4392,6 +4941,11 @@ def main() -> int:
         pipeline = phase_pipeline_and_ring(card, workdir, parallel["preflight_log"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_extract_", dir=os.path.join(ROOT, "runs"))
+    try:
+        extracted = phase_extractors(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     def timed(row):  # a row's kernel times and yardsticks, for a kernels entry
         return {x: row[x] for x in ("max_abs_err", "ms", "min_ms", "max_ms", "plain_ms",
@@ -4419,7 +4973,9 @@ def main() -> int:
                         grad_launches["bfloat16"]["flash_fwd_tc"]),
         bench_attention_fwd=(bench["bench_attention_fwd"]["flash_fwd"],
                              bench["bench_attention_fwd"]["flash_fwd_tc"]),
-        daemon=(daemon["launches"]["flash_fwd"], daemon["launches"]["flash_fwd_tc"]))
+        daemon=(daemon["launches"]["flash_fwd"], daemon["launches"]["flash_fwd_tc"]),
+        video_to_clips=(extracted["clip_launches"]["flash_fwd"],
+                        extracted["clip_launches"]["flash_fwd_tc"]))
     check(all(n == tc for n, tc in dense_fwd.values()),
           f"a dense forward on the model's paths took the first design: {dense_fwd}")
     kernels = [dict(

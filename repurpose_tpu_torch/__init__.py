@@ -9,7 +9,11 @@ attention forward and backward are CUDA C++ kernels written for ``sm_90a``
 ``csrc/flash_fwd_stream.cu`` and ``csrc/flash_bwd_stream.cu`` past it, bound
 in ``native.py``). ``tools/`` ports the two bench tools whose Pallas kernels
 lie outside the JAX package (``csrc/flash_fwd_nt.cu``,
-``csrc/int8_matmul.cu``). The JAX package
+``csrc/int8_matmul.cu``). ``extractors/`` and ``preprocessing/`` port the
+feature extractors (CLIP ViT-B/32, CNN14, MiniLM-L6, Whisper ASR with its
+word aligner) and the preprocessing drivers and CLI (``python -m
+repurpose_tpu_torch.preprocess``) in plain PyTorch, as the JAX package
+runs them in XLA. The JAX package
 ``repurpose_tpu`` stays the reference: this package imports nothing of it,
 and none of JAX, Flax or Optax.
 

@@ -8,6 +8,9 @@ port's own copy of the mapping in ``export_reference_state_dict``
 (repurpose_tpu/models/torch_convert.py:150-184), and it carries the fusion
 variants' params too. Flax kernels are ``[in, out]``; torch's Linear
 weights ``[out, in]``, hence the transposes.
+``extractor_state_dict_from_jax_params`` carries the feature extractors'
+params (``repurpose_tpu/extractors/``), whose port modules carry the JAX
+modules' names.
 """
 
 from __future__ import annotations
@@ -89,6 +92,35 @@ def state_dict_from_jax_params(params: Mapping, max_len: int = 5000) -> dict:
         _lin(sd, f"{head}.1", params[head]["dense_0"])
         _lin(sd, f"{head}.4", params[head]["dense_1"])
         _lin(sd, f"{head}.7", params[head]["out"])
+    return sd
+
+
+# Flax kernel layout -> torch weight layout, by the kernel's rank: Dense
+# [in, out], Conv1d [k, in, out], Conv2d [kh, kw, in, out].
+_KERNEL_TO_WEIGHT = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+
+
+def extractor_state_dict_from_jax_params(params: Mapping, prefix: str = "") -> dict:
+    """A JAX feature extractor's params (numpy leaves: CLIP, CNN14, MiniLM,
+    or a Whisper encoder's or decoder's tree) -> the port module's state dict
+    (float32). Each Dense or Conv (``kernel``, optional ``bias``) becomes the
+    module's ``weight`` / ``bias`` in torch's layout, each LayerNorm or
+    folded BatchNorm (``scale``, ``bias``) a ``weight`` / ``bias``, and an
+    array the parameter of the same path."""
+    sd: dict = {}
+    for key, sub in params.items():
+        name = prefix + key
+        if not isinstance(sub, Mapping):
+            sd[name] = _t(sub)
+        elif "kernel" in sub:
+            kernel = np.asarray(sub["kernel"])
+            sd[f"{name}.weight"] = _t(kernel.transpose(_KERNEL_TO_WEIGHT[kernel.ndim]))
+            if "bias" in sub:
+                sd[f"{name}.bias"] = _t(sub["bias"])
+        elif "scale" in sub:
+            _ln(sd, name, sub)
+        else:
+            sd.update(extractor_state_dict_from_jax_params(sub, name + "."))
     return sd
 
 

@@ -11,13 +11,15 @@ source or header rebuilds and an unchanged one is reused. ``build_all`` starts o
 Nothing here runs at import: the CPU tests import every module on a machine
 without ``nvcc``.
 
-The host library of the whole-batch feature loader is built here too: the
-repository's ``csrc/npy_loader.cc`` (read in place) compiled with the host's
-C++ compiler (``g++`` or ``c++``; ``nvcc``'s host compiler is one) into the
-same ``build/``, bound with ``ctypes`` (``probe_npy``, ``batch_load_npy``).
-Where no compiler or no build is possible, ``available()`` is False and the
-dataset reads features with numpy, as the JAX package does: this is host
-I/O, not a device kernel.
+Two host libraries are built here too, from the repository's root
+``csrc/`` (read in place) with the host's C++ compiler (``g++`` or ``c++``;
+``nvcc``'s host compiler is one) into the same ``build/``, bound with
+``ctypes``: the whole-batch feature loader ``npy_loader.cc`` (``probe_npy``,
+``batch_load_npy``) and the word aligner's monotonic DTW ``dtw.cc``
+(``dtw_path``). Where no compiler or no build is possible, ``available()``
+is False and the dataset reads features with numpy, and ``dtw_path`` takes
+``_dtw_numpy``, as the JAX package does: this is host work, not a device
+kernel.
 """
 
 from __future__ import annotations
@@ -34,8 +36,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
-# the repository's host loader of .npy features, shared with the JAX package
-HOST_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "npy_loader.cc"
+# the repository's host sources, shared with the JAX package: the .npy
+# feature loader and the word aligner's DTW
+HOST_SOURCES = {name: Path(__file__).resolve().parent.parent / "csrc" / f"{name}.cc"
+                for name in ("npy_loader", "dtw")}
 HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 logger = logging.getLogger(__name__)
@@ -206,56 +210,62 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-# -- the host feature loader (csrc/npy_loader.cc) ----------------------------------
+# -- the host libraries (root csrc/npy_loader.cc and csrc/dtw.cc) -----------------
 
 _host: dict[str, ctypes.CDLL | None] = {}
+_I64 = ctypes.c_int64
+# C signatures of the host libraries' entry points, by source name
+HOST_SIGNATURES = {
+    "npy_loader": {
+        "npy_probe": ([ctypes.c_char_p, ctypes.POINTER(_I64), ctypes.POINTER(_I64)], _I),
+        "npy_batch_load_f32": ([ctypes.POINTER(ctypes.c_char_p), _I64, _P, _I64, _I64,
+                                ctypes.POINTER(_I64), _I], _I),
+    },
+    "dtw": {"repurpose_dtw": ([_P, _I, _I, _P, _P], _I)},
+}
 
 
 def _cxx() -> str | None:
     return shutil.which("g++") or shutil.which("c++")
 
 
-def host_library() -> ctypes.CDLL | None:
-    """The loader library, built at first use (named by a hash of the source
-    and the flags); None where it cannot be built or loaded."""
+def host_library(name: str = "npy_loader") -> ctypes.CDLL | None:
+    """The host library of root ``csrc/<name>.cc``, built at first use (named
+    by a hash of the source and the flags); None where it cannot be built or
+    loaded."""
     with _lock:
-        if "npy" in _host:
-            return _host["npy"]
-        _host["npy"] = lib = _build_host()
-        return lib
+        if name not in _host:
+            _host[name] = _build_host(name)
+        return _host[name]
 
 
-def _build_host() -> ctypes.CDLL | None:
+def _build_host(name: str) -> ctypes.CDLL | None:
+    source = HOST_SOURCES[name]
     cxx = _cxx()
-    if cxx is None or not HOST_SOURCE.exists():
-        logger.info("no C++ compiler or no %s: features load with numpy", HOST_SOURCE.name)
+    if cxx is None or not source.exists():
+        logger.info("no C++ compiler or no %s: the numpy path runs", source.name)
         return None
-    h = hashlib.sha256(HOST_SOURCE.read_bytes() + " ".join(HOST_FLAGS).encode())
-    out = BUILD / f"npy_loader-{h.hexdigest()[:16]}.so"
+    h = hashlib.sha256(source.read_bytes() + " ".join(HOST_FLAGS).encode())
+    out = BUILD / f"{name}-{h.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([cxx, *HOST_FLAGS, str(HOST_SOURCE), "-o", str(tmp)],
+        proc = subprocess.run([cxx, *HOST_FLAGS, str(source), "-o", str(tmp)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            logger.warning("building %s failed: features load with numpy\n%s",
-                           HOST_SOURCE.name, proc.stderr[-500:])
+            logger.warning("building %s failed: the numpy path runs\n%s",
+                           source.name, proc.stderr[-500:])
             return None
         os.replace(tmp, out)
     try:
         lib = ctypes.CDLL(str(out))
     except OSError as e:
-        logger.warning("%s unloadable (%s): features load with numpy", out.name, e)
+        logger.warning("%s unloadable (%s): the numpy path runs", out.name, e)
         return None
-    lib.npy_probe.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64),
-                              ctypes.POINTER(ctypes.c_int64)]
-    lib.npy_probe.restype = ctypes.c_int
-    lib.npy_batch_load_f32.argtypes = [
-        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
-    ]
-    lib.npy_batch_load_f32.restype = ctypes.c_int
+    for fn, (argtypes, restype) in HOST_SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib
 
 
@@ -292,3 +302,81 @@ def batch_load_npy(paths: list[str], t: int, d: int, n_threads: int = 4):
                                 rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
                                 n_threads)
     return None if rc != 0 else (out, rows)
+
+
+def dtw_path(cost):
+    """Minimum-cost monotonic path through a [n_tokens, n_frames] cost matrix
+    (down / right / diagonal steps), ordered start to end, as two int32
+    arrays: the word aligner's DTW (extractors/whisper_align.py). Root
+    ``csrc/dtw.cc`` where its host library builds, else ``_dtw_numpy``; both
+    give the same path."""
+    import numpy as np
+
+    cost = np.ascontiguousarray(cost, np.float32)
+    n, m = cost.shape
+    if n == 0 or m == 0:
+        # no cells to traverse; the numpy backtrace would loop forever
+        # chasing an unreachable (0, 0) exit
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    lib = host_library("dtw")
+    if lib is not None:
+        ti = np.zeros(n + m, np.int32)
+        tj = np.zeros(n + m, np.int32)
+        length = lib.repurpose_dtw(cost.ctypes.data_as(ctypes.c_void_p), n, m,
+                                   ti.ctypes.data_as(ctypes.c_void_p),
+                                   tj.ctypes.data_as(ctypes.c_void_p))
+        if length > 0:
+            return ti[:length].copy(), tj[:length].copy()
+    return _dtw_numpy(cost)
+
+
+def _dtw_numpy(cost):
+    """Anti-diagonal wavefront DP (the JAX package's host fallback,
+    ``repurpose_tpu/native.py``): cells on diagonal d = i + j depend only on
+    diagonals d-1 (up / left) and d-2 (the diagonal step), so each wavefront
+    is one vectorised min. Ties break as in ``csrc/dtw.cc``."""
+    import numpy as np
+
+    n, m = cost.shape
+    inf = np.float32(np.inf)
+    acc = np.full((n, m), inf, np.float32)
+    trace = np.zeros((n, m), np.int8)  # 0 = diag, 1 = up, 2 = left
+    for d in range(n + m - 1):
+        lo = max(0, d - m + 1)
+        hi = min(n - 1, d)
+        i = np.arange(lo, hi + 1)
+        j = d - i
+        c_diag = np.where(
+            (i > 0) & (j > 0), acc[np.maximum(i - 1, 0), np.maximum(j - 1, 0)], inf
+        )
+        c_diag = np.where((i == 0) & (j == 0), 0.0, c_diag)
+        c_up = np.where(i > 0, acc[np.maximum(i - 1, 0), j], inf)
+        c_left = np.where(j > 0, acc[i, np.maximum(j - 1, 0)], inf)
+        # diag < up < left strictly, else left unless up strictly beats both
+        best = np.where(
+            (c_diag < c_up) & (c_diag < c_left), 0,
+            np.where((c_up < c_diag) & (c_up < c_left), 1, 2),
+        ).astype(np.int8)
+        vals = np.stack([c_diag, c_up, c_left])[best, np.arange(len(i))]
+        acc[i, j] = cost[i, j] + vals
+        trace[i, j] = best
+    ti, tj = [], []
+    i, j = n - 1, m - 1
+    while True:
+        ti.append(i)
+        tj.append(j)
+        if i == 0 and j == 0:
+            break
+        if i == 0:
+            t = 2
+        elif j == 0:
+            t = 1
+        else:
+            t = trace[i, j]
+        if t == 0:
+            i, j = i - 1, j - 1
+        elif t == 1:
+            i -= 1
+        else:
+            j -= 1
+    return np.asarray(ti[::-1], np.int32), np.asarray(tj[::-1], np.int32)

@@ -1,13 +1,17 @@
-"""The port's bench tools, counterparts of the repository's root ``tools/``
-scripts whose Pallas kernels have Hopper kernels here:
+"""The port's bench tools: the counterparts of the repository's root
+``tools/`` scripts whose Pallas kernels have Hopper kernels here, and of
+root ``bench_extractors.py``:
 
     python -m repurpose_tpu_torch.tools.bench_attention_fwd [--device cuda|cpu]
     python -m repurpose_tpu_torch.tools.bench_int8_matmul [--device cuda|cpu]
+    python -m repurpose_tpu_torch.tools.bench_extractors [JSON_PATH] [--device cuda|cpu]
 
-``--device`` defaults to ``cuda`` and raises without a card. Times on the
-card come from CUDA events around ``n_chain`` back-to-back calls (one stream
-runs them in order, so no scan is needed); with ``--device cpu`` they are
-host-clock times of the plain versions and say nothing of the card.
+``--device`` defaults to ``cuda`` and raises without a card. The kernel
+tools' times on the card come from CUDA events around ``n_chain``
+back-to-back calls (one stream runs them in order, so no scan is needed);
+``bench_extractors`` times whole synchronised runs on the host clock. With
+``--device cpu`` they are host-clock times of the CPU path and say nothing
+of the card.
 """
 
 from __future__ import annotations

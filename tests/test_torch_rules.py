@@ -53,7 +53,8 @@ def test_entry_points_raise_without_cuda():
         InferencePipeline(cfg, sd, TestConfig())
 
 
-@pytest.mark.parametrize("tool", ["bench_attention_fwd", "bench_int8_matmul"])
+@pytest.mark.parametrize("tool", ["bench_attention_fwd", "bench_int8_matmul",
+                                  "bench_extractors"])
 def test_bench_tool_entry_points_raise_without_cuda(tool):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is visible")
@@ -77,6 +78,41 @@ def test_serving_and_campaign_entry_points_raise_without_cuda(cli, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         module.main(argv)
     assert list(tmp_path.iterdir()) == []  # nothing written before the raise
+
+
+@pytest.mark.parametrize("argv", [["--dataset", "ds.json"], ["--dataset", "ds.json", "--verify"],
+                                  ["--split", "ds.json"], ["--fanout", "2"]],
+                         ids=["dataset", "verify", "split", "fanout"])
+def test_preprocess_cli_raises_without_cuda(argv, tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    from repurpose_tpu_torch.preprocess import main
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    assert list(tmp_path.iterdir()) == []  # nothing written before the raise
+
+
+def test_extraction_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible")
+    from repurpose_tpu_torch.extractors.whisper_torch import WhisperASR, WhisperConfig
+    from repurpose_tpu_torch.preprocessing.extract import (
+        AudioExtractor,
+        TextExtractor,
+        VisualExtractor,
+    )
+    from repurpose_tpu_torch.preprocessing.pipeline import PreprocessConfig, PreprocessingPipeline
+
+    for make in (lambda: VisualExtractor({}), lambda: AudioExtractor(None),
+                 lambda: TextExtractor({}, tokenizer=None),
+                 lambda: WhisperASR(WhisperConfig(), {}, {}, tokenizer=None),
+                 lambda: WhisperASR.from_hf_dir(str(tmp_path)),
+                 lambda: PreprocessingPipeline(PreprocessConfig(video_dir=str(tmp_path / "v")))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert not (tmp_path / "v").exists()
 
 
 def _run_smoke(cwd):
