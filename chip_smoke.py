@@ -3346,6 +3346,69 @@ def _run_model(cfg, dtype: str):
     return dataclasses.replace(cfg.model, compute_dtype=dtype, attn_softmax_dtype=dtype)
 
 
+# (f) in phases 16 and 17: the fusion variants on a mesh, at phase 14's
+# flagship widths (configs/repurpose.yaml: d_model 512, 8 heads,
+# text_num_layers 3, cross_num_layers 3), unpacked [2, 2048] (videos of
+# 1800 and 2047 s, one bucket-2048 row each), 3 steps at PARALLEL_LR. A
+# variant is whole on every model rank (model = 2, phase 16) and every seq
+# rank stages the whole rows (seq = 2 under the ring config, phase 17), so
+# each rank runs the one-process forward and backward and nothing is summed
+# over the axis: float32 at dropout 0 is held to the one-process steps on
+# the same weights and batch within (b32)'s bounds (set before the first
+# run), its noise parts (the key biases, NOISE_GRAD_REL) within 2 lr a step.
+# bf16 at dropout 0.1 (phase 16): the model ranks seed one generator alike
+# and draw the same masks, so their parameters after the steps should be
+# equal bit for bit; they are held within 2 lr a step of each other, and
+# the largest difference is printed.
+FUSIONS = ("cross", "bottleneck")
+FUSION_MESH_DURS = (1800, 2047)  # seconds: 2047 s gives 2048 rows
+FUSION_MESH_STEPS = 3
+FUSION_MESH_DROPOUT = 0.1
+FUSION_MESH_TOL = PARALLEL_RUNS["b32_model2_float32"]["tol"]
+# phase 17 (f)'s served clips on seq = 2 against one process on the card:
+# tests/test_torch_ring_attention.py's bounds (float32)
+FUSION_SERVE_ATOL = dict(scores=1e-5, segments=1e-4)
+
+
+def _fusion_model(cfg, fusion: str, dtype: str, **kw):
+    """``cfg.model`` as the fusion variant ``fusion`` in ``dtype``."""
+    return dataclasses.replace(_run_model(cfg, dtype), fusion=fusion, **kw)
+
+
+def _fusion_train(cfg):
+    return dataclasses.replace(cfg.train, batch_size=2, buckets=(2048,), pack_sequences=False)
+
+
+def _fusion_batch(mc):
+    """(f)'s global batch [2, 2048], unpacked, made anew from its seed."""
+    import numpy as np
+
+    from repurpose_tpu_torch.data.batching import collate
+    from repurpose_tpu_torch.data.synthetic import synthetic_sample
+
+    rng = np.random.default_rng(SEED + 16)
+    return collate([synthetic_sample(rng, d, mc) for d in FUSION_MESH_DURS], (2048,), 2)
+
+
+def _fusion_videos(mc) -> list[dict]:
+    """Phase 14's three videos (``FUSION_VIDEOS``), made anew from its seed."""
+    import numpy as np
+
+    from repurpose_tpu_torch.data.synthetic import synthetic_sample
+
+    rng = np.random.default_rng(SEED + 21)
+    return [dict(synthetic_sample(rng, d, mc), video_id=f"v{i}")
+            for i, d in enumerate(FUSION_VIDEOS)]
+
+
+def _serving_weights(sd: dict) -> dict:
+    """``sd`` with the regression head's last bias at 15: random weights give
+    zero-length clips, offsets of about 15 s give clips to compare."""
+    import torch
+
+    return dict(sd, **{"reg_head.7.bias": torch.full_like(sd["reg_head.7.bias"], 15.0)})
+
+
 # (d): the multi-process evaluate scores the same videos with the same
 # weights, and the tIoU sums are float64: one process and data=2 / model=2
 # differ by the order of 8 float64 additions (~1e-17, measured). A bf16
@@ -3439,8 +3502,9 @@ def _hold_attention_at(label: str, q, k, v, kv, seg, sm: str, scale, gen) -> dic
 
 def parallel_worker(workdir: str) -> int:
     """One of phase 16's two ranks (started by torchrun; both share the card
-    over gloo): runs (a)-(c) and (d) on the inputs the parent wrote to
-    ``workdir`` and writes each rank's results there."""
+    over gloo): runs (a)-(c), (d) and (f) on the inputs the parent wrote to
+    ``workdir`` (and (f)'s, made anew from their seeds) and writes each
+    rank's results there."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3561,6 +3625,45 @@ def parallel_worker(workdir: str) -> int:
             tiou=res, launches=read_launches("flash_fwd_tc"),
             heads={k: sorted(v) for k, v in heads.items()})
         trainer.close()
+
+    # (f) the fusion variants at model = 2, whole on every model rank
+    mesh = create_mesh(MeshConfig(data=1, model=2), "gloo", "cuda", share_card=True)
+    ftc = _fusion_train(cfg)
+    for fusion in FUSIONS:
+        for dtype, dropout in (("float32", 0.0), ("bfloat16", FUSION_MESH_DROPOUT)):
+            fmc = _fusion_model(cfg, fusion, dtype, dropout=dropout)
+            model = build_model(fmc, mesh.device, seed=SEED, mesh=mesh)
+            model.set_dropout_generator(torch.Generator(device=mesh.device))
+            opt, schedule = make_optimizer(model, ftc, 1, mesh)
+            state = TrainState(model, opt, mesh=mesh)
+            step = make_train_step(fmc, ftc, schedule, mesh)
+            batch = batch_to_device(local_rows(_fusion_batch(fmc), mesh), mesh.device)
+            torch.cuda.synchronize()
+            dist.barrier()
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            hist, step_ms = [], []
+            for _ in range(FUSION_MESH_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(state, batch)
+                hist.append([float(m["loss"]), float(m["grad_norm"])])  # reads: synchronises
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated()
+            launches = read_launches(*PARALLEL_TC, *PARALLEL_FIRST)
+            # the largest difference of this rank's parameters from model rank 0's
+            mine = torch.cat([p.detach().float().reshape(-1) for p in model.parameters()])
+            theirs = mesh.broadcast(mine.clone(), "model", 0)
+            key = f"f_{fusion}_{dtype}"
+            if rank == 0 and dtype == "float32":
+                torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                           os.path.join(workdir, f"params_{key}.pt"))
+            out[key] = dict(hist=hist, step_ms=step_ms, peak=peak, launches=launches,
+                            local=list(batch.visual.shape[:2]), mesh=mesh.sizes,
+                            diff_from_rank0=float((mine - theirs).abs().max()),
+                            params=mine.numel())
+            del model, opt, state, batch, mine, theirs
+            torch.cuda.empty_cache()
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -3579,9 +3682,10 @@ def _update_rel(got: dict, want: dict, init: dict) -> float:
 
 def _reference_steps(mc, tc, batch, steps: int, grad_parts: bool = False) -> dict:
     """One process's steps on the card: (loss, grad norm) a step, step ms,
-    the peak allocated, the optimizer's bytes, the parameters after them;
-    with ``grad_parts`` the first step's gradient norm of each part
-    (``_parts``) and the parts below ``NOISE_GRAD_REL`` of the largest."""
+    the peak allocated, the optimizer's bytes, the parameters before
+    (``init``) and after them; with ``grad_parts`` the first step's gradient
+    norm of each part (``_parts``) and the parts below ``NOISE_GRAD_REL`` of
+    the largest."""
     import torch
 
     from repurpose_tpu_torch.models import build_model
@@ -3589,6 +3693,7 @@ def _reference_steps(mc, tc, batch, steps: int, grad_parts: bool = False) -> dic
     from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
 
     model = build_model(mc, "cuda", seed=SEED)
+    init = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     opt, schedule = make_optimizer(model, tc, 1)
     state = TrainState(model, opt)
     step = make_train_step(mc, tc, schedule)
@@ -3605,7 +3710,7 @@ def _reference_steps(mc, tc, batch, steps: int, grad_parts: bool = False) -> dic
             norms = {k: float(g.double().norm()) for k, g in _parts(
                 (n, p.grad) for n, p in model.named_parameters() if p.grad is not None).items()}
     out = dict(hist=hist, step_ms=ms, peak=torch.cuda.max_memory_allocated(),
-               opt_bytes=optimizer_state_bytes(opt),
+               opt_bytes=optimizer_state_bytes(opt), init=init,
                params={k: v.detach().cpu() for k, v in model.state_dict().items()})
     if grad_parts:
         top = max(norms.values())
@@ -3651,12 +3756,13 @@ def _noise_summary(ref: dict) -> str:
     below = sorted(norms[k] for k in noise)
     return (f"largest {norms[top]:.4g} ({top}), smallest kept {norms[kept]:.4g} ({kept}); "
             f"{len(noise)} parts below {NOISE_GRAD_REL:g} of the largest"
-            + (f", {sum(k.endswith('in_proj_bias[k]') for k in noise)} of them key biases, "
+            + (f", {sum(k.endswith(('in_proj_bias[k]', '.k.bias')) for k in noise)} of them "
+               f"key biases, "
                f"norms {below[0]:.4g}..{below[-1]:.4g}" if noise else ""))
 
 
 def _hold_run(label: str, got: list, ref: dict, tol: dict, params, init,
-              lr: float | None = None, steps: int = 0) -> float:
+              lr: float | None = None, steps: int = 0, tag: str = "pipeline") -> float:
     """Every rank's (loss, grad norm) within ``tol`` of the one-process steps
     (step 1, then the later steps), the ranks equal, the update's relative
     L2 within ``tol["update"]``; returns that L2. With ``lr`` the update is
@@ -3684,7 +3790,7 @@ def _hold_run(label: str, got: list, ref: dict, tol: dict, params, init,
                    for k in noise), default=0.0)
         check(off <= 2 * lr * steps * (1 + 1e-3),
               f"{label}: a noise part {off:.3g} off, past 2 lr a step")
-        print(f"[pipeline] {label}: one process's first-step gradient norms: "
+        print(f"[{tag}] {label}: one process's first-step gradient norms: "
               f"{_noise_summary(ref)}; those parts within {off:.3g} of one process (2 lr a "
               f"step: {2 * lr * steps:.3g}); update rel L2 with them "
               f"{_update_rel(params, ref['params'], init):.4g}")
@@ -3705,8 +3811,11 @@ def phase_parallel(card: str, workdir: str) -> dict:
     bit with about half its optimizer state; (d) the multi-process ``evaluate`` (data=2 and
     model=2) against the one-process one; (e) ``python -m
     repurpose_tpu_torch.train`` and ``preflight`` under torchrun with
-    ``--dist_backend gloo --share_card``. Times are of two ranks sharing one
-    card: not data-parallel throughput."""
+    ``--dist_backend gloo --share_card``; (f) the fusion variants at
+    model=2, whole on each model rank, [2, 2048] unpacked: float32 held to
+    one process, bf16 with dropout the model ranks' parameters held to each
+    other. Times are of two ranks sharing one card: not data-parallel
+    throughput. Returns (f)'s one-process references for phase 17."""
     import numpy as np
     import torch
 
@@ -3742,6 +3851,16 @@ def phase_parallel(card: str, workdir: str) -> dict:
               f"loss/grad norm {json.dumps(refs[dtype]['hist'])}, step ms "
               f"{json.dumps([round(x, 2) for x in refs[dtype]['step_ms']])}, Adam state "
               f"{refs[dtype]['opt_bytes'] / 1e6:.1f} MB")
+    # (f)'s: each fusion variant in float32 at dropout 0 on its [2, 2048] batch
+    fusion_refs = {}
+    for fusion in FUSIONS:
+        fmc = _fusion_model(cfg, fusion, "float32")
+        fusion_refs[fusion] = r = _reference_steps(fmc, _fusion_train(cfg), _fusion_batch(fmc),
+                                                   FUSION_MESH_STEPS, grad_parts=True)
+        print(f"[parallel] {card}: one process, {fusion}, float32, unpacked [2, 2048], "
+              f"{FUSION_MESH_STEPS} steps: loss/grad norm {json.dumps(r['hist'])}, step ms "
+              f"{json.dumps([round(x, 2) for x in r['step_ms']])}, peak "
+              f"{r['peak'] / 2**30:.2f} GiB")
     one = Trainer(cfg, os.path.join(workdir, "eval_one"),
                   SyntheticDataset(list(PARALLEL_EVAL_VIDEOS), mc, seed=7),
                   test_ds=SyntheticDataset(list(PARALLEL_EVAL_VIDEOS), mc, seed=7),
@@ -3828,6 +3947,40 @@ def phase_parallel(card: str, workdir: str) -> dict:
               f"{ranks[0][key]['heads'].get('flash_fwd_tc')}")
     check(evals["d_eval_data1_model2"]["heads"].get("flash_fwd_tc") == [mc.num_heads // 2],
           "the model=2 evaluation did not launch the forward at H = 4")
+    fusion_runs = {}
+    for fusion in FUSIONS:
+        ref = fusion_refs[fusion]
+        f32, b16 = ([x[f"f_{fusion}_{dtype}"] for x in ranks] for dtype in ("float32", "bfloat16"))
+        params = torch.load(os.path.join(workdir, f"params_f_{fusion}_float32.pt"),
+                            weights_only=True)
+        rel = _hold_run(f"(f) {fusion} model=2 float32", f32, ref, FUSION_MESH_TOL, params,
+                        ref["init"], lr=PARALLEL_LR, steps=FUSION_MESH_STEPS, tag="parallel")
+        for r, g in enumerate(f32 + b16):
+            check(g["local"] == [2, 2048], f"(f) {fusion}: a rank staged {g['local']}")
+            check(not any(g["launches"].values()),
+                  f"(f) {fusion}: an attention kernel launched {g['launches']}")
+        diff = max(g["diff_from_rank0"] for g in b16)
+        check(all(np.isfinite(g["hist"]).all() for g in b16)
+              and diff <= 2 * PARALLEL_LR * FUSION_MESH_STEPS,
+              f"(f) {fusion} bf16 dropout {FUSION_MESH_DROPOUT}: losses "
+              f"{[g['hist'] for g in b16]}, the model ranks' parameters {diff:.3g} apart")
+        fusion_runs[fusion] = dict(float32=f32, bfloat16=b16, update_rel=rel,
+                                   bf16_rank_diff=diff, reference={
+                                       x: ref[x] for x in ("hist", "step_ms", "peak")})
+        gib = lambda runs: [round(g["peak"] / 2**30, 2) for g in runs]  # noqa: E731
+        ms = lambda runs: [[round(x, 1) for x in g["step_ms"]] for g in runs]  # noqa: E731
+        print(f"[parallel] {card}: (f) {fusion} at model=2, whole on each model rank "
+              f"({f32[0]['params'] / 1e6:.1f} M parameters), each rank [2, 2048] unpacked, "
+              f"no attention kernel: float32 dropout 0 loss/grad norm {json.dumps(f32[0]['hist'])}"
+              f" (one process {json.dumps(ref['hist'])}; bounds {json.dumps(FUSION_MESH_TOL)}), "
+              f"update rel L2 {rel:.3e}; bf16 dropout {FUSION_MESH_DROPOUT} losses per rank "
+              f"{[[round(h[0], 5) for h in g['hist']] for g in b16]}, the model ranks' "
+              f"parameters after {FUSION_MESH_STEPS} steps "
+              + ("equal bit for bit" if diff == 0 else f"at most {diff:.3g} apart")
+              + f"; shared-card step ms per rank float32 {ms(f32)}, bf16 {ms(b16)} (one process "
+              f"float32 {[round(x, 1) for x in ref['step_ms']]}); peak allocated per rank "
+              f"float32 {gib(f32)} GiB, bf16 {gib(b16)} GiB (one process float32 "
+              f"{ref['peak'] / 2**30:.2f} GiB)")
 
     # (e) the train CLI and preflight under torchrun
     cfg_json = os.path.join(workdir, "config.json")
@@ -3864,7 +4017,8 @@ def phase_parallel(card: str, workdir: str) -> dict:
                       for k, v in results.items()},
                 reference={k: {x: v[x] for x in ("hist", "step_ms", "opt_bytes")}
                            for k, v in refs.items()},
-                evaluate=evals, cli_s=cli_s, preflight_s=pre_s, preflight_log=log)
+                evaluate=evals, fusion=fusion_runs, fusion_refs=fusion_refs, cli_s=cli_s,
+                preflight_s=pre_s, preflight_log=log)
 
 
 # -- phase 17: pipeline and sequence parallelism --------------------------------
@@ -3938,8 +4092,9 @@ def _ring_config(dtype: str):
 
 def pipeline_worker(workdir: str) -> int:
     """One of phase 17's two ranks (started by torchrun; both share the card
-    over gloo): runs (a)-(d) on the inputs the parent wrote to ``workdir``
-    and writes each rank's results there."""
+    over gloo): runs (a)-(d) and (f) on the inputs the parent wrote to
+    ``workdir`` (and (f)'s, made anew from their seeds) and writes each
+    rank's results there."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3955,8 +4110,9 @@ def pipeline_worker(workdir: str) -> int:
     from repurpose_tpu_torch.ops import flash_attention as fa
     from repurpose_tpu_torch.ops.ring_attention import ring_attention
     from repurpose_tpu_torch.parallel.mesh import Mesh, create_mesh, mesh_self_check
+    from repurpose_tpu_torch.infer import InferencePipeline
     from repurpose_tpu_torch.parallel.pipeline_1f1b import make_1f1b_train_step
-    from repurpose_tpu_torch.parallel.sharding import local_rows
+    from repurpose_tpu_torch.parallel.sharding import local_rows, seq_split
     from repurpose_tpu_torch.train.loop import Trainer
     from repurpose_tpu_torch.train.state import TrainState, make_optimizer
     from repurpose_tpu_torch.train.step import batch_to_device, make_train_step
@@ -4121,6 +4277,46 @@ def pipeline_worker(workdir: str) -> int:
         out[key] = dict(tiou=res, ring=trainer.pipeline.ring,
                         launches=read_launches("flash_fwd_tc"))
         trainer.close()
+
+    # (f) the fusion variants on seq = 2 under the ring config: whole rows
+    mesh = create_mesh(MeshConfig(data=1, seq=2), "gloo", "cuda", share_card=True)
+    ftc = _fusion_train(cfg)
+    for fusion in FUSIONS:
+        fmc = _fusion_model(cfg, fusion, "float32", attention_impl="ring")
+        model = build_model(fmc, mesh.device, seed=SEED, mesh=mesh)
+        serve_sd = _serving_weights({k: v.clone() for k, v in model.state_dict().items()})
+        opt, sched = make_optimizer(model, ftc, 1, mesh)
+        state = TrainState(model, opt, mesh=mesh)
+        step = make_train_step(fmc, ftc, sched, mesh)
+        # the port's own staging: the rows, and only the ring's columns of them
+        b = batch_to_device(local_rows(_fusion_batch(fmc), mesh, seq=seq_split(fmc, mesh)),
+                            mesh.device)
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        hist, ms, hop_ms = steps(step, state, b, FUSION_MESH_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        launches = read_launches(*PARALLEL_TC, *PARALLEL_FIRST)
+        if rank == 0:
+            torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                       os.path.join(workdir, f"params_f_{fusion}.pt"))
+        local = list(b.visual.shape[:2])
+        del model, opt, state, b
+        torch.cuda.empty_cache()
+        pipe = InferencePipeline(fmc, serve_sd, cfg.test_cfg, device=mesh.device, mesh=mesh)
+        del serve_sd
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scored = pipe.score_videos(_fusion_videos(fmc), cfg.train.buckets, batch_size=2)
+        serve_ms = (time.perf_counter() - t0) * 1e3
+        out[f"f_{fusion}"] = dict(
+            hist=hist, step_ms=ms, hop_ms=hop_ms, peak=peak, launches=launches, local=local,
+            ring=pipe.ring, serve_ms=serve_ms,
+            scored=[{k: np.asarray(v).tolist() if k in ("segments", "scores", "labels") else v
+                     for k, v in r.items()} for r in scored])
+        del pipe
+        torch.cuda.empty_cache()
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -4136,7 +4332,8 @@ def _eval_config(cfg, model_kw: dict, mesh):
         train=dataclasses.replace(cfg.train, pack_sequences=cfg.train.pack_sequences and not ring))
 
 
-def phase_pipeline_and_ring(card: str, workdir: str, preflight_log: str) -> dict:
+def phase_pipeline_and_ring(card: str, workdir: str, preflight_log: str,
+                            fusion_refs: dict) -> dict:
     """Item 9, parts 4-5, at the production width: two ranks sharing the
     card over gloo (torchrun), re-grouped into (a) pipe = 2 with GPipe and
     (b) pipe = 2 with 1F1B (each rank a stage of 8 layers, M = 2
@@ -4152,12 +4349,17 @@ def phase_pipeline_and_ring(card: str, workdir: str, preflight_log: str) -> dict
     multi-process ``evaluate`` with the ring live on seq = 2 (float32) and
     on pipe = 2, against one process; (e) the train CLI with a ``pipe: 2``
     config under torchrun, and phase 16's ``preflight`` run's pipeline
-    check on both ranks. Times are of two ranks sharing one card: gloo's
-    transport, not pipeline throughput."""
+    check on both ranks; (f) the fusion variants on seq = 2 under the ring
+    config, float32, [2, 2048] unpacked: each rank stages the whole rows,
+    its steps held to phase 16's one-process references (``fusion_refs``)
+    and its ``score_videos`` on the mesh to one process's clips. Times are
+    of two ranks sharing one card: gloo's transport, not pipeline
+    throughput."""
     import numpy as np
     import torch
 
     from repurpose_tpu_torch.data.loader import BatchLoader
+    from repurpose_tpu_torch.infer import InferencePipeline
     from repurpose_tpu_torch.data.synthetic import SyntheticDataset
     from repurpose_tpu_torch.models import build_model
     from repurpose_tpu_torch.ops.attention import mha_torch
@@ -4307,6 +4509,48 @@ def phase_pipeline_and_ring(card: str, workdir: str, preflight_log: str) -> dict
               f" (one process {json.dumps(want)}; ring live {ranks[0][key]['ring']}); forward "
               f"launches per rank {[x[key]['launches']['flash_fwd_tc'] for x in ranks]}")
 
+    fusion_runs = {}
+    for fusion in FUSIONS:
+        ref = fusion_refs[fusion]
+        got = [x[f"f_{fusion}"] for x in ranks]
+        params = torch.load(os.path.join(workdir, f"params_f_{fusion}.pt"), weights_only=True)
+        rel = _hold_run(f"(f) {fusion} seq=2 ring config", got, ref, FUSION_MESH_TOL, params,
+                        ref["init"], lr=PARALLEL_LR, steps=FUSION_MESH_STEPS)
+        fmc = _fusion_model(cfg, fusion, "float32")
+        one = InferencePipeline(fmc, _serving_weights(ref["init"]), cfg.test_cfg, device="cuda")
+        want = one.score_videos(_fusion_videos(fmc), cfg.train.buckets, batch_size=2)
+        del one
+        torch.cuda.empty_cache()
+        check(sum(len(w["scores"]) for w in want) > 0, f"(f) {fusion}: one process serves no clip")
+        errs = dict.fromkeys(FUSION_SERVE_ATOL, 0.0)
+        for r, g in enumerate(got):
+            check(g["local"] == [2, 2048] and not g["ring"],
+                  f"(f) {fusion} rank {r}: staged {g['local']}, ring {g['ring']}")
+            check(not any(g["launches"].values()),
+                  f"(f) {fusion} rank {r}: an attention kernel launched {g['launches']}")
+            check([x["video_id"] for x in g["scored"]] == [w["video_id"] for w in want]
+                  and all(x["labels"] == w["labels"].tolist() for x, w in zip(g["scored"], want)),
+                  f"(f) {fusion} rank {r}: the served clips differ from one process's")
+            for key in errs:
+                errs[key] = max([errs[key]] + [
+                    float(np.abs(np.asarray(x[key]) - w[key]).max()) for x, w in
+                    zip(g["scored"], want) if len(w[key])])
+        check(all(errs[k] <= v for k, v in FUSION_SERVE_ATOL.items()),
+              f"(f) {fusion}: served clips {errs} from one process's (bounds {FUSION_SERVE_ATOL})")
+        fusion_runs[fusion] = dict(ranks=got, update_rel=rel, serve_max_abs_err=errs)
+        print(f"[pipeline] {card}: (f) {fusion} on seq=2 under the ring config, float32: each "
+              f"rank staged {got[0]['local']} (the whole rows; no ring, no attention kernel); "
+              f"loss/grad norm {json.dumps(got[0]['hist'])} (one process "
+              f"{json.dumps(ref['hist'])}; bounds {json.dumps(FUSION_MESH_TOL)}), update rel L2 "
+              f"{rel:.3e}; shared-card step ms per rank "
+              f"{[[round(x, 1) for x in g['step_ms']] for g in got]}, of it in all_reduces "
+              f"{[[round(x, 1) for x in g['hop_ms']] for g in got]}, peak allocated per rank "
+              f"{[round(g['peak'] / 2**30, 2) for g in got]} GiB; score_videos of "
+              f"{list(FUSION_VIDEOS)} s on the mesh: {sum(len(w['scores']) for w in want)} clips,"
+              f" one process's, max abs err {json.dumps(errs)} (bounds "
+              f"{json.dumps(FUSION_SERVE_ATOL)}), {[round(g['serve_ms'], 1) for g in got]} ms "
+              f"per rank")
+
     # (e) the train CLI on pipe = 2 under torchrun; phase 16's preflight run
     raw = production_config().to_dict()
     raw["tpu"] = {"mesh": dict(data=1, model=1, seq=1, pipe=2)}  # the schema's mesh section
@@ -4336,6 +4580,7 @@ def phase_pipeline_and_ring(card: str, workdir: str, preflight_log: str) -> dict
     print(f"[pipeline] {card}: phase 17 {time.perf_counter() - t_phase:.1f} s (the ranks' "
           f"launch {launch_s:.1f} s)")
     return dict(runs=results, ring_op=ring_op, memory_m6=mem, cli_s=cli_s,
+                fusion=fusion_runs,
                 evaluate={k: dict(tiou=ranks[0][k]["tiou"],
                                   launches=ranks[0][k]["launches"]) for k in evals})
 
@@ -4938,7 +5183,8 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_pipeline_", dir=os.path.join(ROOT, "runs"))
     try:
-        pipeline = phase_pipeline_and_ring(card, workdir, parallel["preflight_log"])
+        pipeline = phase_pipeline_and_ring(card, workdir, parallel["preflight_log"],
+                                           parallel.pop("fusion_refs"))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_extract_", dir=os.path.join(ROOT, "runs"))

@@ -13,7 +13,9 @@ and read as follows here:
   for every T, "pallas" the flash forward with the plain recompute backward;
   "ring" the ring attention over the mesh's ``seq`` axis
   (``ops/ring_attention.py``; without a ``seq`` axis the inference
-  pipeline and the fusion variants attend over whole rows).
+  pipeline attends over whole rows). The fusion variants have no ring:
+  they always attend over whole rows, on any mesh
+  (``parallel/sharding.py``'s ``seq_split``).
 - ``matmul_precision``: ignored. TF32 is off (package docstring), so every
   float32 product already runs at the reference's "highest" precision.
 - ``attn_softmax_dtype``: the element type of the kernel's softmax interior,

@@ -21,6 +21,8 @@ falls back to gather attention. The JAX Trainer also leaves the ring off
 at eval on a multi-host run (``process_count() > 1``), whose eval is
 per-process; every port rank is a process and scores whole batches of its
 own, so there is no such clause here: the Trainer's test is the shapes'.
+A fusion variant has no ring: it scores whole rows on any mesh
+(``seq_split``).
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from repurpose_tpu_torch.ops.decode import (
     decode_packed,
     unpack_rows,
 )
-from repurpose_tpu_torch.parallel.sharding import gather_columns
+from repurpose_tpu_torch.parallel.sharding import gather_columns, seq_split
 
 
 def _unpack(res: DecodeResult, durations, video_ids, raw=None) -> list[dict]:
@@ -89,17 +91,18 @@ class InferencePipeline:
     ``params`` is a state dict in the reference's names (tensors or numpy
     arrays), loaded strictly. ``device`` defaults to CUDA and raises when no
     card is visible; pass ``device="cpu"`` to run on the CPU. On a ``mesh``
-    whose ``model`` axis is > 1 the model is this rank's tensor-parallel
-    shard and ``params`` its shard's state dict; every model rank must then
-    score the same batches. A "ring" config on a mesh whose ``seq`` axis is
-    > 1 keeps the ring (module docstring); every ``seq`` rank must then
-    score the same batches."""
+    whose ``model`` axis is > 1 the MMCT is this rank's tensor-parallel
+    shard and ``params`` its shard's state dict (a fusion variant is whole
+    on every model rank and takes the whole state dict); every model rank
+    must then score the same batches. A "ring" config on a mesh whose
+    ``seq`` axis is > 1 keeps the ring (module docstring); every ``seq``
+    rank must then score the same batches."""
 
     def __init__(
         self, cfg: ModelConfig, params: Mapping[str, Any], test_cfg: TestConfig,
         raw_outputs: bool = False, device: str | torch.device = "cuda", mesh=None,
     ):
-        self.ring = cfg.attention_impl == "ring" and mesh is not None and mesh.size("seq") > 1
+        self.ring = mesh is not None and seq_split(cfg, mesh)
         if cfg.attention_impl == "ring" and not self.ring:
             cfg = dataclasses.replace(cfg, attention_impl="auto")
         self.mesh = mesh

@@ -47,14 +47,13 @@ def build_model(
     by ``init_weights(seed)``; load a state dict over them to serve trained
     weights. Raises for CUDA when no card is visible. On a ``mesh`` whose
     ``model`` axis is > 1 the MMCT is this rank's tensor-parallel shard of
-    the same weights (``parallel/sharding.py``). ``attention_impl="ring"``
-    needs the ``mesh``: its ``seq`` axis carries the ring."""
+    the same weights (``parallel/sharding.py``); a fusion variant is built
+    whole on every model rank (replicated over ``model``), as in one
+    process. The JAX rule shards only its attention's ``out`` row-parallel,
+    which keeps the one-process values too. ``attention_impl="ring"`` needs
+    the ``mesh``: its ``seq`` axis carries the MMCT's ring."""
     dev = resolve_device(device)
-    if mesh is not None and mesh.size("model") > 1:
-        if cfg.fusion != "concat":
-            raise NotImplementedError(
-                f"fusion={cfg.fusion!r} under tensor parallelism (model > 1) is not ported "
-                "yet (ROADMAP.md, Queue 1 item 9)")
+    if cfg.fusion == "concat" and mesh is not None and mesh.size("model") > 1:
         from repurpose_tpu_torch.parallel.sharding import shard_state_dict
 
         full = MMCT(cfg)
@@ -72,6 +71,19 @@ def build_model(
         model = MMCTBottleneck(cfg)
     else:
         model = MMCT(cfg, mesh)
+    if cfg.fusion != "concat":
+        # the variant is whole on every model rank: a name the tensor-parallel
+        # rule matched would be cut into shards by the checkpoint, the
+        # gradient norm and shard_state_dict while the module holds it whole
+        from repurpose_tpu_torch.parallel.sharding import param_sharding_rule
+
+        matched = [n for n, _ in model.named_parameters() if param_sharding_rule(n) is not None]
+        if matched:
+            raise ValueError(
+                f"fusion={cfg.fusion!r} is replicated over the model axis, but the "
+                f"tensor-parallel rule (parallel/sharding.py) would shard its parameters "
+                f"{matched[:4]}{' ...' if len(matched) > 4 else ''}: rename them or narrow "
+                "the rule")
     init_weights(model, seed)
     return model.to(dev).eval()
 

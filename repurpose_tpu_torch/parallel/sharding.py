@@ -167,10 +167,14 @@ def zero1_dim(shape, dp: int) -> int | None:
 
 
 def seq_split(cfg, mesh) -> bool:
-    """Whether ranks hold ``T / seq`` positions each: ring attention on a
-    mesh whose ``seq`` axis is > 1 (otherwise the ``seq`` ranks hold the
-    whole rows, as the JAX Trainer stages them unsharded)."""
-    return cfg.attention_impl == "ring" and mesh.size("seq") > 1
+    """Whether ranks hold ``T / seq`` positions each: the concat-fusion MMCT
+    with ring attention on a mesh whose ``seq`` axis is > 1. Otherwise the
+    ``seq`` ranks hold the whole rows, as the JAX Trainer stages them
+    unsharded. A fusion variant (``fusion`` cross or bottleneck) always
+    does: it has no ring and no global positions, so a rank holding its
+    columns alone would attend within them; the JAX variants ignore the mesh
+    and GSPMD computes their attention over whole rows."""
+    return cfg.fusion == "concat" and cfg.attention_impl == "ring" and mesh.size("seq") > 1
 
 
 def local_columns(batch, mesh):

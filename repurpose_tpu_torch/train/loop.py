@@ -21,10 +21,11 @@
 - ``fit_with_auto_resume``: rebuild and resume after a crash;
 - a mesh (``cfg.mesh`` over the processes of a torchrun launch,
   ``parallel/mesh.py``): data parallelism (the loader gives each rank its
-  rows, the step sums the gradients), tensor parallelism (the model's
-  layers sharded over ``model``), ZeRO-1 (``shard_opt_state``); rank 0 logs
-  and writes checkpoints; ``evaluate`` scores this rank's strided slice of
-  the videos and sums the tIoU sums and counts over ``data``. Every rank
+  rows, the step sums the gradients), tensor parallelism (the MMCT's
+  layers sharded over ``model``; a fusion variant whole on every model
+  rank), ZeRO-1 (``shard_opt_state``); rank 0 logs and writes
+  checkpoints; ``evaluate`` scores this rank's strided slice of the
+  videos and sums the tIoU sums and counts over ``data``. Every rank
   runs every step, probe, save and evaluation (they hold collectives);
 - the ``pipe`` axis (``parallel/pipeline.py``, ``parallel/pipeline_1f1b.py``):
   ``pipeline_schedule`` "1f1b" (the default) or "gpipe", over
@@ -33,10 +34,12 @@
   checkpoints are the one-process state dict; the val probe rides the GPipe
   forward; ``grad_accum_steps`` > 1 raises, as in the JAX Trainer;
 - the ``seq`` axis with ``attention_impl="ring"``: each rank trains on its
-  ``T / seq`` columns of its rows; packing raises. ``evaluate`` keeps the
-  ring when the batch and the buckets divide the axes (the pipeline then
-  gathers the scores over ``seq`` before the decode) and otherwise scores
-  with the kernel attention on whole rows, with a warning.
+  ``T / seq`` columns of its rows (``seq_split``; a fusion variant has no
+  ring, so every ``seq`` rank trains on the whole rows); packing raises.
+  ``evaluate`` keeps the ring when the batch and the buckets divide the
+  axes (the pipeline then gathers the scores over ``seq`` before the
+  decode) and otherwise scores with the kernel attention on whole rows,
+  with a warning.
 """
 
 from __future__ import annotations
@@ -174,7 +177,8 @@ class Trainer:
         # otherwise the kernel attention on whole rows (the same values)
         ring_eval = (self._seq_sharded and tc.batch_size % mesh.size("data") == 0
                      and all(b % mesh.size("seq") == 0 for b in tc.buckets))
-        if cfg.model.attention_impl == "ring" and not ring_eval:
+        # a fusion variant has no ring to disable: it attends over whole rows
+        if cfg.model.attention_impl == "ring" and cfg.model.fusion == "concat" and not ring_eval:
             logger.warning("ring attention disabled for EVAL (train keeps it): batch %d / "
                            "buckets %s don't divide mesh axes %s — eval falls back to the "
                            "kernel attention on whole rows", tc.batch_size, tc.buckets,

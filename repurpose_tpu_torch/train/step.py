@@ -29,7 +29,11 @@ construction:
 - ``model`` > 1: the tensor-parallel model (models/encoder.py). The
   gradient norm sums the squared norms of sharded parameters over the
   axis and counts replicated ones once; histograms are of the gathered
-  values.
+  values. A fusion variant is replicated over ``model`` (``build_model``):
+  every model rank computes the same forward and the same gradients, so
+  no gradient is summed over ``model``, and its norm counts each
+  parameter once. Under dropout the model ranks draw the same masks (the
+  model's dropout generator, seeded alike on every model rank).
 - ``pipe`` > 1: the encoder runs as a pipeline: GPipe's forward
   (``parallel/pipeline.py``'s ``PipelinedMMCT``, the reverse in autograd)
   here, or the 1F1B schedule (``parallel/pipeline_1f1b.py``, which hands
@@ -45,7 +49,10 @@ construction:
   its rows (``local_rows``); the loss sums and the gradients are summed
   over ``seq`` as over ``data``, and the denominator (from the rows'
   durations or segments, which every ``seq`` rank holds whole) is not.
-  The ``seq`` coordinate is folded into the dropout seed too.
+  The ``seq`` coordinate is folded into the dropout seed too. A fusion
+  variant has no ring (``seq_split``): every ``seq`` rank holds the whole
+  rows and computes the same step, with the same dropout masks, and
+  nothing is summed over ``seq``.
 
 The non-finite guard reads the global loss and norm, so it is global.
 """
