@@ -1,0 +1,8 @@
+"""The share of the traced stretch in which no kernel, copy or memset ran
+on the card (the train cells)."""
+
+from gpubench.readers import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx, "train")
