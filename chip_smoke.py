@@ -784,9 +784,7 @@ def _backward_device_split(args, sm: str, calls: int = 8) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     split = dict(prep=0.0, dq=0.0, dkv=0.0, sweep_and_other=0.0)
-    for e in prof.key_averages():
-        if e.device_type.name != "CUDA":
-            continue
+    for e in _device_work(prof.key_averages()):
         key = ("prep" if "stream_prep_kernel" in e.key else "dq" if "dq_tc_kernel" in e.key
                else "dkv" if "dkv_tc_kernel" in e.key else "sweep_and_other")
         split[key] += e.self_device_time_total / 1e3 / calls
@@ -1085,6 +1083,15 @@ def phase_main_path(card: str) -> dict:
     return dict(launches=launches, tc_launches=tc_launches, forwards=forwards[0])
 
 
+def _device_work(events) -> list:
+    """The device's entries of a profile's ``key_averages()``: its kernels,
+    copies and memsets. A ``record_function`` range (the port's spans, under
+    a profiler) is mirrored onto the device's timeline under its own name;
+    such a mirror is no work of its own and is dropped."""
+    host = {e.key for e in events if e.device_type.name == "CPU"}
+    return [e for e in events if e.device_type.name == "CUDA" and e.key not in host]
+
+
 def _profile_request(pipe, videos, card: str, label: str | None = None, **score_kw) -> None:
     """Where one request's time goes (packed unless ``score_kw`` says
     otherwise): device time by kernel against the host clock (torch.profiler
@@ -1096,7 +1103,7 @@ def _profile_request(pipe, videos, card: str, label: str | None = None, **score_
         t0 = time.perf_counter()
         pipe.score_videos(videos, **score_kw)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernels = _device_work(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     check(busy_ms > 0, "the profiler saw no device time")
     label = label or f"packed request of {len(videos)} videos"
@@ -1256,8 +1263,7 @@ def _profile_step(trainer, card: str, batch=None, label: str = "one training ste
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         fa.attention_sweep = sweep
-    kernels = [e for e in prof.key_averages()
-               if e.device_type.name == "CUDA" and e.key != SWEEP_LABEL]
+    kernels = _device_work(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     check(busy_ms > 0, "the profiler saw no device time")
     print(f"[profile] {card}: {label}: {wall_ms:.1f} ms on the host clock, "
@@ -3001,8 +3007,7 @@ def _host_split(trainer, card: str, logdir: str, warm: int = 3, steps: int = 4) 
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type.name == "CUDA") / 1e3 / steps
+    busy = sum(e.self_device_time_total for e in _device_work(events)) / 1e3 / steps
     top = sorted((e for e in events if e.self_cpu_time_total > 0),
                  key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     rows = [dict(op=e.key, self_cpu_ms=e.self_cpu_time_total / 1e3 / steps,

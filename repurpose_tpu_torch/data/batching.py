@@ -1,6 +1,8 @@
 """Fixed-shape bucketed batching and sequence packing (numpy only).
 
-Copied from ``repurpose_tpu/data/batching.py``. Each batch is padded to the
+Copied from ``repurpose_tpu/data/batching.py``; ``iter_packed_batches``
+records each batch's build as an ``infer.batch_build`` span
+(``utils/profiling.py``). Each batch is padded to the
 smallest configured bucket >= its longest sample; ``pack_batch`` lays
 several videos head-to-tail in one row, with ``seg_ids`` for block-diagonal
 attention and ``positions`` restarting the positional encoding per video.
@@ -12,6 +14,8 @@ import logging
 from typing import NamedTuple, Sequence
 
 import numpy as np
+
+from repurpose_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -213,25 +217,26 @@ def iter_packed_batches(
         cap = -(-cap // 8) * 8
         for rows in row_batches:
             needed = sorted({j for row in rows for j in row})
-            lmap = {j: k for k, j in enumerate(needed)}
-            samples = [fetch(g[j]) for j in needed]
-            rows_l = [[lmap[j] for j in row] for row in rows]
-            # placement and layout share one duration source: each fetched
-            # sample's own duration, which may be shorter than the planning
-            # ``lengths`` (an upper bound for dataset-backed inputs)
-            actual = [min(int(s["duration"]), bucket) for s in samples]
-            b = batch_size
-            if row_bucket:
-                b = 1
-                while b < len(rows_l):
-                    b *= 2
-                b = min(b, batch_size)
-            batch = pack_batch(samples, rows_l, bucket, batch_size=b)
-            sidx, row_of, start, length = packing_layout(rows_l, actual, bucket)
-            pad = cap - len(sidx)
-            row_of, start, length = (
-                np.pad(a, (0, pad)) for a in (row_of, start, length)
-            )
+            with span("infer.batch_build", videos=len(needed)):
+                lmap = {j: k for k, j in enumerate(needed)}
+                samples = [fetch(g[j]) for j in needed]
+                rows_l = [[lmap[j] for j in row] for row in rows]
+                # placement and layout share one duration source: each fetched
+                # sample's own duration, which may be shorter than the planning
+                # ``lengths`` (an upper bound for dataset-backed inputs)
+                actual = [min(int(s["duration"]), bucket) for s in samples]
+                b = batch_size
+                if row_bucket:
+                    b = 1
+                    while b < len(rows_l):
+                        b *= 2
+                    b = min(b, batch_size)
+                batch = pack_batch(samples, rows_l, bucket, batch_size=b)
+                sidx, row_of, start, length = packing_layout(rows_l, actual, bucket)
+                pad = cap - len(sidx)
+                row_of, start, length = (
+                    np.pad(a, (0, pad)) for a in (row_of, start, length)
+                )
             yield (
                 batch,
                 (row_of, start, length),

@@ -18,7 +18,10 @@ background prefetch (``repurpose_tpu/data/loader.py``).
   the device computes; abandoning the iterator early shuts it down;
 - unpacked batches come from the dataset's whole-batch ``load_batch`` where
   it has one and it applies (``RepurposeDataset``: the native loader), else
-  from ``collate`` over the samples.
+  from ``collate`` over the samples;
+- under a ``torch.profiler`` session (``utils/profiling.py``) the worker
+  records each batch's build as a ``loader.load`` span with its ``videos``,
+  and the consumer each wait for a batch as ``loader.wait``.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import numpy as np
 from repurpose_tpu_torch.data.batching import (
     Batch, collate, pack_batch, pick_bucket, plan_packing,
 )
+from repurpose_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -173,18 +177,20 @@ class BatchLoader:
                     if stop.is_set():
                         return
                     local = idxs[rank::ranks]
-                    if self.pack:  # rows (index lists)
-                        flat = [i for row in local for i in row]
-                        remap = {i: j for j, i in enumerate(flat)}
-                        batch = pack_batch(
-                            [self.dataset[i] for i in flat],
-                            [[remap[i] for i in row] for row in local], bucket, pad_b,
-                        )
-                    else:
-                        batch = load_batch(local, (bucket,), pad_b) if load_batch else None
-                        if batch is None:  # per-sample path
-                            batch = collate([self.dataset[i] for i in local], (bucket,),
-                                            pad_b)
+                    videos = sum(map(len, local)) if self.pack else len(local)
+                    with span("loader.load", videos=videos):
+                        if self.pack:  # rows (index lists)
+                            flat = [i for row in local for i in row]
+                            remap = {i: j for j, i in enumerate(flat)}
+                            batch = pack_batch(
+                                [self.dataset[i] for i in flat],
+                                [[remap[i] for i in row] for row in local], bucket, pad_b,
+                            )
+                        else:
+                            batch = load_batch(local, (bucket,), pad_b) if load_batch else None
+                            if batch is None:  # per-sample path
+                                batch = collate([self.dataset[i] for i in local], (bucket,),
+                                                pad_b)
                     if not put(batch):
                         return
                 put(None)
@@ -195,7 +201,8 @@ class BatchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                with span("loader.wait"):
+                    item = q.get()
                 if item is None:
                     return
                 if isinstance(item, BaseException):

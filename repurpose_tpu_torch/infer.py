@@ -45,6 +45,7 @@ from repurpose_tpu_torch.ops.decode import (
     unpack_rows,
 )
 from repurpose_tpu_torch.parallel.sharding import gather_columns, seq_split
+from repurpose_tpu_torch.utils.profiling import span
 
 
 def _unpack(res: DecodeResult, durations, video_ids, raw=None) -> list[dict]:
@@ -55,34 +56,35 @@ def _unpack(res: DecodeResult, durations, video_ids, raw=None) -> list[dict]:
     Everything comes over in one copy: the outputs are laid side by side in
     one float32 tensor on the device (labels < 2**24 and the keep flags are
     exact in float32), so the host waits for the device once per batch."""
-    b, k = res.scores.shape
-    parts = [res.segments.reshape(b, 2 * k), res.scores, res.labels.float(),
-             res.keep.float()]
-    if raw is not None:
-        t = raw[0].shape[1]
-        parts += [raw[0].reshape(b, t).float(), raw[1].reshape(b, 2 * t).float()]
-    host = torch.cat(parts, dim=1).cpu().numpy()
-    segments = host[:, : 2 * k].reshape(b, k, 2)
-    scores = host[:, 2 * k : 3 * k]
-    labels = host[:, 3 * k : 4 * k].astype(np.int32)
-    keep = host[:, 4 * k : 5 * k] > 0.5
-    out = []
-    for i in range(b):
-        kp = keep[i]
-        has_id = video_ids is not None and i < len(video_ids)
-        r = {
-            "segments": segments[i][kp],
-            "scores": scores[i][kp],
-            "labels": labels[i][kp],
-            "video_id": video_ids[i] if has_id else str(i),
-            "duration": int(durations[i]),
-        }
+    with span("infer.readback"):
+        b, k = res.scores.shape
+        parts = [res.segments.reshape(b, 2 * k), res.scores, res.labels.float(),
+                 res.keep.float()]
         if raw is not None:
-            d = int(durations[i])
-            r["raw_logits"] = host[i, 5 * k : 5 * k + t][:d]
-            r["raw_offsets"] = host[i, 5 * k + t :].reshape(t, 2)[:d]
-        out.append(r)
-    return out
+            t = raw[0].shape[1]
+            parts += [raw[0].reshape(b, t).float(), raw[1].reshape(b, 2 * t).float()]
+        host = torch.cat(parts, dim=1).cpu().numpy()
+        segments = host[:, : 2 * k].reshape(b, k, 2)
+        scores = host[:, 2 * k : 3 * k]
+        labels = host[:, 3 * k : 4 * k].astype(np.int32)
+        keep = host[:, 4 * k : 5 * k] > 0.5
+        out = []
+        for i in range(b):
+            kp = keep[i]
+            has_id = video_ids is not None and i < len(video_ids)
+            r = {
+                "segments": segments[i][kp],
+                "scores": scores[i][kp],
+                "labels": labels[i][kp],
+                "video_id": video_ids[i] if has_id else str(i),
+                "duration": int(durations[i]),
+            }
+            if raw is not None:
+                d = int(durations[i])
+                r["raw_logits"] = host[i, 5 * k : 5 * k + t][:d]
+                r["raw_offsets"] = host[i, 5 * k + t :].reshape(t, 2)[:d]
+            out.append(r)
+        return out
 
 
 class InferencePipeline:
@@ -118,7 +120,8 @@ class InferencePipeline:
         )
 
     def _to_device(self, a, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+        with span("infer.stage"):
+            return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
 
     @torch.inference_mode()
     def _forward(self, params, *args, **kwargs):
@@ -129,6 +132,7 @@ class InferencePipeline:
     @torch.inference_mode()
     def _forward_and_decode(self, params, visual, audio, text, mask, durations):
         stage = self._to_device
+        videos = int(np.count_nonzero(durations))
         mask = stage(mask, torch.bool)
         durations = stage(durations, torch.int64)
         if self.ring:  # this rank's columns through the ring, the whole rows to the decode
@@ -137,14 +141,17 @@ class InferencePipeline:
             if t % n:
                 raise ValueError(f"bucket {t} not divisible by the seq axis {n}")
             cols = slice(c * t // n, (c + 1) * t // n)
-            out = self._forward(params, stage(np.asarray(visual)[:, cols]),
-                                stage(np.asarray(audio)[:, cols]),
-                                stage(np.asarray(text)[:, cols]), mask[:, cols])
-            out = type(out)(*[gather_columns(x, self.mesh) for x in out])
+            x = [stage(np.asarray(a)[:, cols]) for a in (visual, audio, text)]
+            with span("infer.forward"):
+                out = self._forward(params, *x, mask[:, cols])
+                out = type(out)(*[gather_columns(y, self.mesh) for y in out])
         else:
-            out = self._forward(params, stage(visual), stage(audio), stage(text), mask)
-        res = decode_batch(out.cls_logits[..., 0], out.offsets, mask, durations,
-                           self.test_cfg)
+            x = [stage(a) for a in (visual, audio, text)]
+            with span("infer.forward"):
+                out = self._forward(params, *x, mask)
+        with span("infer.decode", videos=videos):
+            res = decode_batch(out.cls_logits[..., 0], out.offsets, mask, durations,
+                               self.test_cfg)
         return res, ((out.cls_logits, out.offsets) if self.raw_outputs else None)
 
     @torch.inference_mode()
@@ -153,20 +160,22 @@ class InferencePipeline:
         # are unpacked to per-video rows on the device before the decode
         require_unpacked(self.model)
         stage = self._to_device
-        out = self._forward(
-            params, stage(batch.visual), stage(batch.audio), stage(batch.text),
-            stage(batch.mask, torch.bool),
-            seg_ids=stage(batch.seg_ids, torch.int32),
-            positions=stage(batch.positions, torch.int64),
-        )
+        x = [stage(batch.visual), stage(batch.audio), stage(batch.text),
+             stage(batch.mask, torch.bool)]
+        seg_ids = stage(batch.seg_ids, torch.int32)
+        positions = stage(batch.positions, torch.int64)
+        with span("infer.forward"):
+            out = self._forward(params, *x, seg_ids=seg_ids, positions=positions)
         row_of, start, length = (stage(a, torch.int64) for a in layout)
-        if self.raw_outputs:
-            logits_v, mask_v = unpack_rows(out.cls_logits[..., 0], row_of, start, length)
-            offsets_v, _ = unpack_rows(out.offsets, row_of, start, length)
-            res = decode_batch(logits_v, offsets_v, mask_v, length, self.test_cfg)
-            return res, (logits_v[..., None], offsets_v)
-        res = decode_packed(out.cls_logits[..., 0], out.offsets, row_of, start,
-                            length, self.test_cfg)
+        videos = int(np.count_nonzero(layout[2]))
+        with span("infer.decode", videos=videos):
+            if self.raw_outputs:
+                logits_v, mask_v = unpack_rows(out.cls_logits[..., 0], row_of, start, length)
+                offsets_v, _ = unpack_rows(out.offsets, row_of, start, length)
+                res = decode_batch(logits_v, offsets_v, mask_v, length, self.test_cfg)
+                return res, (logits_v[..., None], offsets_v)
+            res = decode_packed(out.cls_logits[..., 0], out.offsets, row_of, start,
+                                length, self.test_cfg)
         return res, None
 
     def score_batch(
@@ -221,23 +230,24 @@ class InferencePipeline:
                     while b < len(chunk):
                         b *= 2
                     b = min(b, batch_size)
-                    vis = np.zeros((b, bucket, self.cfg.vis_dim), np.float32)
-                    aud = np.zeros((b, bucket, self.cfg.aud_dim), np.float32)
-                    txt = np.zeros((b, bucket, self.cfg.text_dim), np.float32)
-                    mask = np.zeros((b, bucket), bool)
-                    durs = np.zeros(b, np.int32)
-                    ids = []
-                    for r, i in enumerate(chunk):
-                        v = videos[i]
-                        t = min(
-                            len(v["visual"]), len(v["audio"]), len(v["text"]), bucket
-                        )
-                        vis[r, :t] = v["visual"][:t]
-                        aud[r, :t] = v["audio"][:t]
-                        txt[r, :t] = v["text"][:t]
-                        mask[r, :t] = True
-                        durs[r] = t
-                        ids.append(str(v.get("video_id", i)))
+                    with span("infer.batch_build", videos=len(chunk)):
+                        vis = np.zeros((b, bucket, self.cfg.vis_dim), np.float32)
+                        aud = np.zeros((b, bucket, self.cfg.aud_dim), np.float32)
+                        txt = np.zeros((b, bucket, self.cfg.text_dim), np.float32)
+                        mask = np.zeros((b, bucket), bool)
+                        durs = np.zeros(b, np.int32)
+                        ids = []
+                        for r, i in enumerate(chunk):
+                            v = videos[i]
+                            t = min(
+                                len(v["visual"]), len(v["audio"]), len(v["text"]), bucket
+                            )
+                            vis[r, :t] = v["visual"][:t]
+                            aud[r, :t] = v["audio"][:t]
+                            txt[r, :t] = v["text"][:t]
+                            mask[r, :t] = True
+                            durs[r] = t
+                            ids.append(str(v.get("video_id", i)))
                     chunk_fifo.append(chunk)
                     yield (vis, aud, txt, mask, durs, ids)
 

@@ -52,6 +52,10 @@ the JAX ``backward="xla"`` escape hatch). On the card it zero-pads a head
 width without a kernel instance to the next one (``kernel_head_dim``) and
 keeps the head's own scale 1/sqrt(Dh), which every wrapper takes as
 ``scale``; the zero columns add nothing to q_s k^T, p v or rowsum(g o).
+Under a ``torch.profiler`` session its forward and its backward are each
+an ``attention`` device span (``utils/profiling.py``): the card's time
+from the first of their launches to the last, whatever kernels they are
+(a remat recompute calls the forward again).
 
 Heads wider than the widest fixed-width instance (``HEAD_DIMS[-1]`` = 256)
 run on the head-chunked instances of the first designs
@@ -90,6 +94,7 @@ from typing import NamedTuple
 import torch
 
 from repurpose_tpu_torch.ops.attention import NEG_INF, mha_torch
+from repurpose_tpu_torch.utils.profiling import device_span
 
 # LSE written for query rows past the last valid key: large enough that a
 # backward's exp(s - lse) underflows to exactly 0, small enough to stay finite.
@@ -1293,34 +1298,36 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, seg_ids, softmax_dtype, backward, sweep):
-        dh = q.shape[-1]
-        width = kernel_head_dim(q.device, dh)
-        if width != dh:
-            q, k, v = (torch.nn.functional.pad(x, (0, width - dh)) for x in (q, k, v))
-        scale = 1.0 / (dh ** 0.5)
-        out, lse = flash_forward(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale,
-                                 sweep=sweep)
-        ctx.save_for_backward(q, k, v, out, lse, key_valid, seg_ids)
-        ctx.softmax_dtype, ctx.head_dim, ctx.scale, ctx.sweep = softmax_dtype, dh, scale, sweep
-        ctx.recompute = backward == "xla"
-        return out if width == dh else out[..., :dh].contiguous()
+        with device_span("attention", q):
+            dh = q.shape[-1]
+            width = kernel_head_dim(q.device, dh)
+            if width != dh:
+                q, k, v = (torch.nn.functional.pad(x, (0, width - dh)) for x in (q, k, v))
+            scale = 1.0 / (dh ** 0.5)
+            out, lse = flash_forward(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale,
+                                     sweep=sweep)
+            ctx.save_for_backward(q, k, v, out, lse, key_valid, seg_ids)
+            ctx.softmax_dtype, ctx.head_dim, ctx.scale, ctx.sweep = softmax_dtype, dh, scale, sweep
+            ctx.recompute = backward == "xla"
+            return out if width == dh else out[..., :dh].contiguous()
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse, key_valid, seg_ids = ctx.saved_tensors
-        dh, width = ctx.head_dim, q.shape[-1]
-        if ctx.recompute:
-            with torch.enable_grad():
-                qkv = [x[..., :dh].detach().requires_grad_() for x in (q, k, v)]
-                ref = mha_torch(*qkv, key_valid, seg_ids)
-                dq, dk, dv = torch.autograd.grad(ref, qkv, g)
-            return dq, dk, dv, None, None, None, None, None
-        g = torch.nn.functional.pad(g, (0, width - dh)) if width != dh else g.contiguous()
-        grads = flash_backward(q, k, v, key_valid, out, lse, g, seg_ids, ctx.softmax_dtype,
-                               scale=ctx.scale, sweep=ctx.sweep)
-        if width != dh:
-            grads = tuple(x[..., :dh] for x in grads)
-        return *grads, None, None, None, None, None
+        with device_span("attention", q):
+            dh, width = ctx.head_dim, q.shape[-1]
+            if ctx.recompute:
+                with torch.enable_grad():
+                    qkv = [x[..., :dh].detach().requires_grad_() for x in (q, k, v)]
+                    ref = mha_torch(*qkv, key_valid, seg_ids)
+                    dq, dk, dv = torch.autograd.grad(ref, qkv, g)
+                return dq, dk, dv, None, None, None, None, None
+            g = torch.nn.functional.pad(g, (0, width - dh)) if width != dh else g.contiguous()
+            grads = flash_backward(q, k, v, key_valid, out, lse, g, seg_ids, ctx.softmax_dtype,
+                                   scale=ctx.scale, sweep=ctx.sweep)
+            if width != dh:
+                grads = tuple(x[..., :dh] for x in grads)
+            return *grads, None, None, None, None, None
 
 
 def flash_attention(q, k, v, key_valid, seg_ids=None, softmax_dtype: str = "float32",

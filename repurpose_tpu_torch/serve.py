@@ -16,7 +16,10 @@ sends one video.
 
 API:
 - ``GET /healthz`` -> {"status": "ok", platform, card, buckets, pack,
-  batch_size, queued, scored_total, uptime_s}.
+  batch_size, queued, scored_total, drains_total, uptime_s}: ``queued`` the
+  requests waiting for the scorer, ``scored_total`` the videos scored and
+  ``drains_total`` the scoring calls that scored them (so videos per drain
+  is their ratio).
 - ``POST /score`` -> {"results": [...]} in request order; each result is the
   reference's result schema {video_id, segments, scores, labels, duration}
   JSON-encoded. Videos carry inline per-second features (``visual
@@ -36,6 +39,12 @@ waits on a kernel build or on cuBLAS's first call. Checkpoints resolve as in
 ``python -m repurpose_tpu_torch.inference`` (``--torch_ckpt``, ``--resume``,
 or seeded random weights). ``--device`` defaults to ``cuda`` and raises
 without a card. SIGTERM and SIGINT stop the server; ``main`` then returns 0.
+
+Under a ``torch.profiler`` session the daemon records its layers
+(``utils/profiling.py``): each request's ``serve.queue_wait`` from its
+enqueue to the start of the drain that scores it, each ``serve.drain``
+with its ``videos``, each request's ``serve.intake`` (its
+videos loaded and checked) with its ``videos``, and ``serve.reply``.
 
 ``main(argv)`` loads the config from ``--config_path`` (YAML, or the same
 schema as ``.json``, which needs no PyYAML); ``make_server(cfg, args)``
@@ -62,6 +71,7 @@ from repurpose_tpu_torch import resolve_device
 from repurpose_tpu_torch.config import Config, load_config
 from repurpose_tpu_torch.infer import InferencePipeline
 from repurpose_tpu_torch.inference import load_params
+from repurpose_tpu_torch.utils.profiling import span, stamp, waited
 
 MAX_BODY_BYTES = 1 << 30
 
@@ -83,12 +93,13 @@ class _Scorer(threading.Thread):
         self.request_timeout_s = request_timeout_s
         self.q: queue.Queue = queue.Queue()
         self.scored_total = 0
+        self.drains_total = 0
         self._stopping = False
 
     def submit(self, videos: list, timeout: float) -> list:
         """Called from handler threads: enqueue, block until scored."""
         slot = {"videos": videos, "ev": threading.Event(),
-                "results": None, "error": None}
+                "results": None, "error": None, "queued": stamp()}
         self.q.put(slot)
         if not slot["ev"].wait(timeout):
             raise TimeoutError("scoring timed out")
@@ -122,12 +133,16 @@ class _Scorer(threading.Thread):
                 batch.append(nxt)
                 n += len(nxt["videos"])
             videos = [v for s in batch for v in s["videos"]]
+            for s in batch:  # each request's wait, up to its drain's scoring
+                waited("serve.queue_wait", s["queued"])
             try:
-                results = self.pipe.score_videos(
-                    videos, buckets=self.buckets, batch_size=self.batch_size,
-                    depth=self.depth, pack=self.pack,
-                )
+                with span("serve.drain", videos=len(videos)):
+                    results = self.pipe.score_videos(
+                        videos, buckets=self.buckets, batch_size=self.batch_size,
+                        depth=self.depth, pack=self.pack,
+                    )
                 self.scored_total += len(videos)
+                self.drains_total += 1
             except Exception as e:  # fan the failure out, keep serving
                 logging.exception("scoring failed")
                 for s in batch:
@@ -180,6 +195,7 @@ def _make_handler(scorer: _Scorer, cfg: Config, feature_root, platform: str, car
                 "batch_size": scorer.batch_size,
                 "queued": scorer.q.qsize(),
                 "scored_total": scorer.scored_total,
+                "drains_total": scorer.drains_total,
                 "uptime_s": round(time.monotonic() - t0, 1),
             })
 
@@ -223,16 +239,17 @@ def _make_handler(scorer: _Scorer, cfg: Config, feature_root, platform: str, car
                     raise ValueError("'videos' must be a non-empty list")
                 dims = (cfg.model.vis_dim, cfg.model.aud_dim, cfg.model.text_dim)
                 videos = []
-                for i, v in enumerate(raw):
-                    lv = self._load_video(v, i)
-                    for mod, d in zip(("visual", "audio", "text"), dims):
-                        a = lv[mod]
-                        if a.ndim != 2 or a.shape[1] != d or not len(a):
-                            raise ValueError(
-                                f"video {i} {mod}: expected [T>0, {d}], "
-                                f"got {list(a.shape)}"
-                            )
-                    videos.append(lv)
+                with span("serve.intake", videos=len(raw)):
+                    for i, v in enumerate(raw):
+                        lv = self._load_video(v, i)
+                        for mod, d in zip(("visual", "audio", "text"), dims):
+                            a = lv[mod]
+                            if a.ndim != 2 or a.shape[1] != d or not len(a):
+                                raise ValueError(
+                                    f"video {i} {mod}: expected [T>0, {d}], "
+                                    f"got {list(a.shape)}"
+                                )
+                        videos.append(lv)
             except Exception as e:  # any malformed request is the client's fault
                 return self._reply(400, {"error": f"{type(e).__name__}: {e}"})
             try:
@@ -241,7 +258,8 @@ def _make_handler(scorer: _Scorer, cfg: Config, feature_root, platform: str, car
                 return self._reply(503, {"error": str(e)})
             except RuntimeError as e:  # the scorer's failure, fanned out
                 return self._reply(500, {"error": str(e)})
-            self._reply(200, {"results": [_json_result(r) for r in results]})
+            with span("serve.reply"):
+                self._reply(200, {"results": [_json_result(r) for r in results]})
 
     return Handler
 

@@ -81,7 +81,7 @@ from repurpose_tpu_torch.train.step import (
 )
 from repurpose_tpu_torch.utils.logging_utils import MetricLogger
 from repurpose_tpu_torch.utils.metrics import calculate_tiou
-from repurpose_tpu_torch.utils.profiling import annotate
+from repurpose_tpu_torch.utils.profiling import annotate, span
 
 logger = logging.getLogger(__name__)
 
@@ -239,7 +239,8 @@ class Trainer:
         """Raise if any train step so far produced a non-finite loss or
         gradient norm; every step was checked on the device, this one read
         covers them all."""
-        bad = int(self.state.nonfinite_count)
+        with span("train.telemetry"):
+            bad = int(self.state.nonfinite_count)
         if bad:
             raise FloatingPointError(
                 f"{bad} train step(s) produced non-finite loss/gradients "
@@ -274,17 +275,18 @@ class Trainer:
     def _val_probe(self, max_batches: int = 10) -> float | None:
         if self.val_ds is None:
             return None
-        if not hasattr(self, "_val_loader"):  # deterministic: build once
-            self._val_loader = BatchLoader(
-                self.val_ds, batch_size=self.cfg.train.batch_size,
-                buckets=self.cfg.train.buckets, shuffle=False,
-            )
-        losses = []
-        for batch in itertools.islice(self._val_loader.epoch(0), max_batches):
-            out = self.eval_step(self.state.model, self._device_batch(batch))
-            # normalised by the actual batch size (reference main.py:460-463)
-            losses.append(float(out["cls_loss"]) / max(int(out["n_real"]), 1))
-        return float(np.mean(losses)) if losses else None
+        with span("train.telemetry"):
+            if not hasattr(self, "_val_loader"):  # deterministic: build once
+                self._val_loader = BatchLoader(
+                    self.val_ds, batch_size=self.cfg.train.batch_size,
+                    buckets=self.cfg.train.buckets, shuffle=False,
+                )
+            losses = []
+            for batch in itertools.islice(self._val_loader.epoch(0), max_batches):
+                out = self.eval_step(self.state.model, self._device_batch(batch))
+                # normalised by the actual batch size (reference main.py:460-463)
+                losses.append(float(out["cls_loss"]) / max(int(out["n_real"]), 1))
+            return float(np.mean(losses)) if losses else None
 
     # -- evaluation ---------------------------------------------------------------
 

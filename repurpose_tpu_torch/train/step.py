@@ -55,6 +55,11 @@ construction:
   nothing is summed over ``seq``.
 
 The non-finite guard reads the global loss and norm, so it is global.
+
+Under a ``torch.profiler`` session the step records its phases as spans
+(``utils/profiling.py``): ``train.forward_loss``, ``train.backward``,
+``train.grad_norms``, ``train.optimizer``, and the histograms as
+``train.telemetry``.
 """
 
 from __future__ import annotations
@@ -75,6 +80,7 @@ from repurpose_tpu_torch.parallel.sharding import (
     seq_split,
 )
 from repurpose_tpu_torch.train.state import TrainState
+from repurpose_tpu_torch.utils.profiling import span
 
 _BATCH_DTYPES = {"mask": torch.bool, "durations": torch.int64, "seg_ids": torch.int32,
                  "positions": torch.int64}
@@ -197,10 +203,11 @@ def param_histograms(model, mesh=None) -> dict:
     rows labelled by ``kernel_layer_names``: the parameter half of the
     wandb.watch equivalent (of the gathered values under tensor
     parallelism: a collective over ``model``)."""
-    hists = [histogram(gather_tensor(n, p, mesh) if _tp(mesh) else p)
-             for n, p in _kernel_params(model)]
-    return {"counts": torch.stack([c for c, _ in hists]),
-            "edges": torch.stack([e for _, e in hists])}
+    with span("train.telemetry"):
+        hists = [histogram(gather_tensor(n, p, mesh) if _tp(mesh) else p)
+                 for n, p in _kernel_params(model)]
+        return {"counts": torch.stack([c for c, _ in hists]),
+                "edges": torch.stack([e for _, e in hists])}
 
 
 def _split_grad_norms(model, mesh, per_layer: bool):
@@ -304,9 +311,11 @@ def make_train_step(
         aux_sum: dict[str, torch.Tensor] = {}
         for c in range(accum):
             model.zero_grad(set_to_none=True)
-            total, aux = loss_fn(model, train_cfg, _chunk(batch, c, accum),
-                                 norm_override=norm)
-            total.backward()
+            with span("train.forward_loss"):
+                total, aux = loss_fn(model, train_cfg, _chunk(batch, c, accum),
+                                     norm_override=norm)
+            with span("train.backward"):
+                total.backward()
             for p in model.parameters():
                 if p.grad is not None:
                     g = p.grad.to(accum_dtype)
@@ -324,8 +333,10 @@ def make_train_step(
             return accumulate(model, batch)
         n_real, norm = global_denominator(train_cfg, batch, mesh)
         fwd = PipelinedMMCT(model, mesh, train_cfg.pipeline_microbatches) if pipe else model
-        total, aux = loss_fn(fwd, train_cfg, batch, norm_override=norm)
-        total.backward()
+        with span("train.forward_loss"):
+            total, aux = loss_fn(fwd, train_cfg, batch, norm_override=norm)
+        with span("train.backward"):
+            total.backward()
         aux = {k: v.detach() for k, v in aux.items()}
         aux["n_real"] = n_real
         return aux
@@ -358,25 +369,30 @@ def make_train_step(
             sums = mesh.all_reduce(torch.stack([aux[k].float() for k in keys]), axis)
             aux.update(zip(keys, sums.unbind()))
         metrics = dict(aux)
-        metrics["grad_norm"], layer_norms = _grad_norms(model, mesh, per_layer_grad_norms)
+        with span("train.grad_norms"):
+            metrics["grad_norm"], layer_norms = _grad_norms(model, mesh, per_layer_grad_norms)
         if per_layer_grad_norms:
             metrics["grad_norms/stacked"] = layer_norms
         if grad_histograms:
-            if hasattr(model, "layer_offset"):  # the split layout: gathered over pipe
-                kernels = [g for g in pipeline_grads_by_name(model, mesh).values() if g.ndim == 2]
-            else:
-                kernels = [gather_tensor(n, g, mesh) if _tp(mesh) else g
-                           for n, g in ((n, p.grad if p.grad is not None else torch.zeros_like(p))
-                                        for n, p in _kernel_params(model))]
-            hists = [histogram(g) for g in kernels]
-            metrics["hist/grads/counts"] = torch.stack([c for c, _ in hists])
-            metrics["hist/grads/edges"] = torch.stack([e for _, e in hists])
+            with span("train.telemetry"):
+                if hasattr(model, "layer_offset"):  # the split layout: gathered over pipe
+                    kernels = [g for g in pipeline_grads_by_name(model, mesh).values()
+                               if g.ndim == 2]
+                else:
+                    kernels = [gather_tensor(n, g, mesh) if _tp(mesh) else g
+                               for n, g in ((n, p.grad if p.grad is not None
+                                             else torch.zeros_like(p))
+                                            for n, p in _kernel_params(model))]
+                hists = [histogram(g) for g in kernels]
+                metrics["hist/grads/counts"] = torch.stack([c for c, _ in hists])
+                metrics["hist/grads/edges"] = torch.stack([e for _, e in hists])
         if lr is not None:
             metrics["learning_rate"] = lr
-        bad = ~(torch.isfinite(aux["loss"]) & torch.isfinite(metrics["grad_norm"]))
-        opt.step()
-        state.step += 1
-        state.nonfinite_count += bad.to(torch.int32)
+        with span("train.optimizer"):
+            bad = ~(torch.isfinite(aux["loss"]) & torch.isfinite(metrics["grad_norm"]))
+            opt.step()
+            state.step += 1
+            state.nonfinite_count += bad.to(torch.int32)
         return metrics
 
     return train_step

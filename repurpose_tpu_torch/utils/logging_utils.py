@@ -14,6 +14,8 @@ from typing import Any, Mapping
 
 import numpy as np
 
+from repurpose_tpu_torch.utils.profiling import span
+
 logger = logging.getLogger(__name__)
 
 
@@ -48,13 +50,14 @@ class MetricLogger:
         tensor is read back here, so log on a cadence)."""
         if not self.is_main:
             return
-        record = {"step": step, "time": time.time()}
-        for k, v in metrics.items():
-            record[k] = float(v) if hasattr(v, "__float__") else v
-        self._file.write(json.dumps(record) + "\n")
-        self._file.flush()
-        if self._wandb is not None:
-            self._wandb.log({k: v for k, v in record.items() if k != "time"}, step=step)
+        with span("train.telemetry"):
+            record = {"step": step, "time": time.time()}
+            for k, v in metrics.items():
+                record[k] = float(v) if hasattr(v, "__float__") else v
+            self._file.write(json.dumps(record) + "\n")
+            self._file.flush()
+            if self._wandb is not None:
+                self._wandb.log({k: v for k, v in record.items() if k != "time"}, step=step)
 
     def log_histograms(self, names: list[str], counts, edges, step: int,
                        prefix: str = "grads") -> None:
@@ -64,23 +67,24 @@ class MetricLogger:
         objects."""
         if not self.is_main:
             return
-        counts = np.asarray(counts.cpu() if hasattr(counts, "cpu") else counts)
-        edges = np.asarray(edges.cpu() if hasattr(edges, "cpu") else edges)
-        record: dict[str, Any] = {"step": step, "time": time.time()}
-        for i, name in enumerate(names):
-            record[f"hist/{prefix}/{name}"] = {"counts": counts[i].tolist(),
-                                               "edges": edges[i].tolist()}
-        self._file.write(json.dumps(record) + "\n")
-        self._file.flush()
-        if self._wandb is not None:
-            try:
-                self._wandb.log(
-                    {f"hist/{prefix}/{n}": self._wandb.Histogram(
-                        np_histogram=(counts[i], edges[i])) for i, n in enumerate(names)},
-                    step=step,
-                )
-            except Exception as e:  # an upload failure must not stop training
-                logger.warning("wandb histogram upload failed: %s", e)
+        with span("train.telemetry"):
+            counts = np.asarray(counts.cpu() if hasattr(counts, "cpu") else counts)
+            edges = np.asarray(edges.cpu() if hasattr(edges, "cpu") else edges)
+            record: dict[str, Any] = {"step": step, "time": time.time()}
+            for i, name in enumerate(names):
+                record[f"hist/{prefix}/{name}"] = {"counts": counts[i].tolist(),
+                                                   "edges": edges[i].tolist()}
+            self._file.write(json.dumps(record) + "\n")
+            self._file.flush()
+            if self._wandb is not None:
+                try:
+                    self._wandb.log(
+                        {f"hist/{prefix}/{n}": self._wandb.Histogram(
+                            np_histogram=(counts[i], edges[i])) for i, n in enumerate(names)},
+                        step=step,
+                    )
+                except Exception as e:  # an upload failure must not stop training
+                    logger.warning("wandb histogram upload failed: %s", e)
 
     def log_images(self, paths: list[str], step: int, key: str = "debug") -> None:
         """Uploads debug figures to wandb (nothing without it)."""

@@ -13,8 +13,9 @@ One ``.pth`` of JAX-initialised weights (written through the port's
   tolerances: rtol/atol 1e-5 on segments, 1e-5 / 1e-6 on scores (float32 in
   both frameworks, sums in another order); packed 1e-4 / 1e-4 and 1e-4 / 1e-5;
 - concurrent clients are answered, each in its own order, and
-  ``scored_total`` adds up; 400, 404, 413 and ``/healthz``; SIGTERM and
-  SIGINT exit 0; ``main`` raises without CUDA unless ``--device cpu``.
+  ``scored_total`` adds up; 400, 404, 413 and ``/healthz`` with its
+  ``drains_total``; SIGTERM and SIGINT exit 0; ``main`` raises without CUDA
+  unless ``--device cpu``.
 """
 
 import json
@@ -232,6 +233,13 @@ def test_bad_requests_and_healthz(setup):
     assert health["platform"] == "cpu" and health["card"] == "cpu"
     assert health["buckets"] == [64, 128] and health["pack"] is False
     assert health["batch_size"] == 2
+    # one request is one drain: videos per drain is scored_total / drains_total
+    assert 0 <= health["drains_total"] <= health["scored_total"]
+    videos = _videos(9, [40, 70])
+    assert _post(base + "/score", _payload(videos))[0] == 200
+    after = _get(base + "/healthz")[1]
+    assert after["drains_total"] - health["drains_total"] == 1
+    assert after["scored_total"] - health["scored_total"] == len(videos)
     bad = [({"videos": [{"video_id": "nofeat"}]}, "features"),
            ({"videos": []}, "non-empty"),
            ({"videos": [{"visual": [[0.0] * 7], "audio": [[0.0] * 12],
