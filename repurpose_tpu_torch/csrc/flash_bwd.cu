@@ -11,8 +11,13 @@
 //     flash_bwd_dkv_kernel.
 // A null `seg_ids` (tensor-core: a null lo / hi) selects the unpacked
 // variant of each. The tensor-core pair's bias-form instances are the
-// long-T backward's bf16 Dh 64 kernels too (flash_bwd_stream.cu names the
-// TPU kernels they replace there).
+// long-T stream wrappers' bf16 Dh 64 kernels too (flash_bwd_stream.cu names
+// the TPU kernels they replace there). The long-T backward of
+// `flash_backward` in bf16 at Dh 64 is one fused kernel instead,
+// flash_bwd_fused_tc_kernel with flash_bwd_fused_dq_kernel (the end of this
+// file; design, and the TPU kernels it fuses, in flash_bwd_fused.cuh): it
+// forms each pair's p and ds once and adds dq across key blocks in float32,
+// in an order that changes from run to run.
 //
 // What they compute, with the saved forward out `o` and lse, the upstream
 // gradient `g`, scale = 1/sqrt(Dh), per batch row b and head h:
@@ -83,6 +88,7 @@
 
 #include <type_traits>
 
+#include "flash_bwd_fused.cuh"
 #include "flash_bwd_tc.cuh"
 
 namespace {
@@ -693,6 +699,60 @@ int run_tc(bool dq, const void* qs, const void* k, const void* v, const void* g,
   return bwd_tc::launch(kernels[dq][sm_bf16 != 0][select != 0], dq, a, B, stream);
 }
 
+// ---- the fused tensor-core kernel: the long-T backward, bf16 at Dh 64 ------------
+
+// The kernel and its design: flash_bwd_fused.cuh. One block an SM.
+template <bool SM_BF16>
+__global__ void __launch_bounds__(bwd_fused::THREADS, 1)
+    flash_bwd_fused_tc_kernel(const __grid_constant__ bwd_fused::Params p) {
+  bwd_fused::fused_block<SM_BF16>(p);
+}
+
+constexpr int FUSED_DQ_THREADS = 256;
+
+// dq = bf16(scale * the fused kernel's float32 sums), one float4 a thread.
+__global__ void __launch_bounds__(FUSED_DQ_THREADS)
+    flash_bwd_fused_dq_kernel(const float4* acc, const int* kvl, const int* lo, const int* hi,
+                              bf16* dq, int B, int T_len, int Tp, int H, float scale) {
+  bwd_fused::dq_out(acc, kvl, lo, hi, dq, B, T_len, Tp, H, scale);
+}
+
+int run_fused(const void* qs, const void* k, const void* v, const void* g,
+              const long long* strides, const void* rows, const void* info, const void* kvl,
+              const void* lo, const void* hi, void* acc, void* dq, void* dk, void* dv, int B,
+              int T_len, int H, int sm_bf16, int select, float scale, cudaStream_t stream) {
+  if (B <= 0 || T_len <= 0 || H <= 0) return 0;
+  if (!kvl || !acc || (lo == nullptr) != (hi == nullptr) || select != 0)
+    return (int)cudaErrorInvalidValue;  // the bias form only
+  bwd_fused::Params p;
+  int err = bwd_tc::make_args(p.a, qs, k, v, g, strides, rows, info, kvl, lo, hi, dk, dv, B,
+                              T_len, H, scale);
+  if (err != 0) return err;
+  p.acc = static_cast<float*>(acc);
+  void (*const kernel)(bwd_fused::Params) =
+      sm_bf16 ? &flash_bwd_fused_tc_kernel<true> : &flash_bwd_fused_tc_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)bwd_fused::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  // the consumers' setmaxnreg.inc waits for registers the producer gives
+  // back: with fewer than 168 a thread at launch it would wait forever
+  cudaFuncAttributes attr;
+  e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  if (attr.numRegs < bwd_fused::LAUNCH_REGS) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((p.a.Tp + bwd_fused::BK - 1) / bwd_fused::BK, H, B);
+  kernel<<<grid, bwd_fused::THREADS, bwd_fused::SMEM, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long long n4 = (long long)B * H * p.a.Tp * hopper::TC_DH / 4;
+  flash_bwd_fused_dq_kernel<<<(unsigned)((n4 + FUSED_DQ_THREADS - 1) / FUSED_DQ_THREADS),
+                              FUSED_DQ_THREADS, 0, stream>>>(
+      static_cast<const float4*>(acc), static_cast<const int*>(kvl),
+      static_cast<const int*>(lo), static_cast<const int*>(hi), static_cast<bf16*>(dq), B,
+      T_len, p.a.Tp, H, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes (repurpose_tpu_torch/native.py).
@@ -748,4 +808,20 @@ extern "C" int flash_bwd_dkv_tc(const void* qs, const void* k, const void* v, co
                                 float scale, void* stream) {
   return run_tc(false, qs, k, v, g, strides, rows, info, kvl, lo, hi, dk, dv, B, T_len, H,
                 sm_bf16, select, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The fused long-T backward (bf16, Dh 64, the bias form: select must be 0),
+// the arguments of flash_bwd_dkv_tc with the dq outputs before dk and dv:
+// acc [B, H, Tp, 64] float32, zeroed by the caller, takes the float32 sums
+// of dq, and dq [B, T, H, 64] bf16 (which may be qs itself: it is written
+// after the fused kernel has read qs) their scaled bf16 rounding. Returns
+// cudaGetLastError() after the two launches (0 on success), or
+// cudaErrorInvalidValue for a view no tensor map can describe.
+extern "C" int flash_bwd_fused_tc(const void* qs, const void* k, const void* v, const void* g,
+                                  const long long* strides, const void* rows, const void* info,
+                                  const void* kvl, const void* lo, const void* hi, void* acc,
+                                  void* dq, void* dk, void* dv, int B, int T_len, int H,
+                                  int sm_bf16, int select, float scale, void* stream) {
+  return run_fused(qs, k, v, g, strides, rows, info, kvl, lo, hi, acc, dq, dk, dv, B, T_len, H,
+                   sm_bf16, select, scale, static_cast<cudaStream_t>(stream));
 }

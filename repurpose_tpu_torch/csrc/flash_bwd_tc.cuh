@@ -208,11 +208,11 @@ __device__ __forceinline__ void dsoft2(float p0, float p1, float& dp0, float& dp
   dp1 = ds.y;
 }
 
-// Rows row0 + (this thread's accumulator rows) of one head of a [B, T, H, 64]
-// output: acc * mul before kvl, 0 from kvl to T.
+// Rows row0 + (the accumulator rows of thread `tid` of its warpgroup) of one
+// head of a [B, T, H, 64] output: acc * mul before kvl, 0 from kvl to T.
 __device__ __forceinline__ void store(bf16* out_bh, long long row_stride, const float (&d)[32],
-                                      int row0, int T_len, int kvl, float mul) {
-  const int lane = threadIdx.x % 32, r = 16 * (threadIdx.x / 32) + lane / 4, c0 = 2 * (lane % 4);
+                                      int row0, int T_len, int kvl, float mul, int tid) {
+  const int lane = tid % 32, r = 16 * (tid / 32) + lane / 4, c0 = 2 * (lane % 4);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int t = row0 + r + 8 * half;
@@ -228,10 +228,11 @@ __device__ __forceinline__ void store(bf16* out_bh, long long row_stride, const 
   }
 }
 
-// Zeros for rows row0..row0 + 64 (those before T) of one head.
+// Zeros for rows row0..row0 + 64 (those before T) of one head, by `threads`
+// threads from thread `tid`.
 __device__ __forceinline__ void zero_rows(bf16* out_bh, long long row_stride, int row0,
-                                          int T_len) {
-  for (int idx = threadIdx.x; idx < BQ * 8; idx += blockDim.x) {
+                                          int T_len, int tid, int threads) {
+  for (int idx = tid; idx < BQ * 8; idx += threads) {
     const int t = row0 + idx / 8;
     if (t < T_len)
       *reinterpret_cast<uint4*>(out_bh + (long long)t * row_stride + (idx % 8) * 8) =
@@ -275,7 +276,7 @@ __device__ __forceinline__ void dq_block(const Args& a) {
   const int2 range = sweep(a, b, qt, kvl);
   const int kt_lo = range.x, kt_hi = range.y;
   if (q0 >= kvl || kt_lo >= kt_hi) {  // padding rows, or no key to sweep: dq = 0
-    zero_rows(dq_bh, D, q0, T_len);
+    zero_rows(dq_bh, D, q0, T_len, threadIdx.x, blockDim.x);
     return;
   }
   if (tid == 0) init_barriers(&s.own, s.full, s.empty);
@@ -360,7 +361,7 @@ __device__ __forceinline__ void dq_block(const Args& a) {
   }
   wg_wait<0>();
   reg_fence(dq);
-  store(dq_bh, D, dq, q0, T_len, kvl, a.scale);
+  store(dq_bh, D, dq, q0, T_len, kvl, a.scale, threadIdx.x);
 }
 
 // One block of the dk/dv kernel: key tile blockIdx.x of head blockIdx.y,
@@ -379,8 +380,8 @@ __device__ __forceinline__ void dkv_block(const Args& a) {
   const int2 range = sweep(a, b, kt, kvl);  // the mask is symmetric: the key tile's own
   const int qt_lo = range.x, qt_hi = range.y;
   if (j0 >= kvl || qt_lo >= qt_hi) {  // no valid key, or no query to sweep: 0
-    zero_rows(dk_bh, D, j0, T_len);
-    zero_rows(dv_bh, D, j0, T_len);
+    zero_rows(dk_bh, D, j0, T_len, threadIdx.x, blockDim.x);
+    zero_rows(dv_bh, D, j0, T_len, threadIdx.x, blockDim.x);
     return;
   }
   if (tid == 0) init_barriers(&s.own, s.full, s.empty);
@@ -474,8 +475,8 @@ __device__ __forceinline__ void dkv_block(const Args& a) {
   wg_wait<0>();
   reg_fence(dk);
   reg_fence(dv);
-  store(dk_bh, D, dk, j0, T_len, kvl, 1.f);
-  store(dv_bh, D, dv, j0, T_len, kvl, 1.f);
+  store(dk_bh, D, dk, j0, T_len, kvl, 1.f, threadIdx.x);
+  store(dv_bh, D, dv, j0, T_len, kvl, 1.f, threadIdx.x);
 }
 
 // Fills `a` for a launch: the tensor maps of q_s (contiguous [B, T, H, 64])

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels (the
 // attention kernels through flash_fwd_tc.cuh / flash_bwd_tc.cuh, and
-// int8_matmul.cu): shared-memory addresses, mbarriers, TMA and bulk copies,
-// wgmma m64n64k16 (bf16 in, float32 accumulators in registers) and
-// m64n128k32 (s8 in, int32 accumulators), the accumulator-to-A-operand
-// repack, and the tensor maps of strided [B, T, H, 64] bf16 views and of
-// int8 matrices. Everything lives in namespace `hopper`.
+// int8_matmul.cu): shared-memory addresses, mbarriers, TMA and bulk copies
+// (and the bulk float32 reduce-add into device memory), wgmma m64n64k16
+// (bf16 in, float32 accumulators in registers) and m64n128k32 (s8 in, int32
+// accumulators), the accumulator-to-A-operand repack, warpgroup register
+// reallocation, and the tensor maps of strided [B, T, H, 64] bf16 views and
+// of int8 matrices. Everything lives in namespace `hopper`.
 //
 // The layouts below were checked on the card with the long-T backward: TMA 4D
 // tensor maps with CU_TENSOR_MAP_SWIZZLE_128B write exactly the layout of a
@@ -178,6 +179,55 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WG_D32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B over one k16 slice (d = A . B with accumulate = 0), A [64, 16]
+// and B [16, 64] both MN-major in shared memory (the transposed operands:
+// rows are the reduction axis, as the MN-major B above).
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[32], uint64_t da, uint64_t db,
+                                            int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32_LIST
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : WG_D32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Raises (inc) or lowers (dec) the registers of every thread of this
+// warpgroup to N; all its threads execute it. The kernel's launch bounds
+// fix the registers a block starts with, and the raises of some warpgroups
+// must fit in what the others give back.
+template <int N>
+__device__ __forceinline__ void reg_raise() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_lower() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// `bytes` contiguous bytes of shared memory (16-byte aligned, a multiple of
+// 16) added as float32 into device memory by the TMA unit (the adds are
+// atomic per element, their order across blocks unspecified); a bulk async
+// group of this thread, committed by bulk_commit.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, unsigned bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+      ::"l"(dst), "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until every bulk group of this thread has completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // 64 int32 accumulators of m64n128 (s8 products): the operand list of

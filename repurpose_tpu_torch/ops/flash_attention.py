@@ -37,7 +37,12 @@ select form, as the long-T one in the stream kernels' bias form, after
 sweeps 64-row tiles and, packed, only the tiles of each tile's own segment
 ids: every position of each id (``segment_tile_bounds``) for the dense
 backward, each id's run (``packed_block_bounds``, as the stream forward and
-the TPU stream kernels) for the long-T one.
+the TPU stream kernels) for the long-T one. ``flash_backward``'s own long-T
+route in bf16 at Dh 64 takes neither pair but one fused kernel,
+``flash_bwd_fused_tc`` (``csrc/flash_bwd_fused.cuh``), which forms each
+(query, key) pair's p and ds once and adds dq across key blocks in float32:
+its dq sum runs in an order that changes from run to run, so that dq, unlike
+the pair's, may differ in its last bits between two runs.
 dq rows and dk/dv rows at or past
 ``_kv_len`` are 0. The upstream gradient must be 0 on query rows
 at or past ``_kv_len``, which is what the model gives (the loss masks those
@@ -1077,6 +1082,73 @@ def flash_bwd_dkv_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
     return dk, dv
 
 
+def flash_bwd_fused_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
+                                     softmax_dtype: str = "float32", q_chunk: int = 4096, *,
+                                     scale: float | None = None,
+                                     sweep: AttentionSweep | None = None):
+    """Plain PyTorch version of the fused long-T backward kernel
+    (``flash_bwd_fused_tc``), (dq, dk, dv) in its order: per block of 128
+    keys (two 64-key tiles, each over the query tiles of its own range, the
+    sweep of ``flash_bwd_dkv_stream_reference``), p and ds once for each pair
+    of the sweep; dk and dv summed over the block's query tiles; each query
+    tile's dq partial ``ds k`` added into a float32 accumulator, which is
+    scaled and rounded to q's dtype once at the end. dq rows at or past kvl,
+    or in a query tile with an empty range, and dk/dv rows at or past kvl are
+    0. The same function as ``flash_bwd_dq_stream_reference`` and
+    ``flash_bwd_dkv_stream_reference``, the sums taken in another order. The
+    loop runs over ``q_chunk`` query rows at a time."""
+    b, t, h, dh = q.shape
+    sm_dtype = _SM_DTYPES[softmax_dtype]
+    scale = _scale(q, scale)
+    tile, block = STREAM_TILE, 2 * STREAM_TILE
+    tp = -(-t // tile) * tile
+    q_chunk = max(tile, q_chunk // tile * tile)
+    kvl, ranges = _stream_ranges(key_valid, seg_ids, sweep)
+    dq = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.zeros(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+    for bi in range(b):
+        tile_lo, tile_hi = ranges[bi]  # query tiles per key tile, key tiles per query tile
+        k_b, v_b, ok_key, seg_k, key_exists = _stream_keys(bi, k, v, key_valid, seg_ids, tp)
+        acc_q = torch.zeros((h, tp, dh), dtype=torch.float32, device=q.device)
+        keys_end = -(-kvl[bi] // tile) * tile
+        for j0 in range(0, keys_end, block):
+            j1 = min(j0 + block, keys_end)
+            key_tile = torch.arange(j0, j1, device=k.device) // tile
+            col_lo, col_hi = tile_lo[key_tile], tile_hi[key_tile]  # [K]
+            live = col_lo < col_hi
+            if not bool(live.any()):
+                continue
+            acc_k = torch.zeros((h, j1 - j0, dh), dtype=torch.float32, device=k.device)
+            acc_v = torch.zeros_like(acc_k)
+            r_end = min(int(col_hi[live].max()) * tile, t)
+            for r0 in range(int(col_lo[live].min()) * tile, r_end, q_chunk):
+                r1 = min(r0 + q_chunk, r_end)
+                row_tile = torch.arange(r0, r1, device=k.device) // tile
+                active = ((col_lo <= row_tile[:, None]) & (row_tile[:, None] < col_hi)
+                          & key_exists[j0:j1])
+                ok = ok_key[None, j0:j1]
+                if seg_k is not None:
+                    ok = ok & (seg_ids[bi, r0:r1, None] == seg_k[None, j0:j1])
+                qs, gf, delta, lse_r = _stream_rows(bi, r0, r1, q, o, lse, g, scale)
+                p, ds = _stream_probs(qs, gf, delta, lse_r, k_b[:, j0:j1], v_b[:, j0:j1],
+                                      ok, active, sm_dtype)
+                ds = ds.to(q.dtype).float()
+                acc_v += torch.matmul(p.to(g.dtype).float().transpose(1, 2), gf)
+                acc_k += torch.matmul(ds.transpose(1, 2), qs)
+                acc_q[:, r0:r1] += torch.matmul(ds, k_b[:, j0:j1])
+                del p, ds
+            rows = min(j1, kvl[bi]) - j0  # keys at or past kvl stay 0
+            dk[bi, j0:j0 + rows] = acc_k[:, :rows].permute(1, 0, 2).to(k.dtype)
+            dv[bi, j0:j0 + rows] = acc_v[:, :rows].permute(1, 0, 2).to(v.dtype)
+        row_tile = torch.arange(t, device=q.device) // tile
+        live_rows = ((torch.arange(t, device=q.device) < kvl[bi])
+                     & (tile_lo[row_tile] < tile_hi[row_tile]))
+        dq_rows = (acc_q[:, :t] * scale).permute(1, 0, 2).to(q.dtype)
+        dq[bi][live_rows] = dq_rows[live_rows]
+    return dq, dk, dv
+
+
 class StreamPrep(NamedTuple):
     """Everything the tensor-core backward kernels (dense and streaming) read
     besides k, v and g, made once per backward by ``flash_bwd_stream_prep``;
@@ -1263,6 +1335,34 @@ flash_bwd_dkv_stream_chunked.launches = 0
 flash_bwd_stream_prep.launches = 0
 
 
+def flash_bwd_fused_tc(q, k, v, g, softmax_dtype: str, scale, prep: StreamPrep, dq, dk,
+                       dv) -> None:
+    """Launches the fused long-T backward (``flash_bwd_fused_tc_kernel``, then
+    ``flash_bwd_fused_dq_kernel``, of csrc/flash_bwd.cu: bf16 at Dh 64, the
+    bias form) on ``prep`` (the outputs of ``flash_bwd_stream_prep`` on the
+    stream sweep) into the preallocated ``dq``, ``dk`` and ``dv``; ``dq``
+    may be ``prep.qs``, which the kernel has read before dq is written. It
+    forms each (query, key) pair's p and ds once and adds dq across key
+    blocks in float32 through an accumulator made here, so dq's sum runs in
+    an order that changes from run to run (dk and dv do not). Counted in
+    ``flash_bwd_fused_tc.launches``; ``flash_backward`` takes it past
+    ``STREAM_MAX_T``; ``flash_bwd_fused_stream_reference`` is its plain
+    version."""
+    for name, x in (("dq", dq), ("dk", dk), ("dv", dv)):
+        if (x.shape != q.shape or x.dtype != q.dtype or x.device != q.device
+                or not x.is_contiguous()):
+            raise ValueError(f"{name}: not a contiguous {q.dtype} {tuple(q.shape)} on {q.device}")
+    b, t, h, dh = q.shape
+    acc = torch.zeros((b, h, -(-t // STREAM_TILE) * STREAM_TILE, dh), dtype=torch.float32,
+                      device=q.device)
+    _tc_launch("flash_bwd_fused_tc", q, k, v, g, softmax_dtype, scale, prep, (acc, dq, dk, dv),
+               dense=False)
+    flash_bwd_fused_tc.launches += 1
+
+
+flash_bwd_fused_tc.launches = 0
+
+
 def flash_backward(q, k, v, key_valid, o, lse, g, seg_ids=None,
                    softmax_dtype: str = "float32", *, scale: float | None = None,
                    sweep: AttentionSweep | None = None):
@@ -1271,15 +1371,22 @@ def flash_backward(q, k, v, key_valid, o, lse, g, seg_ids=None,
     the dense kernels up to ``STREAM_MAX_T``, the streaming ones past it, as
     on the TPU (fa:1340-1341, 1461-1468), on ``sweep`` (the forward's
     ``attention_sweep``, made where needed when not given). Where
-    ``stream_tc(q)`` holds on CUDA (bf16 at Dh 64, any T) both kernels are
-    the tensor-core ones, and ``flash_bwd_stream_prep`` runs once for the
-    two. q/k/v may be strided views as for ``flash_forward``; ``g`` and
-    ``o`` need a contiguous head-dim axis and 16-byte rows."""
+    ``stream_tc(q)`` holds on CUDA (bf16 at Dh 64) ``flash_bwd_stream_prep``
+    runs once; up to ``STREAM_MAX_T`` both dense kernels are then the
+    tensor-core pair, past it one fused kernel (``flash_bwd_fused_tc``)
+    computes the three gradients, dq into the prep's q_s storage, with dq's
+    float32 sum in an order that changes from run to run. q/k/v may be
+    strided views as for ``flash_forward``; ``g`` and ``o`` need a
+    contiguous head-dim axis and 16-byte rows."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     prep = None
     if _on_cuda(q, softmax_dtype, "flash_backward") and stream_tc(q):  # once for both
         prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=q.shape[1] <= STREAM_MAX_T,
                                      sweep=sweep)
+    if q.shape[1] > STREAM_MAX_T and prep is not None:  # one fused kernel; dq in q_s
+        dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+        flash_bwd_fused_tc(q, k, v, g, softmax_dtype, scale, prep, prep.qs, dk, dv)
+        return prep.qs, dk, dv
     if q.shape[1] > STREAM_MAX_T:
         dq = flash_bwd_dq_stream(*args, prep, scale=scale, sweep=sweep)
         dk, dv = flash_bwd_dkv_stream(*args, prep, scale=scale, sweep=sweep)

@@ -20,6 +20,14 @@ the dense backward's GPU tests:
 - bf16 inputs, or the bf16 interior: 1e-2. Outputs are bf16 (one ulp is
   2**-8 relative), and a last-bit difference in s or dp can flip the bf16
   rounding of a p or ds entry.
+
+``flash_backward``'s long-T route in bf16 at Dh 64 is the fused kernel
+(``flash_bwd_fused_tc``), whose dq sums key blocks' float32 partials in an
+order that changes from run to run. Two of its runs on the same inputs give
+dk and dv bit for bit, and dq within ``DQ_RUN_TOL``: the float32 sums
+differ by rounding (~1e-7 of the summed terms), which can move dq's bf16
+rounding by one bf16 ulp (2**-7 relative at most) and a sum that nearly
+cancels by a little more in absolute terms (1e-4 x max |dq|).
 """
 
 import numpy as np
@@ -38,6 +46,8 @@ from repurpose_tpu_torch.ops.flash_attention import (
     flash_bwd_dq,
     flash_bwd_dq_stream,
     flash_bwd_dq_stream_reference,
+    flash_bwd_fused_stream_reference,
+    flash_bwd_fused_tc,
     flash_bwd_stream_prep,
     flash_bwd_stream_prep_reference,
     flash_forward,
@@ -48,6 +58,16 @@ pytestmark = pytest.mark.gpu
 REL_TOL = {(torch.float32, "float32"): 1e-4}  # everything else: 1e-2
 INTERIORS = ((torch.bfloat16, "bfloat16"), (torch.bfloat16, "float32"),
              (torch.float32, "bfloat16"), (torch.float32, "float32"))
+DQ_RUN_TOL = dict(rtol=2.0 ** -7, atol_rel_max=1e-4)  # two runs of the fused dq
+
+
+def _dq_runs_close(got, want, what):
+    """Two runs of the fused kernel's dq: |got - want| <= 2**-7 |want| + 1e-4
+    x max |want| on every element (``DQ_RUN_TOL``)."""
+    got, want = got.float(), want.float()
+    atol = DQ_RUN_TOL["atol_rel_max"] * float(want.abs().max())
+    bad = int(((got - want).abs() > atol + DQ_RUN_TOL["rtol"] * want.abs()).sum())
+    assert bad == 0, f"{what}: {bad} dq elements past the run-to-run tolerance"
 
 
 @pytest.fixture
@@ -194,7 +214,8 @@ def test_strided_qkv_views_match_contiguous(cuda):
         got = flash_backward(q, k, v, kv, o, lse, g, sg, "bfloat16")
         want = flash_backward(q.contiguous(), k.contiguous(), v.contiguous(), kv, o, lse, g,
                               sg, "bfloat16")
-        for a, w in zip(got, want):
+        _dq_runs_close(got[0], want[0], "dq")  # the fused kernel's sum order
+        for a, w in zip(got[1:], want[1:]):
             torch.testing.assert_close(a, w, atol=0.0, rtol=0.0)
 
 
@@ -302,20 +323,143 @@ def test_stream_prep_matches_plain(cuda, packed):
 
 
 def test_stream_kernels_take_a_given_prep(cuda):
-    """flash_backward runs the prep once for both kernels; each wrapper run
-    alone runs its own, with the same bits."""
+    """The stream wrappers take a given prep as is (one prep for both, the
+    same bits as each running its own); flash_backward runs the prep once
+    and, in bf16 at Dh 64, the fused kernel once and neither wrapper, with
+    the gradients of the pair within the bf16 tolerance."""
     q, k, v, kv, sg, o, lse, g = _inputs(15, 4096, 2, 64, torch.bfloat16, cuda, True,
                                          "bfloat16")
-    before = [f.launches for f in (flash_bwd_stream_prep, flash_bwd_dq_stream,
-                                   flash_bwd_dkv_stream)]
-    together = flash_backward(q, k, v, kv, o, lse, g, sg, "bfloat16")
+    counters = (flash_bwd_stream_prep, flash_bwd_dq_stream, flash_bwd_dkv_stream,
+                flash_bwd_fused_tc)
+    before = [f.launches for f in counters]
+    prep = flash_bwd_stream_prep(q, k, v, kv, o, lse, g, sg)
+    given = (flash_bwd_dq_stream(q, k, v, kv, o, lse, g, sg, "bfloat16", prep),
+             *flash_bwd_dkv_stream(q, k, v, kv, o, lse, g, sg, "bfloat16", prep))
     torch.cuda.synchronize()
-    after = [f.launches for f in (flash_bwd_stream_prep, flash_bwd_dq_stream,
-                                  flash_bwd_dkv_stream)]
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 0]
     alone = (flash_bwd_dq_stream(q, k, v, kv, o, lse, g, sg, "bfloat16"),
              *flash_bwd_dkv_stream(q, k, v, kv, o, lse, g, sg, "bfloat16"))
     torch.cuda.synchronize()
-    assert flash_bwd_stream_prep.launches - after[0] == 2
-    for name, a, b in zip(("dq", "dk", "dv"), together, alone):
+    assert [f.launches - b for f, b in zip(counters, before)] == [3, 2, 2, 0]
+    for name, a, b in zip(("dq", "dk", "dv"), given, alone):
         assert torch.equal(a, b), name
+    fused = flash_backward(q, k, v, kv, o, lse, g, sg, "bfloat16")
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [4, 2, 2, 1]
+    for name, a, b in zip(("dq", "dk", "dv"), fused, given):
+        _close(a, b, 1e-2, name)
+
+
+def _fused(args, sm):
+    """dq, dk, dv of one fused launch on its own prep."""
+    q, k, v, kv, sg, o, lse, g = args
+    prep = flash_bwd_stream_prep(q, k, v, kv, o, lse, g, sg)
+    out = [torch.empty_like(q) for _ in range(3)]
+    flash_bwd_fused_tc(q, k, v, g, sm, None, prep, *out)
+    return out
+
+
+def _inputs_b1(seed, t, packed):
+    """One batch row of [1, t, 8, 64] bf16 with the bf16 interior: unpacked
+    valid to 0.9 t with key holes, or packed videos of 100..t/4 steps head
+    to tail with a gap of padding (``_long_rows``)."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.normal(0, 1, (1, t, 8, 64)).astype(np.float32))
+                  .to(torch.bfloat16).to("cuda") for _ in range(4))
+    valid = np.zeros((1, t), bool)
+    seg = np.full((1, t), -1, np.int32)
+    if packed:
+        pos, vid = 0, 0
+        while True:
+            ln = int(rng.integers(100, t // 4))
+            if pos + ln > t:
+                break
+            valid[0, pos:pos + ln] = True
+            seg[0, pos:pos + ln] = vid
+            pos += ln + (157 if vid == 1 else 0)
+            vid += 1
+    else:
+        n = int(0.9 * t)
+        valid[0, :n] = True
+        valid[0, rng.integers(0, n, size=n // 16)] = False
+        valid[0, n - 1] = True
+    kv = torch.from_numpy(valid).to("cuda")
+    sg = torch.from_numpy(seg).to("cuda") if packed else None
+    o, lse = flash_forward(q, k, v, kv, seg_ids=sg, softmax_dtype="bfloat16")
+    rows = torch.arange(t, device="cuda")[None, :] < _kv_len(kv)
+    if packed:
+        rows &= sg >= 0
+    return q, k, v, kv, sg, o, lse, g.masked_fill(~rows[:, :, None, None], 0.0)
+
+
+@pytest.mark.parametrize("t,packed", [(4096, False), (16384, False), (8192, True)])
+def test_fused_kernel_matches_the_pair_and_its_plain_version(cuda, t, packed):
+    """The fused kernel at [1, 4096], [1, 16384] and packed [1, 8192] (8
+    heads, bf16, the bf16 interior) against its plain version and against
+    the pair's wrappers: within 1e-2 of max |gradient| (bf16), rows past kvl
+    0."""
+    args = _inputs_b1(31 + t, t, packed)
+    q, k, v, kv, sg, o, lse, g = args
+    got = _fused(args, "bfloat16")
+    pair = (flash_bwd_dq_stream(q, k, v, kv, o, lse, g, sg, "bfloat16"),
+            *flash_bwd_dkv_stream(q, k, v, kv, o, lse, g, sg, "bfloat16"))
+    torch.cuda.synchronize()
+    plain = flash_bwd_fused_stream_reference(q, k, v, kv, o, lse, g, sg, "bfloat16")
+    past = torch.arange(t, device=cuda)[None, :] >= _kv_len(kv)
+    for name, a, p, w in zip(("dq", "dk", "dv"), got, pair, plain):
+        assert torch.isfinite(a.float()).all(), name
+        _close(a, w, 1e-2, f"{name} vs plain")
+        _close(a, p, 1e-2, f"{name} vs pair")
+        assert (a[past] == 0).all(), f"{name}: rows past kvl are not 0"
+
+
+@pytest.mark.parametrize("t", [2049, 3000, 4133, 4160])
+@pytest.mark.parametrize("sm", ["bfloat16", "float32"])
+def test_fused_kernel_at_tile_and_block_edges(cuda, t, sm):
+    """T just past 2048, ragged (3000, 4133) and a multiple of 64 but not of
+    128 (4160), four rows (one empty, kvl inside a tile, key holes, packed
+    videos from an odd offset with padding between two), unpacked and
+    packed, both interiors: against the plain version within 1e-2 of max
+    |gradient|, rows past kvl and the empty row 0."""
+    for packed in (False, True):
+        args = _inputs(t + (1 if packed else 0), t, 2, 64, torch.bfloat16, cuda, packed, sm)
+        q, k, v, kv, sg, o, lse, g = args
+        got = _fused(args, sm)
+        torch.cuda.synchronize()
+        plain = flash_bwd_fused_stream_reference(q, k, v, kv, o, lse, g, sg, sm)
+        past = torch.arange(t, device=cuda)[None, :] >= _kv_len(kv)
+        for name, a, w in zip(("dq", "dk", "dv"), got, plain):
+            _close(a, w, 1e-2, f"{name} packed={packed}")
+            assert (a[past] == 0).all() and (a[1] == 0).all(), name
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_fused_kernel_runs_differ_only_in_dq_sum_order(cuda, packed):
+    """Two fused launches on the same inputs: dk and dv bit for bit (summed
+    in registers in a fixed order), dq within ``DQ_RUN_TOL``."""
+    args = _inputs_b1(41, 8192, packed)
+    first, second = _fused(args, "bfloat16"), _fused(args, "bfloat16")
+    torch.cuda.synchronize()
+    _dq_runs_close(second[0], first[0], "dq")
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+def test_flash_backward_launches_the_fused_kernel_past_stream_max_t(cuda):
+    """bf16 at Dh 64: the fused kernel once past STREAM_MAX_T (and no
+    kernel of the pair), the dense tensor-core pair at STREAM_MAX_T; dq
+    lands in the prep's q_s, a fresh tensor per call."""
+    counters = (fa.flash_bwd_fused_tc, fa.flash_bwd_dq_tc, fa.flash_bwd_dkv_tc,
+                flash_bwd_dq_stream, flash_bwd_dkv_stream, flash_bwd_stream_prep)
+    before = [f.launches for f in counters]
+    for packed in (False, True):
+        q, k, v, kv, sg, o, lse, g = _inputs(5, fa.STREAM_MAX_T + 1, 2, 64, torch.bfloat16,
+                                             cuda, packed, "bfloat16")
+        dq, dk, dv = flash_backward(q, k, v, kv, o, lse, g, sg, "bfloat16")
+        assert dq.is_contiguous() and dq.shape == q.shape and dq.dtype == q.dtype
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 0, 0, 0, 0, 2]
+    q, k, v, kv, sg, o, lse, g = _inputs(5, fa.STREAM_MAX_T, 2, 64, torch.bfloat16, cuda,
+                                         True, "bfloat16")
+    flash_backward(q, k, v, kv, o, lse, g, sg, "bfloat16")
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 1, 1, 0, 0, 3]

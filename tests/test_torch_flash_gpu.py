@@ -269,7 +269,10 @@ def test_a_foreign_sweep_record_raises(cuda):
 def test_the_shared_sweep_gives_the_model_its_bits(cuda):
     """flash_attention forward and backward on one shared record equal the
     calls that make their own, at T = 2048 (the dense kernels) and 4096
-    (the streaming ones), packed."""
+    (the streaming forward and the fused backward), packed: bit for bit,
+    but for dq at 4096, whose float32 sum the fused kernel takes in an order
+    that changes from run to run (within one bf16 ulp, 2**-7 relative, and
+    1e-4 x max |dq|)."""
     for t in (2048, 4096):
         q, k, v, kv, sg = _inputs(24, 4, t, 2, 64, torch.bfloat16, cuda, True)
         w = torch.randn(q.shape, device=cuda).masked_fill(~kv[:, :, None, None], 0.0)
@@ -280,4 +283,10 @@ def test_the_shared_sweep_gives_the_model_its_bits(cuda):
             (out.float() * w).sum().backward()
             grads.append([out.detach(), *(x.grad for x in leaves)])
         torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(*grads)), t
+        first, second = grads
+        if t > fa.STREAM_MAX_T:
+            got, want = first[1].float(), second[1].float()
+            atol = 1e-4 * float(want.abs().max())
+            assert bool(((got - want).abs() <= atol + 2.0 ** -7 * want.abs()).all()), t
+            first, second = first[:1] + first[2:], second[:1] + second[2:]
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), t

@@ -48,6 +48,7 @@ def test_the_kernel_sources_resolve_their_headers():
     for name in ("flash_fwd", "flash_fwd_nt"):
         assert by_name[name][1:] == ["flash_fwd_tc.cuh", "hopper.cuh"]
     assert by_name["flash_fwd_stream"][1:] == []
-    assert by_name["flash_bwd"][1:] == ["flash_bwd_tc.cuh", "hopper.cuh"]
+    assert by_name["flash_bwd"][1:] == ["flash_bwd_fused.cuh", "flash_bwd_tc.cuh",
+                                        "flash_fwd_tc.cuh", "hopper.cuh"]
     assert by_name["flash_bwd_stream"][1:] == ["hopper.cuh"]
     assert by_name["int8_matmul"][1:] == ["hopper.cuh"]
