@@ -140,6 +140,9 @@ verdict line):
 14. the fusion variants (``fusion: cross`` and ``bottleneck``) at the
    flagship width, unpacked: ``score_videos`` in float32 on the card against
    the CPU, then 3 bf16 train steps at [2, 2048], with times and peak memory;
+   then ``MMCTCross`` at [1, 32768] on the kernels, 3 bf16 steps against the
+   float32 plain reference (``gpubench/reference/cross.py``), its kernel
+   launches per step counted and listed;
 15. the utilities and CLIs: ``python -m repurpose_tpu_torch.preflight
    --full`` (exit 0), the capacity model's estimate against the measured
    peak at the packed [6, 2048] step and the [1, 32768] remat step, and
@@ -193,6 +196,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -2986,8 +2990,9 @@ def phase_fusion_variants(card: str) -> dict:
     layers; a wrong mask or a dropped modality moves them by O(1)), the same
     clips; the request's time and peak memory on the card. Then 3 train
     steps in bf16 with dropout 0.1 at [2, 2048]: finite losses, step time
-    and peak memory. No attention kernel runs here: the variants' attention
-    is plain einsum, as the JAX package leaves it to XLA."""
+    and peak memory. The cross variant's attention runs on the kernels (the
+    first designs in float32, the tensor-core ones in bf16); the bottleneck
+    variant's is ``mha_torch`` under every ``attention_impl``."""
     import numpy as np
     import torch
 
@@ -3064,6 +3069,143 @@ def phase_fusion_variants(card: str) -> dict:
         del model, optimizer, state, batch
         torch.cuda.empty_cache()
     return out
+
+
+CROSS_LONG_T = 32768
+CROSS_LONG_FILL = 0.9  # the recording fills 0.9 of the [1, 32768] row
+CROSS_LONG_STEPS = 3
+# MMCTCross in bf16 on the kernels against the float32 plain reference
+# (gpubench/reference/cross.py), dropout 0, the same weights, features and
+# Adam: the first step's logits (widest gap and root mean square, logit
+# units), the first step's loss (relative; the next two are printed: Adam's
+# first steps follow the gradient's sign, so later losses on the one batch
+# part by more than rounding) and each leaf's first gradient
+# (relative L2 error over the leaf's or the median leaf's norm, leaves under
+# a thousandth of the median left out: the key biases, which the softmax
+# does not see). bf16 rounds every activation and, with the bf16 softmax
+# interior, every probability of 15 attention layers; the benchmark cell
+# train-cross-long-32768 reads these gaps under its limits (PERF.md section
+# 2), which are these bounds. A wrong mask, a dropped key block or a wrong
+# merge moves the logits by O(1).
+CROSS_LONG_BOUNDS = dict(logit_gap=0.2, logit_rms=0.04, loss_rel=0.02, grad_rel=0.5)
+
+
+def phase_cross_long(card: str) -> dict:
+    """``MMCTCross`` at the published widths (configs/cross_longvideo.yaml:
+    d_model 512, 8 heads of Dh 64, 3 stream layers and 3 cross blocks) on
+    the kernel route at [1, 32768] (one recording of 0.9 of the row), 3
+    bf16 steps with Adam, against the float32 plain reference on the same
+    weights and inputs (``CROSS_LONG_BOUNDS``). Each step's kernel launches
+    are counted: 18 tensor-core stream forwards (12 self-attentions, 3
+    cross-attentions of two key blocks each), 18 fused backwards and 15
+    preps (one an attention: a cross-attention's blocks share theirs),
+    nothing else; the first step's device kernels are listed
+    from a ``torch.profiler`` trace, and its peak memory shows that no
+    [1, 8, 32768, 32768] score tensor (32 GiB) was formed."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from gpubench.reference import cross as ref_cross
+    from gpubench.reference import model as ref_model
+    from repurpose_tpu_torch.models import build_model
+
+    mc = dataclasses.replace(production_config().model, fusion="cross", dropout=0.0)
+    m = {k: getattr(mc, k) for k in ("vis_dim", "aud_dim", "text_dim", "d_model", "num_heads",
+                                     "d_ff", "hidden_dim", "text_num_layers", "cross_num_layers",
+                                     "dropout")}
+    t, n = CROSS_LONG_T, int(CROSS_LONG_FILL * CROSS_LONG_T)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    feats = [torch.randn((1, t, m[k]), generator=gen, device="cuda")
+             for k in ("vis_dim", "aud_dim", "text_dim")]
+    mask = torch.zeros((1, t), dtype=torch.bool, device="cuda")
+    mask[0, :n] = True
+    labels = (torch.rand((1, t), generator=gen, device="cuda") < 0.2).float()
+    w0 = ref_cross.weights(m, SEED, "cuda")
+
+    model = build_model(mc, "cuda")
+    model.load_state_dict(w0, strict=True)
+    model.train()
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    names = ("flash_fwd_stream_tc", "flash_fwd_stream", "flash_fwd_tc", "flash_fwd",
+             "flash_bwd_fused_tc", "flash_bwd_stream_prep", "flash_bwd_dq_tc", "flash_bwd_dkv_tc",
+             "flash_bwd_dq_stream", "flash_bwd_dkv_stream")
+    launches, losses, step_ms, kernels = [], [], [], {}
+    for s in range(CROSS_LONG_STEPS):
+        reset_launches()
+        opt.zero_grad(set_to_none=True)
+        prof = (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                   torch.profiler.ProfilerActivity.CUDA])
+                if s == 0 else contextlib.nullcontext())
+        t0 = time.perf_counter()
+        with prof:
+            out = model(*feats, mask)
+            loss = ref_model.focal_loss_sum(out.cls_logits[..., 0], labels, mask)
+            loss.backward()
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read_launches(*names))
+        if s == 0:
+            logits = out.cls_logits[..., 0][mask].float()
+            grads = {k: p.grad.float().clone() for k, p in model.named_parameters()
+                     if p.grad is not None}
+            kernels = dict(collections.Counter(
+                e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+                and not e.name.startswith("repurpose:")).most_common())
+        opt.step()
+        losses.append(float(loss.detach()))
+        del out, loss
+    peak = torch.cuda.max_memory_allocated()
+    del model, opt
+    torch.cuda.empty_cache()
+    expected = dict.fromkeys(names, 0) | {"flash_fwd_stream_tc": 18, "flash_fwd_stream": 18,
+                                           "flash_bwd_fused_tc": 18,
+                                           "flash_bwd_stream_prep": 15}
+    check(all(x == expected for x in launches),
+          f"cross-long: launches per step {launches}, expected {expected}")
+    check(peak < 16 * 2**30, f"cross-long: peak {peak / 2**30:.2f} GiB: a score tensor?")
+
+    leaves = {k: v.clone().requires_grad_() for k, v in w0.items()}
+    ref_opt = torch.optim.Adam(list(leaves.values()), lr=1e-3)
+    ref_losses = []
+    t0 = time.perf_counter()
+    for s in range(CROSS_LONG_STEPS):
+        ref_opt.zero_grad(set_to_none=True)
+        cls, _ = ref_cross.forward(leaves, m, *feats, mask)
+        ref_loss = ref_model.focal_loss_sum(cls, labels, mask)
+        ref_loss.backward()
+        if s == 0:
+            ref_logits = cls.detach()[mask]
+            ref_grads = {k: v.grad.clone() for k, v in leaves.items() if v.grad is not None}
+        ref_opt.step()
+        ref_losses.append(float(ref_loss.detach()))
+        del cls, ref_loss
+    ref_s = time.perf_counter() - t0
+    del leaves, ref_opt
+    torch.cuda.empty_cache()
+
+    d = (logits - ref_logits).abs()
+    gaps = dict(logit_gap=float(d.max()), logit_rms=float(d.square().mean().sqrt()),
+                loss_rel=abs(losses[0] - ref_losses[0]) / abs(ref_losses[0]))
+    norms = {k: float(v.norm()) for k, v in ref_grads.items()}
+    med = statistics.median(norms.values())
+    errs = {k: float((grads[k] - ref_grads[k]).norm()) / max(norms[k], med)
+            for k in norms if norms[k] >= 1e-3 * med}
+    worst = max(errs, key=errs.get)
+    gaps["grad_rel"] = errs[worst]
+    flash = {k: v for k, v in kernels.items() if "flash" in k}
+    print(f"[cross-long] {card}: MMCTCross {sum(x.numel() for x in w0.values())} parameters at "
+          f"[1, {t}] ({n} valid), 3 bf16 steps {[round(x, 1) for x in step_ms]} ms, peak "
+          f"{peak / 2**30:.3f} GiB; launches per step {launches[0]}; flash kernels of step 1 "
+          f"{flash}; against the float32 plain reference ({ref_s:.1f} s): {gaps} "
+          f"(worst leaf {worst}), losses {losses} vs {ref_losses}")
+    for k, bound in CROSS_LONG_BOUNDS.items():
+        check(gaps[k] <= bound, f"cross-long: {k} {gaps[k]:.4g} over {bound}")
+    return dict(step_ms=step_ms, peak_bytes=peak, launches=launches, kernels=kernels, gaps=gaps,
+                worst_leaf=worst, losses=losses, ref_losses=ref_losses, ref_s=ref_s)
 
 
 def phase_utils_and_clis(card: str, workdir: str) -> dict:
@@ -3508,7 +3650,9 @@ def _run_model(cfg, dtype: str):
 # bf16 at dropout 0.1 (phase 16): the model ranks seed one generator alike
 # and draw the same masks, so their parameters after the steps should be
 # equal bit for bit; they are held within 2 lr a step of each other, and
-# the largest difference is printed.
+# the largest difference is printed. Attention launches per rank: phase 16's
+# cross variant runs the kernels (``_fusion_launches``), its bottleneck
+# variant none; phase 17's ring config resolves to ``mha_torch`` for both.
 FUSIONS = ("cross", "bottleneck")
 FUSION_MESH_DURS = (1800, 2047)  # seconds: 2047 s gives 2048 rows
 FUSION_MESH_STEPS = 3
@@ -3526,6 +3670,26 @@ def _fusion_model(cfg, fusion: str, dtype: str, **kw):
 
 def _fusion_train(cfg):
     return dataclasses.replace(cfg.train, batch_size=2, buckets=(2048,), pack_sequences=False)
+
+
+def _fusion_launches(mc, fusion: str, bf16: bool) -> dict:
+    """Phase 16 (f)'s attention launches per rank over its
+    ``FUSION_MESH_STEPS`` steps at [2, 2048]: none for the bottleneck
+    variant (``mha_torch`` under every ``attention_impl``); for the cross
+    variant the dense kernels, one forward and one dq / dk-dv backward a
+    self-attention (3 ``text_num_layers`` + ``cross_num_layers``) and a key
+    block (two a cross-attention), the tensor-core pair with one prep an
+    attention in bf16, the first designs in float32."""
+    want = dict.fromkeys((*PARALLEL_TC, *PARALLEL_FIRST), 0)
+    if fusion == "bottleneck":
+        return want
+    n_cross = max(mc.cross_num_layers, 1)
+    n_self = 3 * max(mc.text_num_layers, 1) + n_cross
+    want.update(dict.fromkeys(PARALLEL_FIRST, FUSION_MESH_STEPS * (n_self + 2 * n_cross)))
+    if bf16:
+        want.update(dict.fromkeys(PARALLEL_TC, FUSION_MESH_STEPS * (n_self + 2 * n_cross)))
+        want["flash_bwd_stream_prep"] = FUSION_MESH_STEPS * (n_self + n_cross)
+    return want
 
 
 def _fusion_batch(mc):
@@ -4106,8 +4270,9 @@ def phase_parallel(card: str, workdir: str) -> dict:
                         ref["init"], lr=PARALLEL_LR, steps=FUSION_MESH_STEPS, tag="parallel")
         for r, g in enumerate(f32 + b16):
             check(g["local"] == [2, 2048], f"(f) {fusion}: a rank staged {g['local']}")
-            check(not any(g["launches"].values()),
-                  f"(f) {fusion}: an attention kernel launched {g['launches']}")
+            want = _fusion_launches(mc, fusion, bf16=r >= len(f32))
+            check(g["launches"] == want,
+                  f"(f) {fusion}: a rank's attention launches {g['launches']}, want {want}")
         diff = max(g["diff_from_rank0"] for g in b16)
         check(all(np.isfinite(g["hist"]).all() for g in b16)
               and diff <= 2 * PARALLEL_LR * FUSION_MESH_STEPS,
@@ -4120,7 +4285,9 @@ def phase_parallel(card: str, workdir: str) -> dict:
         ms = lambda runs: [[round(x, 1) for x in g["step_ms"]] for g in runs]  # noqa: E731
         print(f"[parallel] {card}: (f) {fusion} at model=2, whole on each model rank "
               f"({f32[0]['params'] / 1e6:.1f} M parameters), each rank [2, 2048] unpacked, "
-              f"no attention kernel: float32 dropout 0 loss/grad norm {json.dumps(f32[0]['hist'])}"
+              f"attention launches per rank float32 {json.dumps(f32[0]['launches'])}, bf16 "
+              f"{json.dumps(b16[0]['launches'])}; float32 dropout 0 loss/grad norm "
+              f"{json.dumps(f32[0]['hist'])}"
               f" (one process {json.dumps(ref['hist'])}; bounds {json.dumps(FUSION_MESH_TOL)}), "
               f"update rel L2 {rel:.3e}; bf16 dropout {FUSION_MESH_DROPOUT} losses per rank "
               f"{[[round(h[0], 5) for h in g['hist']] for g in b16]}, the model ranks' "
@@ -4665,7 +4832,9 @@ def phase_pipeline_and_ring(card: str, workdir: str, preflight_log: str,
         params = torch.load(os.path.join(workdir, f"params_f_{fusion}.pt"), weights_only=True)
         rel = _hold_run(f"(f) {fusion} seq=2 ring config", got, ref, FUSION_MESH_TOL, params,
                         ref["init"], lr=PARALLEL_LR, steps=FUSION_MESH_STEPS)
-        fmc = _fusion_model(cfg, fusion, "float32")
+        # one process on the attention the ranks' ring config resolves to for a
+        # variant (mha_torch, "xla"), so that the clips differ by the mesh alone
+        fmc = _fusion_model(cfg, fusion, "float32", attention_impl="xla")
         one = InferencePipeline(fmc, _serving_weights(ref["init"]), cfg.test_cfg, device="cuda")
         want = one.score_videos(_fusion_videos(fmc), cfg.train.buckets, batch_size=2)
         del one
@@ -5322,7 +5491,8 @@ def main() -> int:
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     daemon, flags = extras["daemon"], extras["trainer_flags"]
-    fusion = phase_fusion_variants(card)
+    phase_fusion_variants(card)
+    phase_cross_long(card)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_utils_", dir=os.path.join(ROOT, "runs"))
     try:
         utils = phase_utils_and_clis(card, workdir)

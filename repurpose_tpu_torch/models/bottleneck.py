@@ -12,8 +12,10 @@ PAPERS.md): the modalities exchange information only through
 - the mean of the three streams, then MMCT's feature map and cls / reg heads.
 
 ``bottleneck_tokens`` [8, d_model] are drawn from a normal of std 0.02 (the
-JAX init), not Xavier (``init_weights``). The attention is plain einsum, as
-in ``cross_modal.py``; a packed batch raises (``require_unpacked``).
+JAX init), not Xavier (``init_weights``). Its layers keep the plain
+attention (``mha_torch``) under every ``attention_impl``: the fusion layers'
+key mask ``[mask ; bottleneck tokens]`` is not one the kernels' sweep
+describes (``cross_modal.py``); a packed batch raises (``require_unpacked``).
 """
 
 from __future__ import annotations
@@ -31,12 +33,12 @@ MODALITIES = ("visual", "audio", "text")
 
 class MMCTBottleneck(FusionVariant):
     def __init__(self, cfg: ModelConfig):
-        super().__init__(cfg)
+        super().__init__(cfg, kernels=False)
         self.bottleneck_tokens = nn.Parameter(torch.empty(N_BOTTLENECK, cfg.d_model))
         self.num_rounds = max(cfg.cross_num_layers, 1)
         for i in range(self.num_rounds):
             for m in MODALITIES:
-                self.add_module(f"fuse_{i}_{m}", EncoderLayer(cfg))
+                self.add_module(f"fuse_{i}_{m}", EncoderLayer(cfg, kernels=False))
 
     def forward(self, visual: torch.Tensor, audio: torch.Tensor, text: torch.Tensor,
                 mask: torch.Tensor) -> MMCTOutput:

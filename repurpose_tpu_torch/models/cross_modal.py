@@ -16,12 +16,21 @@ are the JAX module's:
 
 - Dense layers in the compute dtype on float32 parameters; LayerNorms in
   float32, cast back;
-- ``CrossAttention`` takes its products in float32 and divides the scores
-  by sqrt(Dh) after the product (it does not scale q first, as the flash
-  kernels do), adds a -1e9 bias on masked keys, runs the softmax in float32
-  and casts the weights to v's dtype before the second product. So the
-  variants do not route through the port's flash kernels: their attention
-  is plain ``torch.einsum``, as the JAX package leaves it to XLA;
+- ``CrossAttention`` calls the attention ``ModelConfig.attention_impl``
+  selects (``ops/attention.py:select_attention_impl``), as the MMCT encoder
+  does. Under "xla" that is ``mha_torch``: products and softmax in
+  float32, a -1e9 bias on masked keys, the scores scaled after the product,
+  the JAX module's values. Under the kernel values ("auto" ...) the
+  self-attentions take ``flash_attention`` and so does the cross-attention,
+  whose context is two key blocks of the query's length sharing its mask
+  (one kernel a block, merged by their LSEs); ``MMCTCross`` makes one
+  sweep a forward for all its attentions. The kernel route departs from the JAX module
+  where PARITY.md says: query rows past the last valid key get 0 (they are
+  padding, which no loss reads), and the softmax interior follows
+  ``attn_softmax_dtype``;
+- ``MMCTBottleneck`` builds its layers with ``kernels=False``: its key mask
+  ``[mask ; bottleneck tokens]`` is not one the kernels' sweep describes,
+  so it keeps ``mha_torch`` under every value;
 - ``CrossSelfEncoderLayer`` keeps the reference's norm-in-residual quirk
   (the cross-attention and FFN residuals add to the already-normed tensor)
   and its FFN's inner dropout.
@@ -40,7 +49,8 @@ from repurpose_tpu_torch.config import ModelConfig
 from repurpose_tpu_torch.models.encoder import LN_EPS, Dropout, layer_norm, linear
 from repurpose_tpu_torch.models.mmct import MMCTOutput, _Head
 from repurpose_tpu_torch.models.positional import sinusoidal_positional_encoding
-from repurpose_tpu_torch.ops.attention import NEG_INF
+from repurpose_tpu_torch.ops.attention import mha_torch, select_attention_impl
+from repurpose_tpu_torch.utils.profiling import span
 
 
 def _ln(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -79,28 +89,31 @@ class FFN(nn.Module):
 
 class CrossAttention(nn.Module):
     """Explicit-QKV multi-head attention; queries and keys/values may come
-    from different streams. No dropout on the weights (the reference has
-    none)."""
+    from different streams. The keys are the rows of ``kv_in`` in blocks of
+    the query's length, each masked by the query's mask. No dropout on the
+    weights (the reference has none). ``kernels=False`` keeps ``mha_torch``
+    whatever ``attention_impl`` says."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, kernels: bool = True):
         super().__init__()
         d = cfg.d_model
         self.num_heads = cfg.num_heads
         self.q, self.k, self.v, self.out = (nn.Linear(d, d) for _ in range(4))
+        self.attn = (select_attention_impl(cfg.attention_impl, cfg.attn_softmax_dtype)
+                     if kernels else mha_torch)
 
-    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
-                kv_valid: torch.Tensor) -> torch.Tensor:
+    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor, valid: torch.Tensor,
+                sweep=None) -> torch.Tensor:
         dtype = q_in.dtype
         b, tq, d = q_in.shape
         tk, h = kv_in.shape[1], self.num_heads
         q = linear(q_in, self.q, dtype).view(b, tq, h, d // h)
         k = linear(kv_in, self.k, dtype).view(b, tk, h, d // h)
         v = linear(kv_in, self.v, dtype).view(b, tk, h, d // h)
-        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-        s = s / torch.sqrt(torch.tensor(d // h, dtype=torch.float32, device=s.device))
-        s = s + torch.where(kv_valid[:, None, None, :], 0.0, NEG_INF)
-        w = torch.softmax(s, dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype).float(), v.float()).to(v.dtype)
+        if self.attn is mha_torch:  # the mask of every key
+            o = mha_torch(q, k, v, valid.repeat(1, tk // tq))
+        else:  # the kernels take the key blocks' shared mask
+            o = self.attn(q, k, v, valid, sweep=sweep)
         return linear(o.reshape(b, tq, d), self.out, dtype)
 
 
@@ -108,34 +121,17 @@ class EncoderLayer(nn.Module):
     """x + drop(attn(LN1(x))) then x + drop(ffn(LN2(x))): the reference
     EncoderLayer, with ``ModelConfig.dropout`` on the residual adds."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, kernels: bool = True):
         super().__init__()
         self.ln1 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
-        self.self_attn = CrossAttention(cfg)
+        self.self_attn = CrossAttention(cfg, kernels)
         self.ln2 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
         self.ffn = FFN(cfg)
         self.drop = Dropout(cfg.dropout)
 
-    def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, valid: torch.Tensor, sweep=None) -> torch.Tensor:
         x2 = _ln(x, self.ln1)
-        x = x + self.drop(self.self_attn(x2, x2, valid))
-        return x + self.drop(self.ffn(_ln(x, self.ln2)))
-
-
-class CrossAttentionEncoderLayer(nn.Module):
-    """x + drop(cross(LN1(x), context)) then x + drop(ffn(LN2(x)))."""
-
-    def __init__(self, cfg: ModelConfig):
-        super().__init__()
-        self.ln1 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
-        self.cross_attn = CrossAttention(cfg)
-        self.ln2 = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
-        self.ffn = FFN(cfg)
-        self.drop = Dropout(cfg.dropout)
-
-    def forward(self, x: torch.Tensor, context: torch.Tensor,
-                ctx_valid: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop(self.cross_attn(_ln(x, self.ln1), context, ctx_valid))
+        x = x + self.drop(self.self_attn(x2, x2, valid, sweep))
         return x + self.drop(self.ffn(_ln(x, self.ln2)))
 
 
@@ -143,7 +139,7 @@ class CrossSelfEncoderLayer(nn.Module):
     """Self-attention -> cross-attention -> FFN with the reference's
     norm-in-residual quirk: the first residual adds to the un-normed input,
     the cross and FFN residuals to the already-normed tensor; the FFN has an
-    inner dropout."""
+    inner dropout. The context's key blocks share the query's mask."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -156,11 +152,11 @@ class CrossSelfEncoderLayer(nn.Module):
         self.drop = Dropout(cfg.dropout)
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor, context: torch.Tensor,
-                ctx_valid: torch.Tensor) -> torch.Tensor:
+                sweep=None) -> torch.Tensor:
         x2 = _ln(x, self.ln1)
-        x = x + self.drop(self.self_attn(x2, x2, valid))
+        x = x + self.drop(self.self_attn(x2, x2, valid, sweep))
         x = _ln(x, self.ln2)
-        x = x + self.drop(self.cross_attn(x, context, ctx_valid))
+        x = x + self.drop(self.cross_attn(x, context, valid, sweep))
         x = _ln(x, self.ln3)
         return x + self.drop(self.ffn(x))
 
@@ -169,20 +165,20 @@ class UniModalEncoder(nn.Module):
     """MLP(input, d_ff, d_model) projection + PE + ``num_layers`` pre-LN
     self layers (``layer_0`` ...)."""
 
-    def __init__(self, cfg: ModelConfig, in_dim: int, num_layers: int):
+    def __init__(self, cfg: ModelConfig, in_dim: int, num_layers: int, kernels: bool = True):
         super().__init__()
         self.d_model = cfg.d_model
         self.proj = MLP(in_dim, cfg.d_ff, cfg.d_model)
         for i in range(num_layers):
-            self.add_module(f"layer_{i}", EncoderLayer(cfg))
+            self.add_module(f"layer_{i}", EncoderLayer(cfg, kernels))
         self.num_layers = num_layers
 
-    def forward(self, feats: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, valid: torch.Tensor, sweep=None) -> torch.Tensor:
         x = self.proj(feats)
         pe = sinusoidal_positional_encoding(x.shape[1], self.d_model, x.device)
         x = x + pe[None].to(x.dtype)
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, valid)
+            x = getattr(self, f"layer_{i}")(x, valid, sweep)
         return x
 
 
@@ -191,14 +187,14 @@ class FusionVariant(nn.Module):
     per-modality encoders, the feature map and the heads, the compute dtype
     and the dropout generator the train step re-seeds."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, kernels: bool = True):
         super().__init__()
         self.cfg = cfg
         self.dropout_generator: torch.Generator | None = None
         n_uni = max(cfg.text_num_layers, 1)
-        self.visual_encoder = UniModalEncoder(cfg, cfg.vis_dim, n_uni)
-        self.audio_encoder = UniModalEncoder(cfg, cfg.aud_dim, n_uni)
-        self.text_encoder = UniModalEncoder(cfg, cfg.text_dim, n_uni)
+        self.visual_encoder = UniModalEncoder(cfg, cfg.vis_dim, n_uni, kernels)
+        self.audio_encoder = UniModalEncoder(cfg, cfg.aud_dim, n_uni, kernels)
+        self.text_encoder = UniModalEncoder(cfg, cfg.text_dim, n_uni, kernels)
         self.feature_map = nn.Linear(cfg.d_model, cfg.d_model)
         self.feature_norm = nn.LayerNorm(cfg.d_model, eps=LN_EPS)
         self.feature_drop = Dropout(cfg.dropout)
@@ -216,11 +212,12 @@ class FusionVariant(nn.Module):
             if isinstance(m, Dropout):
                 m.generator = generator
 
-    def encode(self, visual, audio, text, mask) -> dict:
+    def encode(self, visual, audio, text, mask, sweep=None) -> dict:
         dtype = self.compute_dtype
-        return {"visual": self.visual_encoder(visual.to(dtype), mask),
-                "audio": self.audio_encoder(audio.to(dtype), mask),
-                "text": self.text_encoder(text.to(dtype), mask)}
+        with span("fusion.encode"):
+            return {"visual": self.visual_encoder(visual.to(dtype), mask, sweep),
+                    "audio": self.audio_encoder(audio.to(dtype), mask, sweep),
+                    "text": self.text_encoder(text.to(dtype), mask, sweep)}
 
     def heads(self, x: torch.Tensor) -> MMCTOutput:
         dtype = self.compute_dtype
@@ -235,13 +232,16 @@ class MMCTCross(FusionVariant):
         self.num_cross = max(cfg.cross_num_layers, 1)
         for i in range(self.num_cross):
             self.add_module(f"cross_{i}", CrossSelfEncoderLayer(cfg))
+        attn = select_attention_impl(cfg.attention_impl, cfg.attn_softmax_dtype)
+        self.make_sweep = getattr(attn, "make_sweep", None)  # None: no kernel takes a sweep
 
     def forward(self, visual: torch.Tensor, audio: torch.Tensor, text: torch.Tensor,
                 mask: torch.Tensor) -> MMCTOutput:
-        streams = self.encode(visual, audio, text, mask)
+        # every attention of the variant is masked by ``mask``: one sweep serves all
+        sweep = None if self.make_sweep is None else self.make_sweep(mask)
+        streams = self.encode(visual, audio, text, mask, sweep)
         x = streams["visual"]
         context = torch.cat([streams["audio"], streams["text"]], dim=1)
-        ctx_valid = torch.cat([mask, mask], dim=1)
         for i in range(self.num_cross):
-            x = getattr(self, f"cross_{i}")(x, mask, context, ctx_valid)
+            x = getattr(self, f"cross_{i}")(x, mask, context, sweep)
         return self.heads(x)

@@ -17,7 +17,10 @@ Counterpart of ``repurpose_tpu/ops/attention.py``:
   where the JAX package sends untileable shapes to ``mha_xla``. The kernel
   callable also takes ``sweep``, the batch's ``AttentionSweep`` (kvl and the
   key-tile bounds), which the encoder makes once for all its layers with
-  the callable's ``make_sweep``. "ring" resolves to ``mha_torch``, as the
+  the callable's ``make_sweep``; its k and v may hold several key blocks of
+  the query's length that share its mask (the cross-modal context of
+  ``models/cross_modal.py``), one kernel a block, merged by their LSEs.
+  "ring" resolves to ``mha_torch``, as the
   JAX dispatcher falls through to ``mha_xla`` for it: the concat MMCT's
   self-attention sends "ring" to ``ops/ring_attention.py`` itself (it needs
   the mesh), and a model without that branch attends over its whole rows.
@@ -62,7 +65,9 @@ def select_attention_impl(impl: str, softmax_dtype: str = "float32") -> Callable
     """Resolve ModelConfig.attention_impl to a callable
     ``(q, k, v, key_valid, seg_ids=None) -> out [B, T, H, Dh]``. The
     kernels' callable also takes ``sweep=None`` and has
-    ``make_sweep(key_valid, seg_ids)``, the batch's sweep for every call."""
+    ``make_sweep(key_valid, seg_ids)``, the batch's sweep for every call;
+    its k and v may hold n blocks of q's length, each masked by
+    ``key_valid`` (``flash_attention``)."""
     if impl == "xla":
         return mha_torch
     if impl in ("auto", "pallas", "pallas_full"):

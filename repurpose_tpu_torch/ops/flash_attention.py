@@ -62,6 +62,18 @@ an ``attention`` device span (``utils/profiling.py``): the card's time
 from the first of their launches to the last, whatever kernels they are
 (a remat recompute calls the forward again).
 
+k and v may also hold n blocks of q's length that share q's mask, the
+cross-modal context ``[audio ; text]`` of ``models/cross_modal.py``, which
+no kernel takes whole (they take k and v of q's shape): ``flash_forward``
+runs one forward a block and merges them by their LSEs (``merge_blocks``:
+one extra rounding of out to its dtype), ``flash_backward`` one prep and
+one backward a block on the merged out and lse, so that each pair's p is
+the one softmax's over the n T keys, exactly. dq is the blocks' sum: on the
+fused long-T route in one float32 accumulator, elsewhere of the blocks' dq
+in q's dtype, summed in float32 and rounded once more. ``FlashAttention``
+then names its device spans ``attention.cross``, with the valid pairs,
+queries and keys they cover.
+
 Heads wider than the widest fixed-width instance (``HEAD_DIMS[-1]`` = 256)
 run on the head-chunked instances of the first designs
 (``csrc/flash_chunked.cu``: ``flash_fwd_chunked``,
@@ -99,7 +111,7 @@ from typing import NamedTuple
 import torch
 
 from repurpose_tpu_torch.ops.attention import NEG_INF, mha_torch
-from repurpose_tpu_torch.utils.profiling import device_span
+from repurpose_tpu_torch.utils.profiling import device_span, recording
 
 # LSE written for query rows past the last valid key: large enough that a
 # backward's exp(s - lse) underflows to exactly 0, small enough to stay finite.
@@ -216,6 +228,32 @@ def _on_cuda(q, softmax_dtype: str, name: str) -> bool:
     return True
 
 
+def _key_blocks(q, k, v, seg_ids) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """k and v ``[B, n T, H, Dh]`` as n (k, v) blocks of q's length T, each
+    masked by q's ``key_valid`` (unpacked only); ``[(k, v)]`` for n = 1."""
+    t = q.shape[1]
+    if k.shape[1] == t:
+        return [(k, v)]
+    if k.shape != v.shape or k.shape[1] % t or seg_ids is not None:
+        raise ValueError(f"k {tuple(k.shape)} and v {tuple(v.shape)}: not unpacked blocks of "
+                         f"q's length {t}")
+    return [(k[:, i : i + t], v[:, i : i + t]) for i in range(0, k.shape[1], t)]
+
+
+def merge_blocks(outs, lses) -> tuple[torch.Tensor, torch.Tensor]:
+    """One softmax over the keys of several blocks, from each block's own
+    (out ``[B, T, H, Dh]``, lse ``[B, H, T, 1]``): lse = log sum_i exp(lse_i)
+    and out = sum_i exp(lse_i - lse) out_i in float32, rounded once to out's
+    dtype. A row that every block skips (lse_i = ``SKIP_LSE``, out_i = 0)
+    keeps out 0 and lse ``SKIP_LSE``: ``SKIP_LSE`` + log n rounds back to
+    ``SKIP_LSE`` in float32, so each weight is exp(0) and the sum is 0."""
+    stacked = torch.stack(lses)  # [n, B, H, T, 1]
+    lse = torch.logsumexp(stacked, dim=0)
+    weights = torch.exp(stacked - lse).permute(0, 1, 3, 2, 4)  # [n, B, T, H, 1]
+    out = sum(w * o.float() for w, o in zip(weights, outs))
+    return out.to(outs[0].dtype), lse
+
+
 def flash_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_valid: torch.Tensor,
     seg_ids: torch.Tensor | None = None, softmax_dtype: str = "float32", *,
@@ -229,7 +267,13 @@ def flash_forward(
     given). q/k/v may be strided views (e.g. the column slices of a fused
     QKV projection) as long as the head-dim axis is contiguous and rows start
     on 16-byte boundaries. ``scale`` replaces 1/sqrt(Dh) (a zero-padded
-    head's own)."""
+    head's own). k and v of n blocks of q's length (``_key_blocks``) run one
+    forward a block, merged by ``merge_blocks``."""
+    blocks = _key_blocks(q, k, v, seg_ids)
+    if len(blocks) > 1:
+        return merge_blocks(*zip(*(
+            flash_forward(q, kb, vb, key_valid, None, softmax_dtype, scale=scale, sweep=sweep)
+            for kb, vb in blocks)))
     if q.shape[1] > STREAM_MAX_T:
         return flash_forward_stream(q, k, v, key_valid, seg_ids, softmax_dtype, scale=scale,
                                     sweep=sweep)
@@ -1336,7 +1380,7 @@ flash_bwd_stream_prep.launches = 0
 
 
 def flash_bwd_fused_tc(q, k, v, g, softmax_dtype: str, scale, prep: StreamPrep, dq, dk,
-                       dv) -> None:
+                       dv, acc: torch.Tensor | None = None) -> torch.Tensor:
     """Launches the fused long-T backward (``flash_bwd_fused_tc_kernel``, then
     ``flash_bwd_fused_dq_kernel``, of csrc/flash_bwd.cu: bf16 at Dh 64, the
     bias form) on ``prep`` (the outputs of ``flash_bwd_stream_prep`` on the
@@ -1344,7 +1388,10 @@ def flash_bwd_fused_tc(q, k, v, g, softmax_dtype: str, scale, prep: StreamPrep, 
     may be ``prep.qs``, which the kernel has read before dq is written. It
     forms each (query, key) pair's p and ds once and adds dq across key
     blocks in float32 through an accumulator made here, so dq's sum runs in
-    an order that changes from run to run (dk and dv do not). Counted in
+    an order that changes from run to run (dk and dv do not). Given an
+    ``acc`` (what an earlier call on the same q, o, lse and g returned: the
+    previous key blocks of one softmax), the sums add to it and dq is the
+    blocks' sum, rounded once; returns the accumulator. Counted in
     ``flash_bwd_fused_tc.launches``; ``flash_backward`` takes it past
     ``STREAM_MAX_T``; ``flash_bwd_fused_stream_reference`` is its plain
     version."""
@@ -1353,11 +1400,13 @@ def flash_bwd_fused_tc(q, k, v, g, softmax_dtype: str, scale, prep: StreamPrep, 
                 or not x.is_contiguous()):
             raise ValueError(f"{name}: not a contiguous {q.dtype} {tuple(q.shape)} on {q.device}")
     b, t, h, dh = q.shape
-    acc = torch.zeros((b, h, -(-t // STREAM_TILE) * STREAM_TILE, dh), dtype=torch.float32,
-                      device=q.device)
+    if acc is None:
+        acc = torch.zeros((b, h, -(-t // STREAM_TILE) * STREAM_TILE, dh), dtype=torch.float32,
+                          device=q.device)
     _tc_launch("flash_bwd_fused_tc", q, k, v, g, softmax_dtype, scale, prep, (acc, dq, dk, dv),
                dense=False)
     flash_bwd_fused_tc.launches += 1
+    return acc
 
 
 flash_bwd_fused_tc.launches = 0
@@ -1377,23 +1426,55 @@ def flash_backward(q, k, v, key_valid, o, lse, g, seg_ids=None,
     computes the three gradients, dq into the prep's q_s storage, with dq's
     float32 sum in an order that changes from run to run. q/k/v may be
     strided views as for ``flash_forward``; ``g`` and ``o`` need a
-    contiguous head-dim axis and 16-byte rows."""
-    args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
+    contiguous head-dim axis and 16-byte rows. k and v of n blocks of q's
+    length (``_key_blocks``), given the merged ``o`` and ``lse`` of
+    ``flash_forward``, run one prep and one backward a block: dq is the
+    blocks' sum (on the fused route in one float32 accumulator, elsewhere
+    of the blocks' dq, rounded once more), dk and dv the blocks' joined."""
+    blocks = _key_blocks(q, k, v, seg_ids)
+    rest = (key_valid, o, lse, g, seg_ids, softmax_dtype)
     prep = None
-    if _on_cuda(q, softmax_dtype, "flash_backward") and stream_tc(q):  # once for both
-        prep = flash_bwd_stream_prep(*args[:-1], scale=scale, dense=q.shape[1] <= STREAM_MAX_T,
-                                     sweep=sweep)
-    if q.shape[1] > STREAM_MAX_T and prep is not None:  # one fused kernel; dq in q_s
-        dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
-        flash_bwd_fused_tc(q, k, v, g, softmax_dtype, scale, prep, prep.qs, dk, dv)
-        return prep.qs, dk, dv
-    if q.shape[1] > STREAM_MAX_T:
-        dq = flash_bwd_dq_stream(*args, prep, scale=scale, sweep=sweep)
-        dk, dv = flash_bwd_dkv_stream(*args, prep, scale=scale, sweep=sweep)
-    else:
-        dq = flash_bwd_dq(*args, prep, scale=scale, sweep=sweep)
-        dk, dv = flash_bwd_dkv(*args, prep, scale=scale, sweep=sweep)
-    return dq, dk, dv
+    if _on_cuda(q, softmax_dtype, "flash_backward") and stream_tc(q):  # once for every kernel
+        prep = flash_bwd_stream_prep(q, *blocks[0], *rest[:-1], scale=scale,
+                                     dense=q.shape[1] <= STREAM_MAX_T, sweep=sweep)
+    fused = q.shape[1] > STREAM_MAX_T and prep is not None  # one fused kernel a block
+    if fused:  # dq into q_s when one kernel reads it, else the last block's write is the sum
+        dq = prep.qs if len(blocks) == 1 else torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        acc = None
+    grads = []
+    for kb, vb in blocks:
+        args = (q, kb, vb, *rest)
+        if fused:
+            dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(2))
+            acc = flash_bwd_fused_tc(q, kb, vb, g, softmax_dtype, scale, prep, dq, dk, dv, acc)
+        elif q.shape[1] > STREAM_MAX_T:
+            dq = flash_bwd_dq_stream(*args, prep, scale=scale, sweep=sweep)
+            dk, dv = flash_bwd_dkv_stream(*args, prep, scale=scale, sweep=sweep)
+        else:
+            dq = flash_bwd_dq(*args, prep, scale=scale, sweep=sweep)
+            dk, dv = flash_bwd_dkv(*args, prep, scale=scale, sweep=sweep)
+        grads.append((dq, dk, dv))
+    if len(grads) == 1:
+        return grads[0]
+    dqs, dks, dvs = zip(*grads)
+    if not fused:
+        dq = sum(x.float() for x in dqs).to(q.dtype)
+    return dq, torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+
+
+def _attention_span(q, key_valid, n: int, backward: bool):
+    """The device span of a ``FlashAttention`` pass: ``attention`` or, over
+    n > 1 key blocks, ``attention.cross`` with, while recording is on, the
+    valid query x valid key ``pairs`` per head, valid ``keys`` and
+    ``queries`` (device tensors that ``profiling.records`` reads) and
+    whether it is the ``backward``."""
+    if n == 1:
+        return device_span("attention", q)
+    if not recording():
+        return device_span("attention.cross", q)
+    rows = key_valid.sum(dim=1)
+    return device_span("attention.cross", q, pairs=n * (rows * rows).sum(), keys=n * rows.sum(),
+                       queries=rows.sum(), backward=int(backward))
 
 
 class FlashAttention(torch.autograd.Function):
@@ -1401,11 +1482,14 @@ class FlashAttention(torch.autograd.Function):
     kernel backward; ``backward="xla"`` recomputes the plain attention and
     takes its VJP instead. Returns out ``[B, T, H, Dh]``. A head width
     without a kernel instance runs zero-padded to ``kernel_head_dim`` with
-    its own scale 1/sqrt(Dh); out and the gradients are cut back to Dh."""
+    its own scale 1/sqrt(Dh); out and the gradients are cut back to Dh.
+    k and v may hold n blocks of q's length (``flash_forward``); the
+    recompute then attends over all n T keys, each block masked by
+    ``key_valid``."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, seg_ids, softmax_dtype, backward, sweep):
-        with device_span("attention", q):
+        with _attention_span(q, key_valid, k.shape[1] // q.shape[1], False):
             dh = q.shape[-1]
             width = kernel_head_dim(q.device, dh)
             if width != dh:
@@ -1421,12 +1505,13 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse, key_valid, seg_ids = ctx.saved_tensors
-        with device_span("attention", q):
+        n = k.shape[1] // q.shape[1]
+        with _attention_span(q, key_valid, n, True):
             dh, width = ctx.head_dim, q.shape[-1]
             if ctx.recompute:
                 with torch.enable_grad():
                     qkv = [x[..., :dh].detach().requires_grad_() for x in (q, k, v)]
-                    ref = mha_torch(*qkv, key_valid, seg_ids)
+                    ref = mha_torch(*qkv, key_valid.repeat(1, n), seg_ids)
                     dq, dk, dv = torch.autograd.grad(ref, qkv, g)
                 return dq, dk, dv, None, None, None, None, None
             g = torch.nn.functional.pad(g, (0, width - dh)) if width != dh else g.contiguous()
@@ -1441,7 +1526,10 @@ def flash_attention(q, k, v, key_valid, seg_ids=None, softmax_dtype: str = "floa
                     backward: str = "pallas", sweep: AttentionSweep | None = None) -> torch.Tensor:
     """Differentiable flash attention: out ``[B, T, H, Dh]``, forward and
     backward on ``sweep`` (``attention_sweep(key_valid, seg_ids)``; each
-    kernel call makes its own when not given)."""
+    kernel call makes its own when not given). k and v may hold n blocks of
+    q's length, each masked by ``key_valid`` (unpacked): one softmax over
+    the n T keys."""
     if backward not in ("pallas", "xla"):
         raise ValueError(f"bad backward: {backward}")
+    _key_blocks(q, k, v, seg_ids)
     return FlashAttention.apply(q, k, v, key_valid, seg_ids, softmax_dtype, backward, sweep)

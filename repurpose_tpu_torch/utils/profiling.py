@@ -9,9 +9,9 @@
   yielded for callers that read ``key_averages()`` themselves;
 - the recorder: ``span(name, **ids)`` records where a layer of the program
   starts and ends, ``stamp()`` and ``waited(name, since)`` a wait that
-  starts on one thread and ends on another, ``device_span(name, x)`` the
-  device time of the work the body queues, and ``records()`` returns what
-  was recorded; ``annotate(name)`` is a span whose trace event keeps the
+  starts on one thread and ends on another, ``device_span(name, x, **ids)``
+  the device time of the work the body queues, and ``records()`` returns
+  what was recorded; ``recording()`` says whether recording is on; ``annotate(name)`` is a span whose trace event keeps the
   bare ``name``.
 
 The recorder is on only while a ``torch.profiler`` session is active (the
@@ -137,23 +137,35 @@ def waited(name: str, since: int | None) -> None:
     _records.append(Record(name, since, time.time_ns(), threading.get_ident(), {}))
 
 
-def device_span(name: str, x: torch.Tensor):
-    """``span(name)`` that also times on the card the work the body queues
-    on the current stream, while recording is on and ``x`` is on CUDA;
-    elsewhere it records nothing."""
+def device_span(name: str, x: torch.Tensor, **ids):
+    """``span(name, **ids)`` that also times on the card the work the body
+    queues on the current stream, while recording is on and ``x`` is on
+    CUDA; elsewhere it records nothing. An id may be a device tensor of one
+    number, which ``records()`` reads."""
     if not _autograd_profiler._is_profiler_enabled or not x.is_cuda:
         return _OFF
-    return _Span(name, {}, (torch.cuda.Event(enable_timing=True),
-                            torch.cuda.Event(enable_timing=True)))
+    return _Span(name, ids, (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True)))
+
+
+def recording() -> bool:
+    """Whether recording is on: a caller works out a span's ids only then."""
+    return bool(_autograd_profiler._is_profiler_enabled)
 
 
 def records() -> list[Record]:
-    """What was recorded, oldest first, device spans with their device time."""
+    """What was recorded, oldest first, device spans with their device time.
+    An id given as a tensor of one number (counted on the card, so that
+    recording waits for nothing) is read here, after the caller's
+    synchronisation."""
     out = []
     for r in list(_records):
         if type(r) is tuple:  # a device span: (record, its events)
             r, (a, b) = r
             r = r._replace(device_s=a.elapsed_time(b) * 1e-3 if b.query() else None)
+        if any(isinstance(v, torch.Tensor) for v in r.ids.values()):
+            r = r._replace(ids={k: v.item() if isinstance(v, torch.Tensor) else v
+                                for k, v in r.ids.items()})
         out.append(r)
     return out
 
