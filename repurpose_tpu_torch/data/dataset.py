@@ -14,7 +14,9 @@
   loader (``native.batch_load_npy``, the repository's
   ``csrc/npy_loader.cc``); it gives ``collate``'s batch, and ``None`` where
   it does not apply (no loader library, or a sample sliced by timeRange),
-  and the caller then collates samples read with numpy.
+  and the caller then collates samples read with numpy. With a ``staging``
+  (``data/staging.py``) the features are read straight into its pinned
+  tensors, and the batch's fields are all such tensors.
 
 ``use_cache=False`` filters the label entries anew instead of reading or
 writing the filter cache.
@@ -188,12 +190,13 @@ class RepurposeDataset:
             self._route_logged = True
             logger.info("batches load %s", route)
 
-    def load_batch(self, indices, buckets, batch_size: int | None = None):
+    def load_batch(self, indices, buckets, batch_size: int | None = None, staging=None):
         """Whole-batch fast path: the three feature streams of every sample
         pread directly into the zero-padded [B, T, D] batch buffers by the
         host loader, one threaded call per modality. Returns a Batch, or
         None when the fast path does not apply (loader library missing, or
-        a sample needs timeRange slicing)."""
+        a sample needs timeRange slicing). The buffers are new numpy arrays,
+        or ``staging``'s tensors, and so then are the other fields."""
         from repurpose_tpu_torch import native
         from repurpose_tpu_torch.data.batching import Batch, pick_bucket
 
@@ -210,20 +213,24 @@ class RepurposeDataset:
         # each stream's rows, resolved after loading
         t = pick_bucket(max(len(e["_labels"]) for e in entries), buckets)
 
-        arrays = {}
+        feats = {}  # the batch's buffers
+        arrays = {}  # their memory, as numpy arrays
         rows = {}
         for m, fmt in self._fmt.items():
             paths = [fmt.format(e["youtube_id"]) for e in entries]
             info = native.probe_npy(paths[0])
             if info is None:
                 return None
-            loaded = native.batch_load_npy(paths, t=t, d=info[1], n_threads=4)
+            shape = (b, t, info[1])
+            feats[m] = (np.zeros(shape, np.float32) if staging is None
+                        else staging.empty(m, shape))
+            arrays[m] = np.asarray(feats[m])
+            arrays[m][n:] = 0.0  # the padding rows
+            loaded = native.batch_load_npy(paths, t=t, d=info[1], n_threads=4,
+                                           out=arrays[m][:n])
             if loaded is None:
                 return None
-            arr, r = loaded
-            if b > n:
-                arr = np.concatenate([arr, np.zeros((b - n, t, info[1]), np.float32)])
-            arrays[m], rows[m] = arr, r
+            rows[m] = loaded[1]
 
         mask = np.zeros((b, t), bool)
         labels = np.zeros((b, t), np.float32)
@@ -238,8 +245,9 @@ class RepurposeDataset:
             durations[i] = ln
             for m in arrays:  # zero the rows past the common length
                 arrays[m][i, ln:] = 0.0
-        return Batch(visual=arrays["visual"], audio=arrays["audio"], text=arrays["text"],
-                     mask=mask, labels=labels, segments=segments, durations=durations)
+        batch = Batch(visual=feats["visual"], audio=feats["audio"], text=feats["text"],
+                      mask=mask, labels=labels, segments=segments, durations=durations)
+        return batch if staging is None else staging.stage(batch)
 
     def __getitem__(self, idx: int) -> dict:
         e = self.entries[idx]

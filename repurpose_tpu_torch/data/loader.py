@@ -19,6 +19,10 @@ background prefetch (``repurpose_tpu/data/loader.py``).
 - unpacked batches come from the dataset's whole-batch ``load_batch`` where
   it has one and it applies (``RepurposeDataset``: the native loader), else
   from ``collate`` over the samples;
+- batches are numpy ``Batch``es, or with a ``staging`` (``data/staging.py``,
+  which the Trainer passes on a card) CPU tensors in the step's dtypes in
+  pinned memory: ``load_batch`` reads the features straight into them, and a
+  ``collate`` or ``pack_batch`` result is copied into them;
 - under a ``torch.profiler`` session (``utils/profiling.py``) the worker
   records each batch's build as a ``loader.load`` span with its ``videos``,
   and the consumer each wait for a batch as ``loader.wait``.
@@ -36,6 +40,7 @@ import numpy as np
 from repurpose_tpu_torch.data.batching import (
     Batch, collate, pack_batch, pick_bucket, plan_packing,
 )
+from repurpose_tpu_torch.data.staging import Staging
 from repurpose_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
@@ -57,13 +62,15 @@ class BatchLoader:
         pad_last: bool = True,
         process_index: int = 0,
         process_count: int = 1,
+        staging: Staging | None = None,
     ):
         """Batches of ``batch_size`` rows per rank, a ragged tail padded with
         all-padding rows (``pad_last``) or dropped (``drop_last``).
         ``pack=True`` switches to sequence-packed batches: every window's
         videos first-fit-decreasing into rows of the largest bucket, several
         head-to-tail videos per row with block-diagonal attention;
-        ``batch_size`` then counts rows."""
+        ``batch_size`` then counts rows. ``staging`` builds the batches'
+        fields in its tensors (module docstring); None yields numpy."""
         if not pad_last and not drop_last and process_count > 1:
             raise ValueError(
                 "pad_last=False with process_count > 1 gives the ranks different batch "
@@ -80,6 +87,7 @@ class BatchLoader:
         self.process_count = process_count
         self.bucket_window = max(bucket_window, batch_size * process_count)
         self.pack = pack
+        self.staging = staging
         self._lengths = dataset.lengths() if hasattr(dataset, "lengths") else None
         if pack and self._lengths is None:
             raise ValueError("pack=True needs a dataset exposing .lengths()")
@@ -187,10 +195,13 @@ class BatchLoader:
                                 [[remap[i] for i in row] for row in local], bucket, pad_b,
                             )
                         else:
-                            batch = load_batch(local, (bucket,), pad_b) if load_batch else None
+                            batch = (load_batch(local, (bucket,), pad_b, self.staging)
+                                     if load_batch else None)
                             if batch is None:  # per-sample path
                                 batch = collate([self.dataset[i] for i in local], (bucket,),
                                                 pad_b)
+                        if self.staging is not None:
+                            batch = self.staging.stage(batch)
                     if not put(batch):
                         return
                 put(None)

@@ -286,23 +286,38 @@ def probe_npy(path: str) -> tuple[int, int] | None:
     return int(rows.value), int(cols.value)
 
 
-def batch_load_npy(paths: list[str], t: int, d: int, n_threads: int = 4):
+def batch_load_npy(paths: list[str], t: int, d: int, n_threads: int = 4, out=None):
     """Loads the files into a zero-padded [len(paths), t, d] float32 batch
     with threaded preads: (batch, rows per file), or None where the loader
-    refuses a file (the caller then reads with numpy)."""
+    refuses a file (the caller then reads with numpy). ``out``, a C-contiguous
+    float32 array of that shape (a reused staging buffer, which holds an
+    earlier batch), is loaded into instead of a new one, and its rows past
+    each file's length are zeroed here: the library writes only the rows it
+    reads."""
     import numpy as np
 
     lib = host_library()
     if lib is None:
         return None
     n = len(paths)
-    out = np.zeros((n, t, d), np.float32)
+    reused = out is not None
+    if not reused:
+        out = np.zeros((n, t, d), np.float32)
+    elif (out.shape != (n, t, d) or out.dtype != np.float32
+          or not out.flags.c_contiguous or not out.flags.writeable):
+        raise ValueError(f"out: a writeable C-contiguous float32 {(n, t, d)} array, got "
+                         f"{out.dtype} {out.shape}")
     rows = np.zeros(n, np.int64)
     arr = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
     rc = lib.npy_batch_load_f32(arr, n, out.ctypes.data_as(ctypes.c_void_p), t, d,
                                 rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
                                 n_threads)
-    return None if rc != 0 else (out, rows)
+    if rc != 0:
+        return None
+    if reused:
+        for i, r in enumerate(rows):
+            out[i, r:] = 0.0
+    return out, rows
 
 
 def dtw_path(cost):

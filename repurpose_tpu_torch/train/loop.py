@@ -2,7 +2,9 @@
 (``repurpose_tpu/train/loop.py``), on one card or on a mesh of ranks.
 
 - epoch loop over ``BatchLoader`` with a per-epoch reshuffle (packed or
-  bucketed batches), one eager train step per batch;
+  bucketed batches), one eager train step per batch; on a card the loader
+  builds each batch in pinned memory (``data/staging.py``) and the step's
+  copy of it runs without holding the host (``batch_to_device``);
 - per-layer gradient norms logged every ``grad_norm_freq`` steps, gradient
   and parameter histograms on the first step and every ``hist_freq``
   steps, the non-finite probe every ``finite_check_freq`` steps and before
@@ -59,6 +61,7 @@ import torch.distributed as dist
 from repurpose_tpu_torch.config import Config
 from repurpose_tpu_torch.data.batching import Batch, collate, iter_packed_batches, pick_bucket
 from repurpose_tpu_torch.data.loader import BatchLoader
+from repurpose_tpu_torch.data.staging import Staging
 from repurpose_tpu_torch.infer import InferencePipeline
 from repurpose_tpu_torch.models import build_model
 from repurpose_tpu_torch.parallel.mesh import create_mesh, describe_mesh, mesh_self_check
@@ -128,10 +131,13 @@ class Trainer:
                 "by rows, not videos; use loss_norm='batch_size' for per-video "
                 "normalisation"
             )
+        # on a card the host batches are built in pinned memory, so that
+        # their copies do not hold the host (data/staging.py)
+        self.staging = Staging() if self.device.type == "cuda" else None
         self.train_loader = BatchLoader(
             train_ds, batch_size=tc.batch_size, buckets=tc.buckets, shuffle=True,
             seed=tc.seed, pack=tc.pack_sequences, process_index=mesh.coord("data"),
-            process_count=mesh.size("data"),
+            process_count=mesh.size("data"), staging=self.staging,
         )
         self.val_ds = val_ds
         self.test_ds = test_ds
@@ -200,9 +206,13 @@ class Trainer:
 
     def _device_batch(self, batch: Batch) -> Batch:
         """A host batch on the device: this rank's columns of it under ring
-        attention on a ``seq`` axis."""
+        attention on a ``seq`` axis. On a card every field is first staged
+        in pinned memory (a column slice, not contiguous, and a caller's
+        numpy batch are copied there; the loader's batches already are)."""
         if self._seq_sharded:
             batch = local_columns(batch, self.mesh)
+        if self.staging is not None:
+            batch = self.staging.stage(batch)
         return batch_to_device(batch, self.device)
 
     @torch.no_grad()
@@ -279,7 +289,7 @@ class Trainer:
             if not hasattr(self, "_val_loader"):  # deterministic: build once
                 self._val_loader = BatchLoader(
                     self.val_ds, batch_size=self.cfg.train.batch_size,
-                    buckets=self.cfg.train.buckets, shuffle=False,
+                    buckets=self.cfg.train.buckets, shuffle=False, staging=self.staging,
                 )
             losses = []
             for batch in itertools.islice(self._val_loader.epoch(0), max_batches):

@@ -59,7 +59,8 @@ The non-finite guard reads the global loss and norm, so it is global.
 Under a ``torch.profiler`` session the step records its phases as spans
 (``utils/profiling.py``): ``train.forward_loss``, ``train.backward``,
 ``train.grad_norms``, ``train.optimizer``, and the histograms as
-``train.telemetry``.
+``train.telemetry``; ``batch_to_device`` its copy to the card as
+``train.stage``.
 """
 
 from __future__ import annotations
@@ -71,6 +72,7 @@ import torch
 
 from repurpose_tpu_torch.config import ModelConfig, TrainConfig
 from repurpose_tpu_torch.data.batching import Batch
+from repurpose_tpu_torch.data.staging import field_dtype
 from repurpose_tpu_torch.models import require_unpacked
 from repurpose_tpu_torch.ops.losses import masked_cls_loss, masked_reg_loss
 from repurpose_tpu_torch.parallel.sharding import (
@@ -80,21 +82,32 @@ from repurpose_tpu_torch.parallel.sharding import (
     seq_split,
 )
 from repurpose_tpu_torch.train.state import TrainState
-from repurpose_tpu_torch.utils.profiling import span
-
-_BATCH_DTYPES = {"mask": torch.bool, "durations": torch.int64, "seg_ids": torch.int32,
-                 "positions": torch.int64}
+from repurpose_tpu_torch.utils.profiling import recording, span
 
 
 def batch_to_device(batch: Batch, device) -> Batch:
-    """A numpy ``Batch`` as tensors on ``device`` (features, labels and
-    segments float32; mask bool; seg_ids int32; durations, positions int64)."""
-    return Batch(*[
-        None if x is None else torch.as_tensor(
-            np.asarray(x), dtype=_BATCH_DTYPES.get(name, torch.float32)
-        ).to(device)
-        for name, x in zip(Batch._fields, batch)
-    ])
+    """A host batch as tensors on ``device`` (features, labels and segments
+    float32; mask bool; seg_ids int32; durations, positions int64).
+
+    A numpy field is converted by ``torch.as_tensor`` and copied with the
+    host waiting. A field that is a pinned CPU tensor (the Trainer's batches
+    on a card, built by ``data/staging.py``) is copied with
+    ``non_blocking=True`` on the current stream: the copy reads the pinned
+    tensor itself, whose block the caching host allocator then keeps until
+    the copy has run, and the host goes on queueing the step. Under a profiler the copies are one ``train.stage``
+    span with the ``bytes`` sent and the ``pinned_bytes`` of them that came
+    from pinned memory."""
+    host = [None if x is None else torch.as_tensor(
+        x if torch.is_tensor(x) else np.asarray(x), dtype=field_dtype(name))
+        for name, x in zip(Batch._fields, batch)]
+    ids = {}
+    if recording():
+        sent = [x for x in host if x is not None]
+        ids = {"bytes": sum(x.nbytes for x in sent),
+               "pinned_bytes": sum(x.nbytes for x in sent if x.is_pinned())}
+    with span("train.stage", **ids):
+        return Batch(*[None if x is None else x.to(device, non_blocking=x.is_pinned())
+                       for x in host])
 
 
 def loss_denominator(train_cfg: TrainConfig, batch: Batch):
@@ -107,7 +120,8 @@ def loss_denominator(train_cfg: TrainConfig, batch: Batch):
     else:
         n_real = (batch.durations > 0).sum()
     if train_cfg.loss_norm == "config_batch_size":
-        norm = torch.tensor(float(train_cfg.batch_size), device=n_real.device)
+        # filled on the device: a host tensor's copy would wait for the stream
+        norm = torch.full((), float(train_cfg.batch_size), device=n_real.device)
     else:
         norm = n_real.clamp(min=1).float()
     return n_real, norm
