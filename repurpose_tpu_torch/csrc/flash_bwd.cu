@@ -10,14 +10,12 @@
 //     lines 1528, 1599), unpacked and packed, by flash_bwd_dkv_tc_kernel and
 //     flash_bwd_dkv_kernel.
 // A null `seg_ids` (tensor-core: a null lo / hi) selects the unpacked
-// variant of each. The tensor-core pair's bias-form instances are the
-// long-T stream wrappers' bf16 Dh 64 kernels too (flash_bwd_stream.cu names
-// the TPU kernels they replace there). The long-T backward of
-// `flash_backward` in bf16 at Dh 64 is one fused kernel instead,
-// flash_bwd_fused_tc_kernel with flash_bwd_fused_dq_kernel (the end of this
-// file; design, and the TPU kernels it fuses, in flash_bwd_fused.cuh): it
-// forms each pair's p and ds once and adds dq across key blocks in float32,
-// in an order that changes from run to run.
+// variant of each. The long-T backward in bf16 at Dh 64 (of `flash_backward`
+// and of the stream wrappers) is one fused kernel, flash_bwd_fused_tc_kernel
+// with flash_bwd_fused_dq_kernel (the end of this file; design, and the TPU
+// kernels it fuses, in flash_bwd_fused.cuh): it forms each pair's p and ds
+// once and adds dq across key blocks in float32, in an order that changes
+// from run to run.
 //
 // What they compute, with the saved forward out `o` and lse, the upstream
 // gradient `g`, scale = 1/sqrt(Dh), per batch row b and head h:
@@ -49,16 +47,15 @@
 // Two designs share the contract above.
 //
 // bf16 at Dh 64 (the model's shape) takes the tensor-core kernels,
-// flash_bwd_{dq,dkv}_tc_kernel: the select-form instances of the wgmma/TMA
-// mainloops of flash_bwd_tc.cuh (the design is there), whose bias-form
-// instances are the long-T backward. They read the outputs of
+// flash_bwd_{dq,dkv}_tc_kernel, on the wgmma/TMA mainloops of
+// flash_bwd_tc.cuh (the design is there). They read the outputs of
 // flash_bwd_stream_prep_kernel (q_s, {lse, delta}, {key flag, segment}),
 // made once per backward, and sweep 64-row tiles [0, ceil(kvl / 64)) and,
 // packed, only the tiles [lo, hi) that hold every position of each segment
 // id owning a row of the tile (`segment_tile_bounds` at 64/64, wherever the
 // id's positions lie): in the select form every pair left out has p = 0 and
 // so ds = 0, so the bounded sweep adds exactly what the full one would, for
-// any layout. Unpacked, the select and the bias form are the same function.
+// any layout.
 //
 // Every other instance (float32, which must keep float32 parity and so
 // cannot use TF32 tensor cores, and bf16 at Dh 16, 32, 128 and 256) keeps the
@@ -665,38 +662,33 @@ int run(bool dq, const void* q, const void* k, const void* v, const void* g,
 
 // ---- the tensor-core kernels: bf16 at Dh 64 ------------------------------------------
 
-// The mainloops and their design: flash_bwd_tc.cuh. MASK: the select form
-// (the dense backward) or the bias form (the long-T backward).
-template <bool SM_BF16, bwd_tc::Mask MASK>
+// The mainloops and their design: flash_bwd_tc.cuh.
+template <bool SM_BF16>
 __global__ void __launch_bounds__(bwd_tc::THREADS, bwd_tc::DQ_MIN_BLOCKS)
     flash_bwd_dq_tc_kernel(const __grid_constant__ bwd_tc::Args a) {
-  bwd_tc::dq_block<SM_BF16, MASK>(a);
+  bwd_tc::dq_block<SM_BF16>(a);
 }
 
-template <bool SM_BF16, bwd_tc::Mask MASK>
+template <bool SM_BF16>
 __global__ void __launch_bounds__(bwd_tc::THREADS, bwd_tc::DKV_MIN_BLOCKS)
     flash_bwd_dkv_tc_kernel(const __grid_constant__ bwd_tc::Args a) {
-  bwd_tc::dkv_block<SM_BF16, MASK>(a);
+  bwd_tc::dkv_block<SM_BF16>(a);
 }
 
 int run_tc(bool dq, const void* qs, const void* k, const void* v, const void* g,
            const long long* strides, const void* rows, const void* info, const void* kvl,
            const void* lo, const void* hi, void* out0, void* out1, int B, int T_len, int H,
-           int sm_bf16, int select, float scale, cudaStream_t stream) {
-  using bwd_tc::BIAS;
-  using bwd_tc::SELECT;
+           int sm_bf16, float scale, cudaStream_t stream) {
   if (B <= 0 || T_len <= 0 || H <= 0) return 0;
   if (!kvl || (lo == nullptr) != (hi == nullptr)) return (int)cudaErrorInvalidValue;
   bwd_tc::Args a;
   const int err = bwd_tc::make_args(a, qs, k, v, g, strides, rows, info, kvl, lo, hi, out0,
                                     out1, B, T_len, H, scale);
   if (err != 0) return err;
-  void (*const kernels[2][2][2])(bwd_tc::Args) = {  // [dq][sm_bf16][select]
-      {{&flash_bwd_dkv_tc_kernel<false, BIAS>, &flash_bwd_dkv_tc_kernel<false, SELECT>},
-       {&flash_bwd_dkv_tc_kernel<true, BIAS>, &flash_bwd_dkv_tc_kernel<true, SELECT>}},
-      {{&flash_bwd_dq_tc_kernel<false, BIAS>, &flash_bwd_dq_tc_kernel<false, SELECT>},
-       {&flash_bwd_dq_tc_kernel<true, BIAS>, &flash_bwd_dq_tc_kernel<true, SELECT>}}};
-  return bwd_tc::launch(kernels[dq][sm_bf16 != 0][select != 0], dq, a, B, stream);
+  void (*const kernels[2][2])(bwd_tc::Args) = {  // [dq][sm_bf16]
+      {&flash_bwd_dkv_tc_kernel<false>, &flash_bwd_dkv_tc_kernel<true>},
+      {&flash_bwd_dq_tc_kernel<false>, &flash_bwd_dq_tc_kernel<true>}};
+  return bwd_tc::launch(kernels[dq][sm_bf16 != 0], dq, a, B, stream);
 }
 
 // ---- the fused tensor-core kernel: the long-T backward, bf16 at Dh 64 ------------
@@ -720,10 +712,9 @@ __global__ void __launch_bounds__(FUSED_DQ_THREADS)
 int run_fused(const void* qs, const void* k, const void* v, const void* g,
               const long long* strides, const void* rows, const void* info, const void* kvl,
               const void* lo, const void* hi, void* acc, void* dq, void* dk, void* dv, int B,
-              int T_len, int H, int sm_bf16, int select, float scale, cudaStream_t stream) {
+              int T_len, int H, int sm_bf16, float scale, cudaStream_t stream) {
   if (B <= 0 || T_len <= 0 || H <= 0) return 0;
-  if (!kvl || !acc || (lo == nullptr) != (hi == nullptr) || select != 0)
-    return (int)cudaErrorInvalidValue;  // the bias form only
+  if (!kvl || !acc || (lo == nullptr) != (hi == nullptr)) return (int)cudaErrorInvalidValue;
   bwd_fused::Params p;
   int err = bwd_tc::make_args(p.a, qs, k, v, g, strides, rows, info, kvl, lo, hi, dk, dv, B,
                               T_len, H, scale);
@@ -780,38 +771,35 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v, const 
              Dh, is_bf16, sm_bf16, scale, stream);
 }
 
-// The tensor-core entry points (bf16, Dh 64), the dense and the long-T
-// backward both, on the outputs of flash_bwd_stream_prep
-// (flash_bwd_stream.cu): qs [B, T, H, 64] bf16 contiguous, rows [B, H, Tp]
-// {lse, delta} float32 and info [B, Tp] {key flag, segment} int32, Tp = T
-// rounded up to 64. `strides` holds 9 element strides: (batch, token, head)
-// of k, v, g. kvl is int32 [B]; lo / hi are int32 [B, ceil(T / 64)], both
-// null unpacked: for the dense backward (select 1: the select form) each
-// query tile's span of every position of its segment ids
-// (`segment_tile_bounds` at 64/64), for the long-T one (select 0: the bias
-// form) `packed_block_bounds` at 64/64. Each returns cudaGetLastError()
-// after its launch (0 on success), or cudaErrorInvalidValue for a view no
-// tensor map can describe.
+// The dense tensor-core entry points (bf16, Dh 64), on the outputs of
+// flash_bwd_stream_prep (flash_bwd_stream.cu): qs [B, T, H, 64] bf16
+// contiguous, rows [B, H, Tp] {lse, delta} float32 and info [B, Tp] {key
+// flag, segment} int32, Tp = T rounded up to 64. `strides` holds 9 element
+// strides: (batch, token, head) of k, v, g. kvl is int32 [B]; lo / hi are
+// int32 [B, ceil(T / 64)], both null unpacked: each tile's span of every
+// position of its segment ids (`segment_tile_bounds` at 64/64). Each
+// returns cudaGetLastError() after its launch (0 on success), or
+// cudaErrorInvalidValue for a view no tensor map can describe.
 extern "C" int flash_bwd_dq_tc(const void* qs, const void* k, const void* v, const void* g,
                                const long long* strides, const void* rows, const void* info,
                                const void* kvl, const void* lo, const void* hi, void* dq, int B,
-                               int T_len, int H, int sm_bf16, int select, float scale,
-                               void* stream) {
+                               int T_len, int H, int sm_bf16, float scale, void* stream) {
   return run_tc(true, qs, k, v, g, strides, rows, info, kvl, lo, hi, dq, nullptr, B, T_len, H,
-                sm_bf16, select, scale, static_cast<cudaStream_t>(stream));
+                sm_bf16, scale, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_bwd_dkv_tc(const void* qs, const void* k, const void* v, const void* g,
                                 const long long* strides, const void* rows, const void* info,
                                 const void* kvl, const void* lo, const void* hi, void* dk,
-                                void* dv, int B, int T_len, int H, int sm_bf16, int select,
-                                float scale, void* stream) {
+                                void* dv, int B, int T_len, int H, int sm_bf16, float scale,
+                                void* stream) {
   return run_tc(false, qs, k, v, g, strides, rows, info, kvl, lo, hi, dk, dv, B, T_len, H,
-                sm_bf16, select, scale, static_cast<cudaStream_t>(stream));
+                sm_bf16, scale, static_cast<cudaStream_t>(stream));
 }
 
-// The fused long-T backward (bf16, Dh 64, the bias form: select must be 0),
-// the arguments of flash_bwd_dkv_tc with the dq outputs before dk and dv:
+// The fused long-T backward (bf16, Dh 64, the bias form), the arguments of
+// flash_bwd_dkv_tc, with lo / hi `packed_block_bounds` at 64/64 (the stream
+// sweep), and the dq outputs before dk and dv:
 // acc [B, H, Tp, 64] float32, zeroed by the caller, takes the float32 sums
 // of dq, and dq [B, T, H, 64] bf16 (which may be qs itself: it is written
 // after the fused kernel has read qs) their scaled bf16 rounding. Returns
@@ -821,7 +809,7 @@ extern "C" int flash_bwd_fused_tc(const void* qs, const void* k, const void* v, 
                                   const long long* strides, const void* rows, const void* info,
                                   const void* kvl, const void* lo, const void* hi, void* acc,
                                   void* dq, void* dk, void* dv, int B, int T_len, int H,
-                                  int sm_bf16, int select, float scale, void* stream) {
+                                  int sm_bf16, float scale, void* stream) {
   return run_fused(qs, k, v, g, strides, rows, info, kvl, lo, hi, acc, dq, dk, dv, B, T_len, H,
-                   sm_bf16, select, scale, static_cast<cudaStream_t>(stream));
+                   sm_bf16, scale, static_cast<cudaStream_t>(stream));
 }

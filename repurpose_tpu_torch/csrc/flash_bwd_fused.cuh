@@ -1,37 +1,42 @@
 // The fused tensor-core attention backward for Hopper (sm_90a), bf16 at Dh
 // 64, the bias form: flash_bwd_fused_tc_kernel (flash_bwd.cu), the long-T
-// backward of `flash_backward` (T > 2048), then flash_bwd_fused_dq_kernel,
-// which scales dq and rounds it to bf16.
+// backward (T > 2048) of `flash_backward` and of the stream wrappers
+// `flash_bwd_dq_stream` / `flash_bwd_dkv_stream`, then
+// flash_bwd_fused_dq_kernel, which scales dq and rounds it to bf16.
 //
 // It fuses the TPU kernels of repurpose_tpu/ops/flash_attention.py that the
-// bias-form pair flash_bwd_{dq,dkv}_tc_kernel replaced one by one:
-// `_bwd_dq_stream_kernel` (line 859), `_bwd_dq_packed_stream_kernel` (line
-// 914) and `_bwd_dq_hbm_kernel` (line 992) for dq, with
+// first design of flash_bwd_stream.cu replaces one by one at the other
+// widths: `_bwd_dq_stream_kernel` (line 859), `_bwd_dq_packed_stream_kernel`
+// (line 914) and `_bwd_dq_hbm_kernel` (line 992) for dq, with
 // `_bwd_dkv_stream_kernel` (line 1200) for dk/dv. On the TPU the split
 // was the design: its grid runs in order, so a second pass over the pairs
 // is cheap, and it has no atomics to add dq across key blocks.
 //
-// What it computes is the pair's function (flash_bwd_tc.cuh, the bias form),
-// with the same rounding points, on the outputs of flash_bwd_stream_prep
-// (q_s, {lse, delta}, {key flag, segment}):
+// What it computes is the TPU stream kernels' function in their bias form,
+// with the rounding points of the dense pair (flash_bwd_tc.cuh), on the
+// outputs of flash_bwd_stream_prep (q_s, {lse, delta}, {key flag,
+// segment}):
 //   p_ij  = R(exp(R(s_ij + (allowed(i, j) ? 0 : -1e9) - lse_i)))
 //   ds_ij = R(p_ij * R(dp_ij - d_i))
 //   dk_j  = sum_i bf16(ds_ij) q_s_i,  dv_j = sum_i bf16(p_ij) g_i
 //   dq_i  = bf16(scale * sum_j bf16(ds_ij) k_j)    one float32 sum, rounded once
 // with exp as the forward's exp_fast (ex2.approx, relative error ~1e-5,
 // under the bf16 ulp p is rounded to) and the roundings as the forward's
-// round_bf16x2 (flash_fwd_tc.cuh). The sweep is the pair's dk/dv sweep: each
-// 64-key tile kt takes the query tiles [0, ceil(kvl / 64)), packed [lo[kt],
-// min(hi[kt], ceil(kvl / 64))) of `packed_block_bounds` at 64/64, whose
-// symmetry (kt in qt's range exactly where qt is in kt's) makes these the
-// pairs the dq kernel swept. dq rows at or past kvl, and rows of a query
-// tile whose own range is empty, are 0; so are dk/dv rows at or past kvl.
+// round_bf16x2 (flash_fwd_tc.cuh). The sweep is a dk/dv sweep: each 64-key
+// tile kt takes the query tiles [0, ceil(kvl / 64)), packed [lo[kt],
+// min(hi[kt], ceil(kvl / 64))) of `packed_block_bounds` at 64/64 (each
+// video's run, the stream forward's sweep: on the model's rows, where each
+// video is one run, the tiles outside carry an exact 0 softmax mass), whose
+// symmetry (kt in qt's range exactly where qt is in kt's) makes these also
+// the pairs of each query tile's own key sweep. dq rows at or past kvl, and
+// rows of a query tile whose own range is empty, are 0; so are dk/dv rows at
+// or past kvl.
 //
-// What bounds the pair, and so this: the elementwise work per (query, key)
-// pair (the bias, the bf16 roundings, the exp, ds), which costs more issue
-// slots than the 64x64x64 products it feeds. The pair did it twice, in the
-// dq and in the dk/dv kernel, with seven products where five suffice, and
-// with expf. Here each pair's p and ds are formed once, from five products.
+// What bounds it: the elementwise work per (query, key) pair (the bias, the
+// bf16 roundings, the exp, ds), which takes more instruction slots than the
+// 64x64x64 products it feeds. A dq and a dk/dv kernel (the dense pair's
+// split) would do it twice, with seven products where five suffice. Here
+// each pair's p and ds are formed once, from five products.
 //
 // Design.
 //   - A block owns 128 keys of one head: two consumer warpgroups of 64 keys
@@ -64,7 +69,7 @@
 //   - dq's float32 sum is therefore taken in an order that changes from run
 //     to run (which add reaches the L2 first), so dq may differ in its last
 //     bits between runs; dk and dv are summed in registers in a fixed order
-//     and do not. The pair's dq was deterministic.
+//     and do not.
 //   - A warpgroup skips the query tiles outside its own key tile's range
 //     (packed rows), and a key tile at or past kvl; a block with neither
 //     half live writes its zeros and leaves.
@@ -138,8 +143,9 @@ __device__ __forceinline__ int sw(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
 }
 
-// p of two pairs of one key row (the bias form), as bwd_tc::prob2 computes
-// it, with exp_fast and round_bf16x2.
+// p of two pairs of one key row in the bias form: the score biased, not
+// selected, where the pair is not allowed (bwd_tc::prob2 selects), with
+// exp_fast and round_bf16x2; 0 for a key past T.
 template <bool SM_BF16>
 __device__ __forceinline__ float2 prob2(float s0, float s1, int ok, bool same0, bool same1,
                                         float lse0, float lse1) {

@@ -65,7 +65,7 @@
 // bf16 at Dh 64 (the model's shape) takes the tensor-core path, after a
 // small prep kernel:
 //   - flash_bwd_stream_prep_kernel runs once per backward (the wrapper hands
-//     its outputs to both kernels): q_s [B, T, H, 64] bf16, the per-row
+//     its outputs to the kernel below): q_s [B, T, H, 64] bf16, the per-row
 //     stats {lse, delta} [B, H, Tp] float2 and the per-token info {key flag,
 //     segment} [B, Tp] int2, Tp = T rounded up to 64, rows past T padded
 //     (lse 1e30, delta 0, flag -1). It replaces what the TPU kernels repeat
@@ -74,13 +74,14 @@
 //     device memory for every query tile of every key tile (~14 GB at
 //     [1, 32768, 8, 64]). The dense backward's tensor-core kernels read the
 //     same prep.
-//   - The two kernels are the bias-form instances of the tensor-core pair
-//     of flash_bwd.cu, flash_bwd_{dq,dkv}_tc_kernel, whose select-form
-//     instances are the dense backward; their wgmma/TMA mainloops and whole
-//     design are in flash_bwd_tc.cuh: a producer warp feeding a 3-stage TMA
-//     ring, wgmma m64n64k16 with register accumulators, p and ds formed in
-//     registers and fed back as the A operand. At [1, 32768, 8, 64] dq and
-//     dk/dv run at ~3.5x their bounds (PERF.md).
+//   - dq, dk and dv are then one fused kernel of flash_bwd.cu,
+//     flash_bwd_fused_tc_kernel (design in flash_bwd_fused.cuh): 128 keys a
+//     block, a producer warpgroup feeding a 4-stage TMA ring, wgmma
+//     m64n64k16 with register accumulators, each pair's p and ds formed
+//     once in registers, and dq added across key blocks in float32 by TMA
+//     reduce-adds, so that dq's last bits may change from run to run. The
+//     stream wrappers take it too, each keeping its own gradients. At
+//     [1, 32768, 8, 64] it runs at ~2.6x its bound (PERF.md).
 //
 // Every other instance (float32, which must keep float32 parity and so
 // cannot use TF32 tensor cores, and bf16 at Dh 16, 32, 128 and 256) keeps the
@@ -103,7 +104,7 @@
 // bf16 Dh 256 take 32-key tiles, float32 Dh 256 8-key tiles and a one-stage
 // ring, and float32 writes p and ds over s and dp, to stay inside the 227 KB
 // a block may use (Geo has the reckoning). This design has no
-// bf16 Dh 64 instance: that shape takes the tensor-core kernels.
+// bf16 Dh 64 instance: that shape takes the fused kernel.
 //
 // Layout: q/k/v/g/o are read through (batch, token, head) strides with a
 // contiguous Dh axis and 16-byte row starts; lse is [B, H, T] float32;

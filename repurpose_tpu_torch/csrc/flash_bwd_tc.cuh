@@ -1,22 +1,19 @@
-// The tensor-core attention backward for Hopper (sm_90a), bf16 at Dh 64: one
-// warpgroup mainloop for dq and one for dk/dv, instantiated by the kernels
-// flash_bwd_{dq,dkv}_tc_kernel (flash_bwd.cu) in two mask forms:
-//   - the select form of the TPU dense kernels: the dense backward
-//     (T <= 2048, the training step);
-//   - the bias form of the TPU stream kernels: the long-T backward
-//     (T > 2048).
-// flash_bwd.cu and flash_bwd_stream.cu name the TPU kernels they replace;
-// this note is the design. Both run after flash_bwd_stream_prep_kernel
-// (flash_bwd_stream.cu), which makes q_s, {lse, delta} and {key flag,
-// segment} once per backward.
+// The dense tensor-core attention backward for Hopper (sm_90a), bf16 at Dh
+// 64, T <= 2048 (the training step) in the select form of the TPU dense
+// kernels: one warpgroup mainloop for dq and one for dk/dv, instantiated by
+// the kernels flash_bwd_{dq,dkv}_tc_kernel (flash_bwd.cu), which name the
+// TPU kernels they replace; this note is the design. The long-T backward in
+// bf16 at Dh 64, in the bias form of the TPU stream kernels, is one fused
+// kernel on these helpers, flash_bwd_fused.cuh. Both run after
+// flash_bwd_stream_prep_kernel (flash_bwd_stream.cu), which makes q_s,
+// {lse, delta} and {key flag, segment} once per backward.
 //
 // What they compute, with the saved forward out `o` and lse, the upstream
 // gradient `g`, scale = 1/sqrt(Dh) (or a zero-padded head's own), per batch
 // row b and head h:
 //   q_s   = round_bf16(float(q) * scale)          (the prep)
 //   s_ij  = dot(q_s_i, k_j) in float32
-//   p_ij  = R(exp(R(s_ij + (allowed(i, j) ? 0 : -1e9) - lse_i)))   bias form
-//   p_ij  = allowed(i, j) ? R(exp(R(s_ij - lse_i))) : 0              select form
+//   p_ij  = allowed(i, j) ? R(exp(R(s_ij - lse_i))) : 0
 //   allowed(i, j) = key_valid[j] && (no seg_ids || seg_ids[i] == seg_ids[j])
 //   dp_ij = dot(g_i, v_j) in float32
 //   d_i   = sum_d g_id * o_id in float32           (delta, the prep)
@@ -25,27 +22,22 @@
 //   dk_j  = sum_i bf16(ds_ij) q_s_i                (no extra scale: q_s has it)
 //   dv_j  = sum_i bf16(p_ij) g_i
 // R(.) rounds to bf16 under the bf16 softmax interior (else the identity);
-// keys past T have p = 0 in both forms. The two forms differ only on packed
-// rows, and there only where a query row has no allowed key in its sweep
-// (its lse then sits near -1e9, so the bias form's p is not 0): padding
-// inside kvl whose own segment holds no valid key. The model gives such rows
-// g = 0, but the dense kernels' contract holds for any g, so they take the
-// select form. Unpacked (every segment 0) the two forms are the same
-// function.
+// keys past T have p = 0. The bias form (p = R(exp(R(s_ij + (allowed ? 0 :
+// -1e9) - lse_i)))) differs from this only on packed rows, and there only
+// where a query row has no allowed key in its sweep (its lse then sits near
+// -1e9, so the bias form's p is not 0): padding inside kvl whose own
+// segment holds no valid key. The model gives such rows g = 0, but the
+// dense kernels' contract holds for any g, so they take the select form.
 //
 // The sweeps, with kvl = last valid key + 1 of the batch row and 64-row
 // tiles:
 //   - dq, per query tile qt: key tiles [0, ceil(kvl / 64)), packed
-//     [lo[b, qt], min(hi[b, qt], ceil(kvl / 64))). The dense backward's
-//     lo/hi (`segment_tile_bounds` at 64/64) span every position of each
-//     segment id that owns a row of the tile, wherever it lies: tiles
-//     outside hold no key of those ids, which the select form gives p = 0
-//     exactly, for any layout. The long-T backward's (`packed_block_bounds`
-//     at 64/64, the port of `_packed_block_bounds`, fa:486) span each id's
-//     run, the stream forward's sweep: on the model's rows, where each video
-//     is one run, the tiles outside carry an exact 0 softmax mass. A query
-//     tile at or past kvl, or whose range is empty, writes dq = 0; so do
-//     rows at or past kvl.
+//     [lo[b, qt], min(hi[b, qt], ceil(kvl / 64))), where lo/hi
+//     (`segment_tile_bounds` at 64/64) span every position of each segment
+//     id that owns a row of the tile, wherever it lies: tiles outside hold
+//     no key of those ids, which the select form gives p = 0 exactly, for
+//     any layout. A query tile at or past kvl, or whose range is empty,
+//     writes dq = 0; so do rows at or past kvl.
 //   - dk/dv, per key tile kt: query tiles [0, ceil(kvl / 64)), packed
 //     [lo[b, kt], min(hi[b, kt], ceil(kvl / 64))): the mask seg_q == seg_k is
 //     symmetric, so the key tile's own bounds are exactly the query tiles
@@ -77,7 +69,7 @@
 //     operands by a byte permute.
 //   - 64-row tiles, about 68 KB of shared memory; dq at <= 128 registers
 //     (three blocks an SM), dk/dv at <= 200 (two); static_asserts below.
-// What bounds it: the elementwise work per (query, key) pair (the bias, two
+// What bounds it: the elementwise work per (query, key) pair (the mask, two
 // bf16 roundings, expf and the ds roundings) costs more issue slots than the
 // three or four 64x64x64 products it feeds. The roundings run two values at
 // a time (round2: one cvt.rn.bf16x2.f32), which leaves every result bit as
@@ -108,9 +100,6 @@ constexpr size_t SM_SMEM = 233472;          // bytes of shared memory per SM
 // __launch_bounds__ minimum blocks an SM of the two kernels
 constexpr int DQ_MIN_BLOCKS = 3;
 constexpr int DKV_MIN_BLOCKS = 2;
-
-// The mask form of packed rows (see above).
-enum Mask { BIAS, SELECT };
 
 // Two values rounded to bf16 under the bf16 interior, by one
 // cvt.rn.bf16x2.f32 for both (one conversion a value costs the elementwise
@@ -178,24 +167,18 @@ struct Args {
 };
 
 // p of two scores, in place, with the rounding points above (SM_BF16: the
-// bf16 softmax interior): key flags `ok` 1 valid, 0 masked, -1 past T (p =
-// 0). The select form also gives p = 0 wherever the pair is not allowed;
-// the score then carries the bias all the same, so that the exp never
-// overflows.
-template <bool SM_BF16, Mask MASK>
+// bf16 softmax interior): key flags `ok` 1 valid, 0 masked, -1 past T. p is
+// 0 wherever the pair is not allowed; the score then carries the bias all
+// the same, so that the exp never overflows.
+template <bool SM_BF16>
 __device__ __forceinline__ void prob2(float& s0, float& s1, int ok0, int ok1, bool same0,
                                       bool same1, float lse0, float lse1) {
   const bool allowed0 = ok0 == 1 && same0, allowed1 = ok1 == 1 && same1;
   const float2 x = round2<SM_BF16>(s0 + (allowed0 ? 0.f : MASK_BIAS) - lse0,
                                    s1 + (allowed1 ? 0.f : MASK_BIAS) - lse1);
   const float2 p = round2<SM_BF16>(expf(x.x), expf(x.y));
-  if constexpr (MASK == SELECT) {
-    s0 = allowed0 ? p.x : 0.f;
-    s1 = allowed1 ? p.y : 0.f;
-  } else {
-    s0 = ok0 < 0 ? 0.f : p.x;
-    s1 = ok1 < 0 ? 0.f : p.y;
-  }
+  s0 = allowed0 ? p.x : 0.f;
+  s1 = allowed1 ? p.y : 0.f;
 }
 
 // ds of two pairs, over dp in place: R(p * R(dp - delta)).
@@ -263,7 +246,7 @@ __device__ __forceinline__ int2 sweep(const Args& a, int b, int tile, int kvl) {
 
 // One block of the dq kernel: query tile blockIdx.x of head blockIdx.y,
 // batch row blockIdx.z.
-template <bool SM_BF16, Mask MASK>
+template <bool SM_BF16>
 __device__ __forceinline__ void dq_block(const Args& a) {
   extern __shared__ unsigned char smem_raw[];
   DqSmem& s = smem_as<DqSmem>(smem_raw);
@@ -340,8 +323,8 @@ __device__ __forceinline__ void dq_block(const Args& a) {
       const int4 kf = *reinterpret_cast<const int4*>(&s.keys[st][8 * n + c0]);  // {flag, seg} x 2
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
-        prob2<SM_BF16, MASK>(sc[4 * n + 2 * hf], sc[4 * n + 2 * hf + 1], kf.x, kf.z,
-                             kf.y == seg[hf], kf.w == seg[hf], stat[hf].x, stat[hf].x);
+        prob2<SM_BF16>(sc[4 * n + 2 * hf], sc[4 * n + 2 * hf + 1], kf.x, kf.z, kf.y == seg[hf],
+                       kf.w == seg[hf], stat[hf].x, stat[hf].x);
     }
     wg_wait<0>();
     reg_fence(dp);
@@ -366,7 +349,7 @@ __device__ __forceinline__ void dq_block(const Args& a) {
 
 // One block of the dk/dv kernel: key tile blockIdx.x of head blockIdx.y,
 // batch row blockIdx.z.
-template <bool SM_BF16, Mask MASK>
+template <bool SM_BF16>
 __device__ __forceinline__ void dkv_block(const Args& a) {
   extern __shared__ unsigned char smem_raw[];
   DkvSmem& s = smem_as<DkvSmem>(smem_raw);
@@ -446,8 +429,8 @@ __device__ __forceinline__ void dkv_block(const Args& a) {
       const int4 ri = *reinterpret_cast<const int4*>(&s.row_info[st][8 * n + c0]);  // {flag, seg} x 2
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf)
-        prob2<SM_BF16, MASK>(sc[4 * n + 2 * hf], sc[4 * n + 2 * hf + 1], key[hf].x, key[hf].x,
-                             key[hf].y == ri.y, key[hf].y == ri.w, rs.x, rs.z);
+        prob2<SM_BF16>(sc[4 * n + 2 * hf], sc[4 * n + 2 * hf + 1], key[hf].x, key[hf].x,
+                       key[hf].y == ri.y, key[hf].y == ri.w, rs.x, rs.z);
     }
     acc_to_a<SM_BF16>(sc, p_a);
     const uint64_t dGt = sw128_desc(s.g[st], SW_GROUP, SW_GROUP);

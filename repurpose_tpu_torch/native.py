@@ -83,9 +83,9 @@ SIGNATURES = {
              _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
             _I,
         ),
-        "flash_bwd_dq_tc": ([_P] * 11 + [_I] * 5 + [ctypes.c_float, _P], _I),
-        "flash_bwd_dkv_tc": ([_P] * 12 + [_I] * 5 + [ctypes.c_float, _P], _I),
-        "flash_bwd_fused_tc": ([_P] * 14 + [_I] * 5 + [ctypes.c_float, _P], _I),
+        "flash_bwd_dq_tc": ([_P] * 11 + [_I] * 4 + [ctypes.c_float, _P], _I),
+        "flash_bwd_dkv_tc": ([_P] * 12 + [_I] * 4 + [ctypes.c_float, _P], _I),
+        "flash_bwd_fused_tc": ([_P] * 14 + [_I] * 4 + [ctypes.c_float, _P], _I),
     },
     "flash_bwd_stream": {
         "flash_bwd_dq_stream": (

@@ -29,20 +29,20 @@ the TPU kernels ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (+
 ``flash_bwd_dkv_stream`` replace the four long-T TPU backward kernels
 (``_bwd_dq_stream_kernel``, ``_bwd_dq_packed_stream_kernel``,
 ``_bwd_dq_hbm_kernel``, ``_bwd_dkv_stream_kernel``) with the kernels of
-``csrc/flash_bwd_stream.cu``. In bf16 at Dh 64 (``stream_tc``), at any T,
-both are the one wgmma/TMA pair of ``csrc/flash_bwd.cu`` (mainloop
-``csrc/flash_bwd_tc.cuh``): as the dense backward in the TPU dense kernels'
-select form, as the long-T one in the stream kernels' bias form, after
-``flash_bwd_stream_prep`` has computed q_s and delta once per backward. It
-sweeps 64-row tiles and, packed, only the tiles of each tile's own segment
-ids: every position of each id (``segment_tile_bounds``) for the dense
-backward, each id's run (``packed_block_bounds``, as the stream forward and
-the TPU stream kernels) for the long-T one. ``flash_backward``'s own long-T
-route in bf16 at Dh 64 takes neither pair but one fused kernel,
-``flash_bwd_fused_tc`` (``csrc/flash_bwd_fused.cuh``), which forms each
-(query, key) pair's p and ds once and adds dq across key blocks in float32:
-its dq sum runs in an order that changes from run to run, so that dq, unlike
-the pair's, may differ in its last bits between two runs.
+``csrc/flash_bwd_stream.cu``. In bf16 at Dh 64 (``stream_tc``), after
+``flash_bwd_stream_prep`` has computed q_s and delta once per backward, the
+dense backward is the wgmma/TMA pair ``flash_bwd_dq_tc`` / ``flash_bwd_dkv_tc``
+of ``csrc/flash_bwd.cu`` (mainloop ``csrc/flash_bwd_tc.cuh``) in the TPU
+dense kernels' select form, sweeping 64-row tiles and, packed, only the
+tiles that hold every position of each tile's own segment ids
+(``segment_tile_bounds``); the long-T backward, of ``flash_backward`` and
+of both stream wrappers, is one fused kernel, ``flash_bwd_fused_tc``
+(``csrc/flash_bwd_fused.cuh``), in the stream kernels' bias form on each
+id's run (``packed_block_bounds``, as the stream forward and the TPU stream
+kernels). It forms each (query, key) pair's p and ds once and adds dq
+across key blocks in float32: its dq sum runs in an order that changes from
+run to run, so that dq, unlike the dense pair's, may differ in its last bits
+between two runs.
 dq rows and dk/dv rows at or past
 ``_kv_len`` are 0. The upstream gradient must be 0 on query rows
 at or past ``_kv_len``, which is what the model gives (the loss masks those
@@ -647,8 +647,9 @@ def flash_forward_stream_reference(
 def stream_tc(q: torch.Tensor) -> bool:
     """Whether the kernels on CUDA tensors take their tensor-core design:
     bf16 at Dh 64, the model's shape, under either softmax interior
-    (``flash_fwd_tc`` / ``flash_fwd_stream_tc``; the backward, dense and
-    streaming, after ``flash_bwd_stream_prep``). float32 (which would lose
+    (``flash_fwd_tc`` / ``flash_fwd_stream_tc``; after
+    ``flash_bwd_stream_prep``, the dense backward's pair and the long-T
+    backward's fused kernel). float32 (which would lose
     its parity on TF32 tensor cores) and bf16 at Dh 16, 32 and 128 keep the
     first kernels of csrc/flash_fwd.cu, csrc/flash_fwd_stream.cu,
     csrc/flash_bwd.cu and csrc/flash_bwd_stream.cu."""
@@ -968,7 +969,7 @@ def flash_bwd_dq_tc(q, k, v, g, softmax_dtype: str, scale, prep: StreamPrep, dq)
     csrc/flash_bwd.cu, bf16 at Dh 64) as the dense backward, in the select
     form, on ``prep`` into ``dq``; counted in ``flash_bwd_dq_tc.launches``
     (the caller counts it in ``flash_bwd_dq.launches`` too)."""
-    _tc_launch("flash_bwd_dq_tc", q, k, v, g, softmax_dtype, scale, prep, (dq,), dense=True)
+    _tc_launch("flash_bwd_dq_tc", q, k, v, g, softmax_dtype, scale, prep, (dq,))
     flash_bwd_dq_tc.launches += 1
 
 
@@ -976,15 +977,14 @@ def flash_bwd_dkv_tc(q, k, v, g, softmax_dtype: str, scale, prep: StreamPrep, dk
     """Launches the tensor-core dk/dv kernel (``flash_bwd_dkv_tc_kernel`` of
     csrc/flash_bwd.cu) as ``flash_bwd_dq_tc`` does; counted in
     ``flash_bwd_dkv_tc.launches``."""
-    _tc_launch("flash_bwd_dkv_tc", q, k, v, g, softmax_dtype, scale, prep, (dk, dv),
-               dense=True)
+    _tc_launch("flash_bwd_dkv_tc", q, k, v, g, softmax_dtype, scale, prep, (dk, dv))
     flash_bwd_dkv_tc.launches += 1
 
 
 flash_bwd_dq.launches = 0  # kernel launches; the plain CPU path does not count
 flash_bwd_dkv.launches = 0
 flash_bwd_dq_tc.launches = 0  # the part of the above on the tensor-core kernels
-flash_bwd_dkv_tc.launches = 0  # (the stream wrappers' launches of them are not counted here)
+flash_bwd_dkv_tc.launches = 0
 flash_bwd_dq_chunked.launches = 0  # the part of the above on the head-chunked kernels
 flash_bwd_dkv_chunked.launches = 0
 
@@ -1194,7 +1194,7 @@ def flash_bwd_fused_stream_reference(q, k, v, key_valid, o, lse, g, seg_ids=None
 
 
 class StreamPrep(NamedTuple):
-    """Everything the tensor-core backward kernels (dense and streaming) read
+    """Everything the tensor-core backward kernels (dense and long-T) read
     besides k, v and g, made once per backward by ``flash_bwd_stream_prep``;
     Tp = T rounded up to 64."""
 
@@ -1208,7 +1208,7 @@ class StreamPrep(NamedTuple):
 
 class DensePrep(StreamPrep):
     """A ``StreamPrep`` whose lo / hi are the dense backward's sweep
-    (``segment_tile_bounds``); a plain one holds the streaming backward's
+    (``segment_tile_bounds``); a plain one holds the long-T backward's
     (``packed_block_bounds``)."""
 
     __slots__ = ()
@@ -1240,11 +1240,11 @@ def flash_bwd_stream_prep_reference(q, k, v, key_valid, o, lse, g, seg_ids=None,
 def flash_bwd_stream_prep(q, k, v, key_valid, o, lse, g, seg_ids=None, *,
                           scale: float | None = None, dense: bool = False,
                           sweep: AttentionSweep | None = None) -> StreamPrep:
-    """What the tensor-core backward kernels, dense (``dense``, the backward
-    up to ``STREAM_MAX_T``) or streaming, read besides k, v and g, made once
-    per backward: q_s, rows and info by the kernel
+    """What the tensor-core backward kernels, the dense pair (``dense``, the
+    backward up to ``STREAM_MAX_T``) or the fused long-T kernel, read besides
+    k, v and g, made once per backward: q_s, rows and info by the kernel
     ``flash_bwd_stream_prep`` of csrc/flash_bwd_stream.cu on CUDA tensors
-    (counted in ``flash_bwd_stream_prep.launches``), with that pair's sweep
+    (counted in ``flash_bwd_stream_prep.launches``), with that kernel's sweep
     ``sweep`` (``attention_sweep``, made here when None);
     ``flash_bwd_stream_prep_reference`` on CPU ones. Checks the backward's
     inputs."""
@@ -1281,14 +1281,12 @@ def flash_bwd_stream_prep(q, k, v, key_valid, o, lse, g, seg_ids=None, *,
         qs, rows, info, *_sweep_for(key_valid, seg_ids, sweep, dense)[:3])
 
 
-def _tc_launch(name: str, q, k, v, g, softmax_dtype, scale, prep: StreamPrep, outs, *,
-               dense: bool):
-    """Launches tensor-core backward kernel ``name`` (``flash_bwd_dq_tc`` or
-    ``flash_bwd_dkv_tc`` of csrc/flash_bwd.cu) on ``prep`` (the outputs of
+def _tc_launch(name: str, q, k, v, g, softmax_dtype, scale, prep: StreamPrep, outs):
+    """Launches tensor-core backward kernel ``name`` of csrc/flash_bwd.cu
+    (``flash_bwd_dq_tc`` / ``flash_bwd_dkv_tc``, the dense backward, or
+    ``flash_bwd_fused_tc``, the long-T one) on ``prep`` (the outputs of
     ``flash_bwd_stream_prep`` for these inputs, which checked them) into the
-    preallocated ``outs``: as the dense backward (``dense``: the select
-    form) or as the streaming one (the bias form). A packed ``prep`` must
-    hold that pair's sweep."""
+    preallocated ``outs``. A packed ``prep`` must hold that kernel's sweep."""
     import ctypes
 
     from repurpose_tpu_torch import native
@@ -1303,6 +1301,7 @@ def _tc_launch(name: str, q, k, v, g, softmax_dtype, scale, prep: StreamPrep, ou
             or not all(x.is_contiguous() and x.device == q.device
                        for x in prep if x is not None)):
         raise ValueError("prep: not the outputs of flash_bwd_stream_prep for these inputs")
+    dense = name != "flash_bwd_fused_tc"
     if lo is not None and isinstance(prep, DensePrep) != dense:
         raise ValueError(f"prep: made with dense={not dense} for the "
                          f"{'dense' if dense else 'streaming'} backward")
@@ -1311,7 +1310,7 @@ def _tc_launch(name: str, q, k, v, g, softmax_dtype, scale, prep: StreamPrep, ou
     err = getattr(lib, name)(
         qs.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), strides, rows.data_ptr(),
         info.data_ptr(), kvl.data_ptr(), _ptr(lo), _ptr(hi), *(x.data_ptr() for x in outs),
-        b, t, h, int(softmax_dtype == "bfloat16"), int(dense), _scale(q, scale),
+        b, t, h, int(softmax_dtype == "bfloat16"), _scale(q, scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
@@ -1324,11 +1323,14 @@ def flash_bwd_dq_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
                         sweep: AttentionSweep | None = None) -> torch.Tensor:
     """dq of the streaming backward, ``[B, T, H, Dh]`` in q's dtype: on CUDA
     tensors a kernel of csrc/flash_bwd_stream.cu (counted in
-    ``flash_bwd_dq_stream.launches``) or, where ``stream_tc(q)``, the
-    tensor-core one of csrc/flash_bwd.cu in the bias form, on ``prep`` (the
-    outputs of ``flash_bwd_stream_prep``, run here when not given), each on
-    the stream sweep ``sweep`` (made here when None);
-    ``flash_bwd_dq_stream_reference`` on CPU ones."""
+    ``flash_bwd_dq_stream.launches``) or, where ``stream_tc(q)``, the fused
+    kernel ``flash_bwd_fused_tc`` (counted there too) on ``prep`` (the
+    outputs of ``flash_bwd_stream_prep``, run here when not given), its dk
+    and dv left in scratch; each on the stream sweep ``sweep`` (made here
+    when None); ``flash_bwd_dq_stream_reference`` on CPU ones. On the fused
+    kernel dq's float32 sum runs in an order that changes from run to run,
+    so that its last bits may differ between two calls, as
+    ``flash_backward``'s do."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dq_stream"):
         return flash_bwd_dq_stream_reference(*args, scale=scale, sweep=sweep)
@@ -1336,8 +1338,8 @@ def flash_bwd_dq_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
     if stream_tc(q):
         if prep is None:
             prep = flash_bwd_stream_prep(*args[:-1], scale=scale, sweep=sweep)
-        _tc_launch("flash_bwd_dq_tc", q, k, v, g, softmax_dtype, scale, prep, (dq,),
-                   dense=False)
+        flash_bwd_fused_tc(q, k, v, g, softmax_dtype, scale, prep, dq, torch.empty_like(dq),
+                           torch.empty_like(dq))
     elif head_chunked(q):
         flash_bwd_dq_stream_chunked(*args, scale, dq=dq, sweep=sweep)
     else:
@@ -1351,8 +1353,9 @@ def flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
                          scale: float | None = None, sweep: AttentionSweep | None = None):
     """(dk, dv) of the streaming backward, each ``[B, T, H, Dh]`` in the
     input dtype: on CUDA tensors a kernel of csrc/flash_bwd_stream.cu
-    (counted in ``flash_bwd_dkv_stream.launches``) or the tensor-core one
-    of csrc/flash_bwd.cu as for ``flash_bwd_dq_stream``;
+    (counted in ``flash_bwd_dkv_stream.launches``) or the fused kernel as
+    for ``flash_bwd_dq_stream``, its dq left in scratch (dk and dv are
+    summed in a fixed order: equal bits from call to call);
     ``flash_bwd_dkv_stream_reference`` on CPU ones."""
     args = (q, k, v, key_valid, o, lse, g, seg_ids, softmax_dtype)
     if not _on_cuda(q, softmax_dtype, "flash_bwd_dkv_stream"):
@@ -1362,8 +1365,7 @@ def flash_bwd_dkv_stream(q, k, v, key_valid, o, lse, g, seg_ids=None,
     if stream_tc(q):
         if prep is None:
             prep = flash_bwd_stream_prep(*args[:-1], scale=scale, sweep=sweep)
-        _tc_launch("flash_bwd_dkv_tc", q, k, v, g, softmax_dtype, scale, prep, (dk, dv),
-                   dense=False)
+        flash_bwd_fused_tc(q, k, v, g, softmax_dtype, scale, prep, torch.empty_like(dk), dk, dv)
     elif head_chunked(q):
         flash_bwd_dkv_stream_chunked(*args, scale, dk=dk, dv=dv, sweep=sweep)
     else:
@@ -1392,9 +1394,9 @@ def flash_bwd_fused_tc(q, k, v, g, softmax_dtype: str, scale, prep: StreamPrep, 
     ``acc`` (what an earlier call on the same q, o, lse and g returned: the
     previous key blocks of one softmax), the sums add to it and dq is the
     blocks' sum, rounded once; returns the accumulator. Counted in
-    ``flash_bwd_fused_tc.launches``; ``flash_backward`` takes it past
-    ``STREAM_MAX_T``; ``flash_bwd_fused_stream_reference`` is its plain
-    version."""
+    ``flash_bwd_fused_tc.launches``; ``flash_backward`` and the stream
+    wrappers take it past ``STREAM_MAX_T``;
+    ``flash_bwd_fused_stream_reference`` is its plain version."""
     for name, x in (("dq", dq), ("dk", dk), ("dv", dv)):
         if (x.shape != q.shape or x.dtype != q.dtype or x.device != q.device
                 or not x.is_contiguous()):
@@ -1403,8 +1405,7 @@ def flash_bwd_fused_tc(q, k, v, g, softmax_dtype: str, scale, prep: StreamPrep, 
     if acc is None:
         acc = torch.zeros((b, h, -(-t // STREAM_TILE) * STREAM_TILE, dh), dtype=torch.float32,
                           device=q.device)
-    _tc_launch("flash_bwd_fused_tc", q, k, v, g, softmax_dtype, scale, prep, (acc, dq, dk, dv),
-               dense=False)
+    _tc_launch("flash_bwd_fused_tc", q, k, v, g, softmax_dtype, scale, prep, (acc, dq, dk, dv))
     flash_bwd_fused_tc.launches += 1
     return acc
 

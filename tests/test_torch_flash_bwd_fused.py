@@ -1,7 +1,8 @@
 """The fused long-T attention backward (``flash_bwd_fused_tc``, bf16 at Dh
 64) on the CPU: its plain version against the pair's, and which kernels
-``flash_backward`` launches. The kernel itself runs only on the card
-(``tests/test_torch_flash_bwd_stream_gpu.py``, marked ``gpu``).
+``flash_backward`` and the stream wrappers launch. The kernel itself runs
+only on the card (``tests/test_torch_flash_bwd_stream_gpu.py``, marked
+``gpu``).
 
 ``flash_bwd_fused_stream_reference`` is the fused kernel's arithmetic in its
 order: per block of 128 keys (two 64-key tiles, each swept over the query
@@ -178,14 +179,12 @@ def test_flash_backward_takes_the_fused_kernel_past_stream_max_t(monkeypatch, t,
 
     monkeypatch.setattr(fa, "_on_cuda", lambda *a: True)
     monkeypatch.setattr(fa, "flash_bwd_stream_prep", prep)
-    monkeypatch.setattr(fa, "_tc_launch", lambda name, *a, dense: launched.append(
-        (name, len(a[-1]), dense)))
-    monkeypatch.setattr(fa, "_bwd_launch", lambda name, *a: launched.append((name, None, None)))
+    monkeypatch.setattr(fa, "_tc_launch", lambda name, *a: launched.append((name, len(a[-1]))))
+    monkeypatch.setattr(fa, "_bwd_launch", lambda name, *a: launched.append((name, None)))
     dq, dk, dv = fa.flash_backward(q, k, v, kv, o, lse, g, None, "bfloat16", scale=0.125)
-    want = {"fused": [("flash_bwd_fused_tc", 4, False)],
-            "pair_tc": [("flash_bwd_dq_tc", 1, True), ("flash_bwd_dkv_tc", 2, True)],
-            "stream_first": [("flash_bwd_dq_stream", None, None),
-                             ("flash_bwd_dkv_stream", None, None)]}[route]
+    want = {"fused": [("flash_bwd_fused_tc", 4)],
+            "pair_tc": [("flash_bwd_dq_tc", 1), ("flash_bwd_dkv_tc", 2)],
+            "stream_first": [("flash_bwd_dq_stream", None), ("flash_bwd_dkv_stream", None)]}[route]
     assert launched == want
     assert preps == {"fused": [False], "pair_tc": [True], "stream_first": []}[route]
     counts = [c.launches for c in counters]
@@ -194,6 +193,51 @@ def test_flash_backward_takes_the_fused_kernel_past_stream_max_t(monkeypatch, t,
     assert all(x.shape == q.shape and x.dtype == q.dtype for x in (dq, dk, dv))
     if route == "fused":
         assert dq.data_ptr() != dk.data_ptr() != dv.data_ptr()
+
+
+@pytest.mark.parametrize("wrapper", ["dq", "dkv"])
+def test_the_stream_wrappers_take_the_fused_kernel_past_stream_max_t(monkeypatch, wrapper):
+    """With CUDA stood in for (``_on_cuda``, the prep and ``_tc_launch``
+    patched, ``STREAM_MAX_T`` at 128): ``flash_bwd_dq_stream`` and
+    ``flash_bwd_dkv_stream`` in bf16 at Dh 64 past ``STREAM_MAX_T`` each make
+    one fused launch on a stream prep (no kernel of the pair), write their
+    own gradients into the fused kernel's outputs and the others into
+    scratch, and count in their own counter and the fused kernel's."""
+    monkeypatch.setattr(fa, "STREAM_MAX_T", 128)
+    t = 200
+    q, k, v, g = (torch.zeros(1, t, 2, 64, dtype=torch.bfloat16) for _ in range(4))
+    kv = torch.ones(1, t, dtype=torch.bool)
+    o, lse = q.clone(), torch.zeros(1, 2, t, 1)
+    counters = (fa.flash_bwd_fused_tc, fa.flash_bwd_dq_tc, fa.flash_bwd_dkv_tc,
+                fa.flash_bwd_dq_stream, fa.flash_bwd_dkv_stream)
+    for c in counters:
+        monkeypatch.setattr(c, "launches", 0)
+    launched, preps = [], []
+
+    def prep(*a, **kw):
+        preps.append(kw.get("dense", False))
+        return _Prep(a[0])
+
+    monkeypatch.setattr(fa, "_on_cuda", lambda *a: True)
+    monkeypatch.setattr(fa, "flash_bwd_stream_prep", prep)
+    monkeypatch.setattr(fa, "_tc_launch", lambda name, *a: launched.append((name, a[-2], a[-1])))
+    monkeypatch.setattr(fa, "_bwd_launch", lambda name, *a: launched.append((name, None, None)))
+    fn = {"dq": fa.flash_bwd_dq_stream, "dkv": fa.flash_bwd_dkv_stream}[wrapper]
+    got = fn(q, k, v, kv, o, lse, g, None, "bfloat16", scale=0.125)
+    got = got if isinstance(got, tuple) else (got,)
+    assert preps == [False]  # a prep of its own, on the stream sweep
+    assert [(name, type(p)) for name, p, _ in launched] == [("flash_bwd_fused_tc", _Prep)]
+    acc, *outs = launched[0][2]
+    assert acc.dtype == torch.float32 and acc.shape == (1, 2, 256, 64)
+    mine = outs[:1] if wrapper == "dq" else outs[1:]
+    assert [x.data_ptr() for x in got] == [x.data_ptr() for x in mine]
+    assert len({x.data_ptr() for x in outs}) == 3  # the scratch is apart from the gradients
+    assert all(x.shape == q.shape and x.dtype == q.dtype and x.is_contiguous() for x in outs)
+    counts = [c.launches for c in counters]
+    assert counts == ([1, 0, 0, 1, 0] if wrapper == "dq" else [1, 0, 0, 0, 1])
+    given = _Prep(q)  # a given prep is taken as is
+    fn(q, k, v, kv, o, lse, g, None, "bfloat16", given, scale=0.125)
+    assert preps == [False] and launched[-1][:2] == ("flash_bwd_fused_tc", given)
 
 
 def test_the_fused_wrapper_refuses_outputs_of_another_shape(monkeypatch):

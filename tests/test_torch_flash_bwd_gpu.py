@@ -294,23 +294,6 @@ def test_tensor_core_pair_takes_a_given_prep_as_is(cuda):
         flash_bwd_dkv(q, k, v, kv, o, lse, g, sg, "bfloat16", stream)
 
 
-@pytest.mark.parametrize("sm", ["bfloat16", "float32"])
-def test_unpacked_dense_pair_equals_the_stream_pair(cuda, sm):
-    """One mainloop, one function: unpacked at T = 2048 the dense pair (the
-    select form) and the long-T pair (the bias form), launched directly on
-    one prep, give the same bits."""
-    q, k, v, kv, sg, o, lse, g = _inputs(17, 4, 2048, 2, 64, torch.bfloat16, cuda, False, sm)
-    prep = flash_bwd_stream_prep(q, k, v, kv, o, lse, g)
-    dense = [torch.empty_like(q) for _ in range(3)]
-    stream = [torch.empty_like(q) for _ in range(3)]
-    fa.flash_bwd_dq_tc(q, k, v, g, sm, None, prep, dense[0])
-    fa.flash_bwd_dkv_tc(q, k, v, g, sm, None, prep, dense[1], dense[2])
-    fa._tc_launch("flash_bwd_dq_tc", q, k, v, g, sm, None, prep, stream[:1], dense=False)
-    fa._tc_launch("flash_bwd_dkv_tc", q, k, v, g, sm, None, prep, stream[1:], dense=False)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(dense, stream))
-
-
 @pytest.mark.parametrize("packed", [False, True])
 def test_autograd_function_takes_the_tensor_core_pair(cuda, packed):
     """Gradients of sum(out * w) through the Function in bf16 at Dh 64 (w

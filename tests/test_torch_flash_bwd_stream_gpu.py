@@ -21,9 +21,11 @@ the dense backward's GPU tests:
   2**-8 relative), and a last-bit difference in s or dp can flip the bf16
   rounding of a p or ds entry.
 
-``flash_backward``'s long-T route in bf16 at Dh 64 is the fused kernel
-(``flash_bwd_fused_tc``), whose dq sums key blocks' float32 partials in an
-order that changes from run to run. Two of its runs on the same inputs give
+The long-T backward in bf16 at Dh 64, of ``flash_backward`` and of the
+stream wrappers ``flash_bwd_dq_stream`` / ``flash_bwd_dkv_stream``, is the
+fused kernel (``flash_bwd_fused_tc``), whose dq sums key blocks' float32
+partials in an order that changes from run to run. Two of its runs on the
+same inputs give
 dk and dv bit for bit, and dq within ``DQ_RUN_TOL``: the float32 sums
 differ by rounding (~1e-7 of the summed terms), which can move dq's bf16
 rounding by one bf16 ulp (2**-7 relative at most) and a sum that nearly
@@ -289,14 +291,19 @@ def test_stream_kernels_at_tile_and_block_edges(cuda, dh, t):
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("dtype,sm", [(torch.bfloat16, "bfloat16"), (torch.float32, "float32")])
 def test_stream_kernels_are_deterministic(cuda, dtype, sm, packed):
-    """Two launches on the same inputs give the same bits (no atomics)."""
+    """Two launches on the same inputs: the first design (float32) gives the
+    same bits (no atomics); the fused kernel (bf16 at Dh 64) dk and dv bit
+    for bit and dq within ``DQ_RUN_TOL`` (its float32 sum order)."""
     args = _inputs(11, 8193, 4, 64, dtype, cuda, packed, sm)
     q, k, v, kv, sg, o, lse, g = args
     runs = [(flash_bwd_dq_stream(q, k, v, kv, o, lse, g, sg, sm),
              *flash_bwd_dkv_stream(q, k, v, kv, o, lse, g, sg, sm)) for _ in range(2)]
     torch.cuda.synchronize()
     for name, a, b in zip(("dq", "dk", "dv"), *runs):
-        assert torch.equal(a, b), name
+        if name == "dq" and fa.stream_tc(q):
+            _dq_runs_close(b, a, name)
+        else:
+            assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -323,10 +330,12 @@ def test_stream_prep_matches_plain(cuda, packed):
 
 
 def test_stream_kernels_take_a_given_prep(cuda):
-    """The stream wrappers take a given prep as is (one prep for both, the
-    same bits as each running its own); flash_backward runs the prep once
-    and, in bf16 at Dh 64, the fused kernel once and neither wrapper, with
-    the gradients of the pair within the bf16 tolerance."""
+    """The stream wrappers take a given prep as is (one prep for both, left
+    intact by the first; the fused kernel once each, dk and dv the bits of
+    each running its own prep, dq within ``DQ_RUN_TOL``); flash_backward runs
+    the prep once and, in bf16 at Dh 64, the fused kernel once and neither
+    wrapper, with the wrappers' gradients in the same way. A prep of the
+    dense sweep is refused (it would leave pairs out)."""
     q, k, v, kv, sg, o, lse, g = _inputs(15, 4096, 2, 64, torch.bfloat16, cuda, True,
                                          "bfloat16")
     counters = (flash_bwd_stream_prep, flash_bwd_dq_stream, flash_bwd_dkv_stream,
@@ -336,18 +345,21 @@ def test_stream_kernels_take_a_given_prep(cuda):
     given = (flash_bwd_dq_stream(q, k, v, kv, o, lse, g, sg, "bfloat16", prep),
              *flash_bwd_dkv_stream(q, k, v, kv, o, lse, g, sg, "bfloat16", prep))
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 0]
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, 1, 2]
     alone = (flash_bwd_dq_stream(q, k, v, kv, o, lse, g, sg, "bfloat16"),
              *flash_bwd_dkv_stream(q, k, v, kv, o, lse, g, sg, "bfloat16"))
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(counters, before)] == [3, 2, 2, 0]
-    for name, a, b in zip(("dq", "dk", "dv"), given, alone):
-        assert torch.equal(a, b), name
+    assert [f.launches - b for f, b in zip(counters, before)] == [3, 2, 2, 4]
     fused = flash_backward(q, k, v, kv, o, lse, g, sg, "bfloat16")
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(counters, before)] == [4, 2, 2, 1]
-    for name, a, b in zip(("dq", "dk", "dv"), fused, given):
-        _close(a, b, 1e-2, name)
+    assert [f.launches - b for f, b in zip(counters, before)] == [4, 2, 2, 5]
+    for other in (alone, fused):
+        _dq_runs_close(other[0], given[0], "dq")
+        for name, a, b in zip(("dk", "dv"), other[1:], given[1:]):
+            assert torch.equal(a, b), name
+    dense = flash_bwd_stream_prep(q, k, v, kv, o, lse, g, sg, dense=True)  # the other sweep
+    with pytest.raises(ValueError):
+        flash_bwd_dq_stream(q, k, v, kv, o, lse, g, sg, "bfloat16", dense)
 
 
 def _fused(args, sm):
@@ -392,17 +404,20 @@ def _inputs_b1(seed, t, packed):
     return q, k, v, kv, sg, o, lse, g.masked_fill(~rows[:, :, None, None], 0.0)
 
 
-@pytest.mark.parametrize("t,packed", [(4096, False), (16384, False), (8192, True)])
+@pytest.mark.parametrize("t,packed", [(4096, False), (16384, False), (8192, True),
+                                      (32768, True)])
 def test_fused_kernel_matches_the_pair_and_its_plain_version(cuda, t, packed):
-    """The fused kernel at [1, 4096], [1, 16384] and packed [1, 8192] (8
-    heads, bf16, the bf16 interior) against its plain version and against
-    the pair's wrappers: within 1e-2 of max |gradient| (bf16), rows past kvl
-    0."""
+    """The fused kernel at [1, 4096], [1, 16384], packed [1, 8192] and packed
+    [1, 32768] (8 heads, bf16, the bf16 interior) against its plain version
+    and against the dense tensor-core pair on a ``DensePrep`` (the select
+    form on the dense sweep, which agrees with the bias form on the model's
+    rows): within 1e-2 of max |gradient| (bf16), rows past kvl 0."""
     args = _inputs_b1(31 + t, t, packed)
     q, k, v, kv, sg, o, lse, g = args
     got = _fused(args, "bfloat16")
-    pair = (flash_bwd_dq_stream(q, k, v, kv, o, lse, g, sg, "bfloat16"),
-            *flash_bwd_dkv_stream(q, k, v, kv, o, lse, g, sg, "bfloat16"))
+    dense = flash_bwd_stream_prep(q, k, v, kv, o, lse, g, sg, dense=True)
+    pair = (flash_bwd_dq(q, k, v, kv, o, lse, g, sg, "bfloat16", dense),
+            *flash_bwd_dkv(q, k, v, kv, o, lse, g, sg, "bfloat16", dense))
     torch.cuda.synchronize()
     plain = flash_bwd_fused_stream_reference(q, k, v, kv, o, lse, g, sg, "bfloat16")
     past = torch.arange(t, device=cuda)[None, :] >= _kv_len(kv)

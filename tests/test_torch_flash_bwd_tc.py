@@ -185,14 +185,11 @@ def test_the_dense_backward_takes_the_tensor_core_pair_at_bf16_dh_64(
         monkeypatch.setattr(fa, "_on_cuda", lambda *a: True)
         monkeypatch.setattr(fa, "flash_bwd_stream_prep",
                             lambda *a, **kw: preps.append((kw["scale"], kw["dense"])) or "prep")
-        monkeypatch.setattr(fa, "_tc_launch", lambda name, *a, dense: launched.append(
-            (name, a[-2], dense)))
-        monkeypatch.setattr(fa, "_bwd_launch", lambda name, *a: launched.append(
-            (name, None, None)))
+        monkeypatch.setattr(fa, "_tc_launch", lambda name, *a: launched.append((name, a[-2])))
+        monkeypatch.setattr(fa, "_bwd_launch", lambda name, *a: launched.append((name, None)))
     got = fa.flash_backward(*args, scale=0.25)
-    want = {"tensor_core": [("flash_bwd_dq_tc", "prep", True),
-                            ("flash_bwd_dkv_tc", "prep", True)],
-            "first_design": [("flash_bwd_dq", None, None), ("flash_bwd_dkv", None, None)],
+    want = {"tensor_core": [("flash_bwd_dq_tc", "prep"), ("flash_bwd_dkv_tc", "prep")],
+            "first_design": [("flash_bwd_dq", None), ("flash_bwd_dkv", None)],
             "plain": []}[route]
     assert launched == want
     assert preps == ([(0.25, True)] if route == "tensor_core" else [])
@@ -205,11 +202,10 @@ def test_the_dense_backward_takes_the_tensor_core_pair_at_bf16_dh_64(
     if route == "tensor_core":  # a given prep is taken as is, with no prep of its own
         fa.flash_bwd_dq(*args, prep="given")
         fa.flash_bwd_dkv(*args, prep="given")
-        assert launched[2:] == [("flash_bwd_dq_tc", "given", True),
-                                ("flash_bwd_dkv_tc", "given", True)]
+        assert launched[2:] == [("flash_bwd_dq_tc", "given"), ("flash_bwd_dkv_tc", "given")]
         assert preps == [(0.25, True)]
         fa.flash_bwd_dq(*args)  # no prep given: one of its own, with the dense sweep
-        assert preps[1:] == [(None, True)] and launched[-1] == ("flash_bwd_dq_tc", "prep", True)
+        assert preps[1:] == [(None, True)] and launched[-1] == ("flash_bwd_dq_tc", "prep")
 
 
 def _layout(name):
