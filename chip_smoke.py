@@ -1470,6 +1470,8 @@ def phase_long_kernel_vs_plain() -> list[dict]:
     variants = [
         dict(name="unpacked_T4096", shape=(1, 4096, 8, 64), dtype="bfloat16",
              sm="bfloat16", packed=False),
+        dict(name="unpacked_T16384", shape=(1, 16384, 8, 64), dtype="bfloat16",
+             sm="bfloat16", packed=False),
         dict(name="unpacked_T32768", shape=(1, 32768, 8, 64), dtype="bfloat16",
              sm="bfloat16", packed=False),
         dict(name="packed_T8192", shape=(1, 8192, 8, 64), dtype="bfloat16",

@@ -66,14 +66,22 @@
 //     registers, 128 packed under the float32 interior (4 bytes spilled);
 //     the nt kernel 111 at G = 1 and 2, 94 at G = 4 (144 bytes spilled).
 // What bounds it: the operations (4 kvl^2 H Dh at 989 TFLOP/s) in theory;
-// on the card the elementwise softmax per (query, key) pair, not the two
-// 64x64x64 products per tile it feeds. Under the bf16 interior each score
-// takes three bf16 roundings, an exp and a handful of adds; the roundings
-// run in pairs (round_bf16x2: one cvt.rn.bf16x2.f32 for two scores) and the
-// exp as ex2.approx (exp_fast), which took the [1, 32768] forward from
-// ~9.2 ms (one cvt per score, expf) to ~5.5 ms on an H100 (PERF.md).
-// Neither a fourth block an SM (at a 2-stage ring) nor one empty-barrier
-// arrive per warp gained anything there.
+// on the card the elementwise softmax per (query, key) pair and how far one
+// warpgroup's softmax runs under another's products, not the bytes it
+// reads: with no K/V copy after the ring's first round (wrong values,
+// timing only) the kernel at [1, 32768] ran 3.6 % faster, though it moves
+// 27.8 GB from L2 a launch, and blocks of 2, 3 or 4 query tiles sharing one
+// K/V ring ran no faster at the long shapes than these one-tile blocks,
+// slower at some (PERF.md). Under the bf16 interior each score takes three
+// bf16 roundings, an exp and a handful of adds. The roundings run on pairs:
+// s and p by one cvt.rn.bf16x2.f32 for two scores, and s - R(m') as one
+// sub.rn.bf16x2 on the pair of s kept packed (with the max as max.bf16x2),
+// whose single rounding gives the float32 subtraction's rounded value, so
+// the bits are the plain version's; the exp runs as ex2.approx (exp_fast).
+// Pairing s and p and exp_fast took the [1, 32768] forward from ~9.2 ms
+// (one cvt per score, expf) to ~5.5 ms on an H100, the packed subtraction
+// 7-12 % further at every shape (PERF.md). Neither a fourth block an SM (at
+// a 2-stage ring) nor one empty-barrier arrive per warp gained anything.
 //
 // What was hard. The ring needs the per-key flags beside K and V, and a
 // bulk copy cannot take the uint8 key_valid row (no 16-byte alignment at
@@ -180,16 +188,47 @@ __device__ __forceinline__ float exp_fast(float x) {
   return y;
 }
 
+// Two floats as one bf16x2 register (lo, hi), each rounded to nearest
+// (ties to even): one cvt.rn.bf16x2.f32; and its halves back as floats.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float lo_bf16(uint32_t u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float hi_bf16(uint32_t u) { return __uint_as_float(u & 0xFFFF0000u); }
+
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// a - b on bf16 pairs, rounded once to bf16 (to nearest, ties to even). For
+// finite bf16 a and b this equals R(float32(a - b)), the float32
+// subtraction's two roundings (checked for every pair on the CPU: tests/
+// test_torch_flash_stream.py); a result below bf16's normal range goes to
+// exp_fast, whose .ftz input gives 1 for it as for a flushed 0.
+__device__ __forceinline__ uint32_t sub_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
 // One online-softmax step on the S accumulator of a key tile, in place: s
 // becomes p (see the note at the top). `kbias` / `kseg` are the tile's keys,
 // `qseg` the segments of this thread's rows r and r + 8; m and l (l per
 // thread: this thread's columns only) advance, alpha is returned per row.
-// Scores go in pairs (a row's columns c and c + 1) for round_bf16x2.
+// Scores go in pairs (a row's columns c and c + 1). The bf16 interior keeps
+// each pair's s as one bf16x2 register: the max and s - R(m') run on the
+// pairs (max.bf16x2, sub.rn.bf16x2), so of its three roundings only those
+// of s and p are conversions; the float32 interior runs on floats.
 template <bool SM_BF16, bool PACKED>
 __device__ __forceinline__ void softmax_step(float (&sc)[32], const float* kbias,
                                              const int* kseg, const int (&qseg)[2],
                                              float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              int c0) {
+  uint32_t s2[SM_BF16 ? 16 : 1];  // the bf16 interior's s, pair i = sc[2i], sc[2i + 1]
+  uint32_t mx2[2] = {0xFF80FF80u, 0xFF80FF80u};  // -inf, -inf
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -203,29 +242,43 @@ __device__ __forceinline__ void softmax_step(float (&sc)[32], const float* kbias
         if (ks.x != qseg[row]) b0 = fminf(b0, MASK_BIAS);
         if (ks.y != qseg[row]) b1 = fminf(b1, MASK_BIAS);
       }
-      float x0 = sc[4 * n + 2 * row] + b0, x1 = sc[4 * n + 2 * row + 1] + b1;
-      if constexpr (SM_BF16) round_bf16x2(x0, x1);
-      sc[4 * n + 2 * row] = x0;
-      sc[4 * n + 2 * row + 1] = x1;
-      mx[row] = fmaxf(mx[row], fmaxf(x0, x1));
+      const float x0 = sc[4 * n + 2 * row] + b0, x1 = sc[4 * n + 2 * row + 1] + b1;
+      if constexpr (SM_BF16) {
+        s2[2 * n + row] = pack_bf16x2(x0, x1);
+        mx2[row] = max_bf16x2(mx2[row], s2[2 * n + row]);
+      } else {
+        sc[4 * n + 2 * row] = x0;
+        sc[4 * n + 2 * row + 1] = x1;
+        mx[row] = fmaxf(mx[row], fmaxf(x0, x1));
+      }
     }
   }
+  uint32_t m2[2];  // R(m') in both halves
   float m_sm[2];
 #pragma unroll
   for (int row = 0; row < 2; ++row) {
+    if constexpr (SM_BF16) mx[row] = fmaxf(lo_bf16(mx2[row]), hi_bf16(mx2[row]));
     mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
     mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
     const float m_new = fmaxf(m[row], mx[row]);
     alpha[row] = expf(m[row] - m_new);
     m_sm[row] = SM_BF16 ? round_bf16(m_new) : m_new;
+    if constexpr (SM_BF16) m2[row] = (__float_as_uint(m_sm[row]) >> 16) * 0x10001u;
     m[row] = m_new;
   }
   float sum[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
     const int row = (i >> 1) & 1;
-    float y0 = sc[i] - m_sm[row], y1 = sc[i + 1] - m_sm[row];
-    if constexpr (SM_BF16) round_bf16x2(y0, y1);
+    float y0, y1;
+    if constexpr (SM_BF16) {
+      const uint32_t y = sub_bf16x2(s2[i >> 1], m2[row]);
+      y0 = lo_bf16(y);
+      y1 = hi_bf16(y);
+    } else {
+      y0 = sc[i] - m_sm[row];
+      y1 = sc[i + 1] - m_sm[row];
+    }
     float p0 = exp_fast(y0), p1 = exp_fast(y1);
     if constexpr (SM_BF16) round_bf16x2(p0, p1);
     sc[i] = p0;

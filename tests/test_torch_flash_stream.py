@@ -317,3 +317,45 @@ def test_the_tensor_core_forward_steps_the_plain_versions_key_tile():
     assert re.search(r"constexpr int BK = ROWS;", header)
     assert re.search(r"constexpr int BQ = ROWS;", header)
     assert int(rows.group(1)) == port_fa.STREAM_TILE == 64
+
+
+def _bf16_round(x: np.ndarray) -> np.ndarray:
+    """float64 values rounded once to bf16 (to nearest, ties to even; the
+    subnormals' grid 2**-133, past the largest finite value +-inf)."""
+    _, e = np.frexp(x)
+    quantum = np.ldexp(1.0, np.maximum(e - 8, -133))
+    r = np.round(x / quantum) * quantum
+    return np.where(np.abs(r) > 3.3895313892515355e38, np.copysign(np.inf, x), r)
+
+
+def test_one_bf16_rounding_of_a_bf16_difference_is_the_float32_ones():
+    """Under the bf16 interior csrc/flash_fwd_tc.cuh forms y = s - R(m') of
+    two bf16 values as one ``sub.rn.bf16x2``: the exact difference rounded
+    once to bf16. The plain version rounds the float32 difference to bf16,
+    two roundings. They agree for every finite bf16 s against m' of every
+    binade, both signs, and two significands each (the subnormals and the
+    largest finite value among them), so the kernel keeps the plain
+    version's rounding points bit for bit."""
+    bits = np.arange(1 << 16, dtype=np.uint32) << 16
+    every = bits.view(np.float32)
+    s = every[np.isfinite(every)]
+    rng = np.random.default_rng(0)
+    exps = np.arange(-133, 128)
+    sig = np.concatenate([np.ones(len(exps)), 1 + rng.integers(1, 128, len(exps)) / 128])
+    m = np.ldexp(sig, np.concatenate([exps, exps])).astype(np.float64)
+    m = np.concatenate([m, -m, [0.0, 3.3895313892515355e38, -3.3895313892515355e38]])
+    m = m[np.isfinite(m.astype(np.float32))]
+    m = m[_bf16_round(m) == m]  # bf16 values only
+    assert len(m) > 1000
+    s64 = s.astype(np.float64)[None, :]
+    mismatched = 0
+    for chunk in np.array_split(m, 16):
+        with np.errstate(over="ignore", invalid="ignore"):
+            f32 = (s[None, :] - chunk.astype(np.float32)[:, None]).astype(np.float32)
+            u = f32.view(np.uint32)
+            twice = ((u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1)))
+                     & np.uint32(0xFFFF0000)).view(np.float32)
+            twice = np.where(np.isfinite(f32), twice, f32).astype(np.float64)
+            once = _bf16_round(s64 - chunk[:, None])
+        mismatched += int((twice != once).sum())
+    assert mismatched == 0

@@ -234,3 +234,46 @@ def test_tensor_core_stream_kernel_reads_qkv_column_views_in_place(cuda):
             for a, b_ in zip(got, want):
                 torch.testing.assert_close(a, b_, atol=0.0, rtol=0.0)
     assert fa.flash_fwd_stream_tc.launches == before + 8
+
+
+def _one_tile_inputs(case, cuda):
+    """q/k/v (bf16, 8 heads of 64) and key_valid: [1, 32768] at kvl 0.9 T
+    with a hole of 100 keys; [1, 4096] with kvl 3628, 57 key tiles; [2, 2000],
+    T not a multiple of 128 (kvl 2000 and 1337); [8, 2048] with kvl 40-100 %
+    of T and a row of padding only."""
+    b, t, kvls = {"T32768": (1, 32768, [int(0.9 * 32768)]), "T4096_odd_tiles": (1, 4096, [3628]),
+                  "T2000": (2, 2000, [2000, 1337]),
+                  "B8_T2048": (8, 2048, [int(round(f * 2048)) for f in np.linspace(0.4, 1, 7)]
+                               + [0])}[case]
+    rng = np.random.default_rng(t + b)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, (b, t, 8, 64)).astype(np.float32))
+               .to(torch.bfloat16).to(cuda) for _ in range(3))
+    valid = np.zeros((b, t), bool)
+    for i, n in enumerate(kvls):
+        valid[i, :n] = True
+    if t == 32768:
+        valid[:, t // 3: t // 3 + 100] = False
+    return q, k, v, torch.from_numpy(valid).to(cuda)
+
+
+@pytest.mark.parametrize("sm", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", ["T32768", "T4096_odd_tiles", "T2000", "B8_T2048"])
+def test_unpacked_and_one_segment_packed_forwards_agree_bit_for_bit(cuda, case, sm):
+    """With one segment over the whole row the packed semantics are the
+    unpacked ones, so the packed instance of the tensor-core forward (its
+    step tests each key's segment) and the unpacked one must give the same
+    out and lse bits on every row, rows past kvl (0, SKIP_LSE) included,
+    under both softmax interiors, on the dense sweep (T <= 2048) and the
+    stream sweep."""
+    q, k, v, kv = _one_tile_inputs(case, cuda)
+    one_segment = torch.zeros(kv.shape, dtype=torch.int32, device=cuda)
+    before = (fa.flash_fwd_tc.launches, fa.flash_fwd_stream_tc.launches)
+    got = flash_forward(q, k, v, kv, None, sm)
+    want = flash_forward(q, k, v, kv, one_segment, sm)
+    torch.cuda.synchronize()
+    launched = (fa.flash_fwd_tc.launches - before[0], fa.flash_fwd_stream_tc.launches - before[1])
+    assert launched == ((2, 0) if q.shape[1] <= fa.STREAM_MAX_T else (0, 2))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    past = torch.arange(q.shape[1], device=cuda)[None, :] >= _kv_len(kv)
+    assert (got[0][past] == 0).all()
+    assert (got[1][past[:, None, :, None].expand_as(got[1])] == SKIP_LSE).all()
